@@ -1,22 +1,33 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``ldpcdecoders_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
-Drives the BP+OSD decode path of the reference benchmark — the (1000, 10, 9)
-Gallager code, max_iters 100, batch 1024 — through the public decoder API on
-``cuda:0`` and prints, in order:
+Drives the BP+OSD and min-sum decode paths of the reference benchmark — the
+(1000, 10, 9) Gallager code, max_iters 100, batch 1024 — through the public
+decoder API on ``cuda:0`` and prints, in order:
 
   1. the card (``nvidia-smi`` name and power limit);
   2. the nvcc build of ``ldpcdecoders_tpu_torch/csrc`` and its seconds;
   3. each CUDA kernel against its plain torch version on the card at the
-     main path's shape: bitwise equality and both times;
-  4. the main path: BP+OSD-0 at per 0.01 and 0.2 and BP+OSD-2 at per 0.01,
-     every output syndrome-consistent, the kernels' launch counts from
-     that run, and the card's BP against the CPU's on 64 lanes;
+     main path's shape: bitwise equality, both times, and the least time
+     the card could take (bytes over 3.35 TB/s, or the operations these
+     inputs need over 67 TFLOP/s in float32 and a quarter of that for
+     32-bit integer work, whichever is larger);
+  4. the main paths, each one with every launch count set to 0 just before
+     it and read just after it, and failing if a kernel of that path was
+     never launched: (a), (b) BP+OSD-0 at per 0.01 and 0.2, (c) BP+OSD-2 at
+     per 0.01; (e), (f) min-sum in float32 and bfloat16 at per 0.01; (g),
+     (h) BP+OSD with the damped min-sum inner decoder at per 0.2 (OSD-0,
+     and OSD-2 on the failing lanes).  Every OSD output is
+     syndrome-consistent.  (d), (i): the card's BP and min-sum against the
+     CPU's on 64 lanes;
   5. steady-state rates;
   6. a JSON line with each kernel's numbers, the card line again, and last
      ``{"ok": true, "device": {...}}``.
+
+``--profile`` adds a ``torch.profiler`` summary of one steady call of each
+configuration (launches, device-busy share, largest kernels) before 6.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  It needs a CUDA device and the package beside it.
@@ -34,6 +45,13 @@ import numpy as np
 B = 1024
 MAX_ITERS = 100
 DEVICE = "cuda:0"
+# published peaks of one H100 SXM: device memory rate, and the float32 rate
+# outside the tensor cores.  That rate counts a fused multiply-add as two
+# operations on 128 lanes per SM; 32-bit integer and logic instructions
+# run on 64 of those lanes and count once each: a quarter of it.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+PEAK_I32_OPS_PER_S = PEAK_F32_OPS_PER_S / 4
 
 
 def card_line() -> str:
@@ -60,10 +78,14 @@ def assert_consistent(H, guesses, syns, what):
 
 
 def event_ms(torch, fn, reps):
-    """Mean milliseconds per call on the current stream, after one warm-up."""
+    """Mean device milliseconds per call on the current stream, after one
+    warm-up.  A spin kernel of about 10 ms holds the stream while the host
+    enqueues the calls, so the events time the device's work and not the
+    host's launch rate (which is slower than a 50 us kernel)."""
     fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -85,12 +107,53 @@ def wall_s(torch, fn, reps):
 
 
 def max_abs_err(torch, got, want):
-    return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
+    """Largest difference of the raw bit patterns (0 means bitwise equal)."""
+    def raw(t):
+        if t.dtype in (torch.float32, torch.bfloat16):
+            t = t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+        return t.to(torch.int64)
+    return max(int((raw(g) - raw(w)).abs().max()) if g.numel() else 0
                for g, w in zip(got, want))
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes, n_ops, ops_per_s):
+    """Least milliseconds the card could take, what sets it, and both terms."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / ops_per_s * 1e3
+    return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations",
+            by_bytes, by_ops)
+
+
+def profile_call(torch, name, fn, iterations):
+    """torch.profiler over one steady call: wall, device busy, launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side rows only: an operator's row repeats its kernels' time
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(r[1] for r in rows)
+    launches = sum(r[2] for r in rows)
+    print(f"profile {name}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall_ms:.1f}%), {launches} launches "
+          f"({launches / iterations:.1f} per iteration over {iterations})")
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:6]:
+        print(f"    {ms:9.3f} ms x {count:5d}  {key[:110]}")
 
 
 def main() -> int:
     import torch
+
+    want_profile = "--profile" in sys.argv[1:]
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -98,7 +161,8 @@ def main() -> int:
         return 1
     import ldpcdecoders_tpu_torch as pt
     from ldpcdecoders_tpu_torch import _build
-    from ldpcdecoders_tpu_torch.ops import cuda_gf2
+    from ldpcdecoders_tpu_torch.ops import cuda_gf2, cuda_minsum, gf2
+    from ldpcdecoders_tpu_torch.ops import minsum as plain_minsum
 
     # float32 products here are 0/1 sums; keep them in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -125,12 +189,13 @@ def main() -> int:
     errs01, syn01 = syndromes(H, 0.01, rng)
     errs20, syn20 = syndromes(H, 0.2, rng)
     _, syn50 = syndromes(H, 0.5, rng)
+    _, syn05 = syndromes(H, 0.05, rng)
 
     # 3. kernels against their plain versions at the main path's shape:
     # the sorted, packed systems of a per-0.2 batch (every lane fails BP)
     dec0 = pt.BeliefPropagationOSDDecoder(graph, 0.01, MAX_ITERS, device=dev)
     s20 = torch.as_tensor(syn20, device=dev)
-    bp_err, _, _, logp = dec0.bp(s20, dec0.bp.as_ratio(0.2))
+    bp_err, _, _, logp = dec0.bp(s20, dec0.bp.as_prior(0.2))
     perm, Ht, bp_sorted = dec0.osd.sort_and_pack(bp_err, logp)
     hb = bp_err.to(torch.float32) @ dec0.osd.H_cols_f
     resid = (s20.to(torch.int32) ^ (hb.to(torch.int32) & 1)).contiguous()
@@ -138,58 +203,150 @@ def main() -> int:
     print(f"kernel inputs: Ht {tuple(Ht.shape)} int32, lanes with a nonzero residual "
           f"{int((resid != 0).any(dim=1).sum())} of {B}")
 
-    kernels = []
+    # the eliminations' operations depend on the data.  The plain versions
+    # count, per lane, the column trips made before the lane stops (OSD-0:
+    # no residual left outside the pivot space; elimination: full rank) and
+    # the rows each pivot is XORed into.  A trip tests bit j of all m rows
+    # (a shift and a mask each); a row XOR is W words and the syndrome bit.
+    W = Ht.shape[1]
+
+    def elim_ops(work, what):
+        trips, row_xors = (int(t.sum()) for t in work)
+        print(f"work {what}: {trips / B:.1f} trips and {row_xors / B:.1f} row XORs per lane "
+              f"({row_xors / max(trips, 1):.2f} rows per trip of {m})")
+        return trips * m * 2 + row_xors * (W + 1)
+
+    osd0_ops = elim_ops(gf2.gf2_osd0(Ht, resid, bp_sorted, n, return_work=True)[1], "gf2_osd0")
+    full_ops = elim_ops(gf2.gf2_eliminate(Ht, s_int, n, return_work=True)[4], "gf2_eliminate")
+    gf2_src = "ldpcdecoders_tpu_torch/csrc/gf2_elim.cu"
+    shape_gf2 = f"B={B} W={Ht.shape[1]} m={m} n={n}"
+    corr_bytes, piv_bytes = B * n * 4, B * m * 4
     cases = [
-        ("gf2_osd0", "ldpcdecoders_tpu/ops/pallas_gf2.py:93",
+        ("gf2_osd0", gf2_src, "ldpcdecoders_tpu/ops/pallas_gf2.py:93", shape_gf2,
          lambda: (cuda_gf2.gf2_osd0_cuda(Ht, resid, bp_sorted, n),),
-         lambda: (cuda_gf2.gf2_osd0_ref(Ht, resid, bp_sorted, n),)),
-        ("gf2_eliminate", "ldpcdecoders_tpu/ops/pallas_gf2.py:39",
+         lambda: (cuda_gf2.gf2_osd0_ref(Ht, resid, bp_sorted, n),),
+         bound(nbytes(Ht, resid, bp_sorted) + corr_bytes, osd0_ops, PEAK_I32_OPS_PER_S)),
+        ("gf2_eliminate", gf2_src, "ldpcdecoders_tpu/ops/pallas_gf2.py:39", shape_gf2,
          lambda: cuda_gf2.gf2_eliminate_cuda(Ht, s_int, n),
-         lambda: cuda_gf2.gf2_eliminate_ref(Ht, s_int, n)),
+         lambda: cuda_gf2.gf2_eliminate_ref(Ht, s_int, n),
+         bound(2 * nbytes(Ht, s_int) + piv_bytes, full_ops, PEAK_I32_OPS_PER_S)),
     ]
-    for name, replaces, kern, plain in cases:
+
+    # min-sum kernels: the messages entering the second iteration of a
+    # per-0.05 batch (mixed magnitudes and signs), float32 and bfloat16, read
+    # through the index table (the main path) and directly
+    s05 = torch.as_tensor(syn05, device=dev)
+    flip05 = s05.to(torch.bool)
+    minsum_src = "ldpcdecoders_tpu_torch/csrc/minsum.cu"
+    dc, dv = graph.max_dc, graph.max_dv
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        ms = pt.MinSumDecode(graph, 0.05, MAX_ITERS, device=dev, dtype=dtype, alpha=0.8)
+        L0 = torch.broadcast_to(ms.default_L0, (B, n)).contiguous()
+        nu0 = torch.broadcast_to(L0[:, None, :], (B, dv, n)).reshape(B, dv * n).contiguous()
+        mu1 = cuda_minsum.minsum_check_cuda(nu0, ms.c2v, flip05, ms.chk_mask, ms.alpha, 0.0)
+        nu1, _ = cuda_minsum.minsum_var_cuda(mu1.reshape(B, dc * m), ms.v2c, ms.var_mask, L0)
+        nu1 = nu1.reshape(B, dv * n)
+        Ng1 = nu1.index_select(1, ms.c2v).reshape(B, dc, m).contiguous()
+        mu2 = cuda_minsum.minsum_check_cuda(nu1, ms.c2v, flip05, ms.chk_mask, ms.alpha, 0.0)
+        mu2 = mu2.reshape(B, dc * m)
+        chk_ops, var_ops = 14 * B * dc * m, 4 * B * dv * n
+        out_chk, out_var = nbytes(mu2), nbytes(nu1, L0)
+
+        def chk(x, idx, ms=ms):
+            return lambda: (cuda_minsum.minsum_check_cuda(x, idx, flip05, ms.chk_mask,
+                                                          ms.alpha, 0.0),)
+
+        def chk_plain(x, idx, ms=ms):
+            if idx is None:
+                return lambda: (plain_minsum.check_core_ref(x, flip05, ms.chk_mask,
+                                                            ms.alpha, 0.0),)
+            return lambda: (plain_minsum.check_update_ref(x, idx, flip05, ms.chk_mask,
+                                                          ms.alpha, 0.0),)
+
+        cases += [
+            (f"minsum_check {tag} gathered", minsum_src,
+             "ldpcdecoders_tpu/ops/pallas_minsum.py:53", f"B={B} dc={dc} m={m}",
+             chk(nu1, ms.c2v), chk_plain(nu1, ms.c2v),
+             bound(nbytes(nu1, ms.c2v, flip05, ms.chk_mask) + out_chk, chk_ops,
+                   PEAK_F32_OPS_PER_S)),
+            (f"minsum_check {tag} direct", minsum_src,
+             "ldpcdecoders_tpu/ops/pallas_minsum.py:53", f"B={B} dc={dc} m={m}",
+             chk(Ng1, None), chk_plain(Ng1, None),
+             bound(nbytes(Ng1, flip05, ms.chk_mask) + out_chk, chk_ops,
+                   PEAK_F32_OPS_PER_S)),
+            (f"minsum_var {tag}", minsum_src,
+             "ldpcdecoders_tpu/ops/pallas_minsum.py:91", f"B={B} dv={dv} n={n}",
+             lambda mu2=mu2, ms=ms, L0=L0: cuda_minsum.minsum_var_cuda(
+                 mu2, ms.v2c, ms.var_mask, L0),
+             lambda mu2=mu2, ms=ms, L0=L0: plain_minsum.var_update_ref(
+                 mu2, ms.v2c, ms.var_mask, L0),
+             bound(nbytes(mu2, ms.v2c, ms.var_mask, L0) + out_var, var_ops,
+                   PEAK_F32_OPS_PER_S)),
+        ]
+
+    # one entry per kernel in the summary: the first case of each name is
+    # the main path's (float32, gathered); the others add their times
+    kernels = {}
+    for name, source, replaces, shape, kern, plain, bounds in cases:
+        bound_ms, bound_by, by_bytes, by_ops = bounds
         got = kern()
         torch.cuda.synchronize()
         want = plain()
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want)
-        ms = event_ms(torch, kern, 10)
+        ms_k = event_ms(torch, kern, 10)
         plain_ms = event_ms(torch, plain, 2)
-        print(f"kernel {name}: max_abs_err {err} (bitwise required) | kernel {ms:.3f} ms | "
-              f"plain torch {plain_ms:.3f} ms | B={B} W={Ht.shape[1]} m={m} n={n} | {card}")
+        print(f"kernel {name}: max_abs_err {err} (bitwise required) | kernel {ms_k:.3f} ms | "
+              f"plain torch {plain_ms:.3f} ms | bound {bound_ms:.4f} ms by {bound_by} "
+              f"(bytes {by_bytes:.4f}, operations {by_ops:.4f}) | "
+              f"library call: none | {shape} | {card}")
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version")
-        kernels.append({"name": name, "route": "cuda",
-                        "source": "ldpcdecoders_tpu_torch/csrc/gf2_elim.cu",
-                        "replaces": replaces, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms})
+        key, _, variant = name.partition(" ")
+        if key not in kernels:
+            kernels[key] = {"name": key, "route": "cuda", "source": source,
+                            "replaces": replaces, "max_abs_err": err, "ms": ms_k,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": None, "variants": {}}
+        else:
+            kernels[key]["max_abs_err"] = max(kernels[key]["max_abs_err"], err)
+            kernels[key]["variants"][variant] = {"ms": ms_k, "plain_ms": plain_ms,
+                                                 "bound_ms": bound_ms}
+    wrappers = {"gf2_osd0": cuda_gf2.gf2_osd0_cuda, "gf2_eliminate": cuda_gf2.gf2_eliminate_cuda,
+                "minsum_check": cuda_minsum.minsum_check_cuda,
+                "minsum_var": cuda_minsum.minsum_var_cuda}
 
-    # 4. the main path, through the public API; count kernel launches
+    path_launches = {}
+
+    def drive(path, expect, fn):
+        """Run one main path with every count set to 0 just before it and
+        read just after it; a kernel of ``expect`` never launched fails."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        for k in expect:
+            if counts[k] == 0:
+                raise AssertionError(f"main ({path}) never launched {k}")
+        path_launches[path] = counts
+        print(f"main ({path}) launches: {counts}")
+        return out
+
+    # 4. the main paths, through the public API, each with its own counts
     dec2 = pt.BeliefPropagationOSDDecoder(graph, 0.01, MAX_ITERS, osd_order=2, device=dev)
-    cuda_gf2.gf2_osd0_cuda.launches = 0
-    cuda_gf2.gf2_eliminate_cuda.launches = 0
-    g01, c01 = dec0.batch_decode(syn01)
+    # (a) launches a kernel only if some lane fails BP: none is required
+    g01, c01 = drive("a", [], lambda: dec0.batch_decode(syn01))
     assert_consistent(H, g01, syn01, "BP+OSD-0 per 0.01")
     print(f"main (a) BP+OSD-0 per 0.01: converged {c01.mean():.4f}, exact recovery "
           f"{(g01.astype(bool) == errs01).all(axis=1).mean():.4f}, all syndrome-consistent")
-    before = cuda_gf2.gf2_osd0_cuda.launches
-    g20, c20 = dec0.batch_decode(syn20, per=0.2)
+    g20, c20 = drive("b", ["gf2_osd0"], lambda: dec0.batch_decode(syn20, per=0.2))
     assert_consistent(H, g20, syn20, "BP+OSD-0 per 0.2")
-    if cuda_gf2.gf2_osd0_cuda.launches <= before:
-        raise AssertionError("BP+OSD-0 at per 0.2 did not launch the OSD-0 kernel")
     print(f"main (b) BP+OSD-0 per 0.2: converged {c20.mean():.4f}, exact recovery "
           f"{(g20.astype(bool) == errs20).all(axis=1).mean():.4f}, all syndrome-consistent")
-    g2, c2 = dec2.batch_decode(syn01)
+    g2, c2 = drive("c", ["gf2_eliminate"], lambda: dec2.batch_decode(syn01))
     assert_consistent(H, g2, syn01, "BP+OSD-2 per 0.01")
     print(f"main (c) BP+OSD-2 per 0.01: converged {c2.mean():.4f}, exact recovery "
           f"{(g2.astype(bool) == errs01).all(axis=1).mean():.4f}, all syndrome-consistent")
-    launches = {"gf2_osd0": cuda_gf2.gf2_osd0_cuda.launches,
-                "gf2_eliminate": cuda_gf2.gf2_eliminate_cuda.launches}
-    print(f"main launches: {launches}")
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-        if k["launches"] == 0:
-            raise AssertionError(f"the main path never launched {k['name']}")
 
     # (d) the card's BP against the CPU's on 64 lanes (32 at per 0.01, 32 at
     # per 0.2): err, converged and iters must agree bitwise; logp is
@@ -209,6 +366,54 @@ def main() -> int:
         raise AssertionError("BP on the card disagrees with BP on the CPU")
     np.testing.assert_allclose(lp_g, lp_c, rtol=1e-5, atol=1e-6)
 
+    # the min-sum paths (e)-(h)
+    ms32 = pt.MinSumDecoder(graph, 0.01, MAX_ITERS, device=dev)
+    ms16 = pt.MinSumDecoder(graph, 0.01, MAX_ITERS, dtype=torch.bfloat16, device=dev)
+    osd_ms = pt.BeliefPropagationOSDDecoder(graph, 0.2, MAX_ITERS, inner="minsum",
+                                            damping=0.4, device=dev)
+    osd2_ms = pt.BeliefPropagationOSDDecoder(graph, 0.2, MAX_ITERS, inner="minsum", damping=0.4,
+                                             osd_order=2, osd_scope="failed", device=dev)
+    minsum_kernels = ["minsum_check", "minsum_var"]
+    for path, what, dec in (("e", "min-sum float32", ms32), ("f", "min-sum bfloat16", ms16)):
+        g, c, iters, aux, _ = drive(path, minsum_kernels,
+                                    lambda dec=dec: dec.batch_decode_detailed(syn01))
+        if g.shape != (B, n) or g.dtype != np.int8 or not np.isfinite(aux["llrs"]).all():
+            raise AssertionError(f"({path}) {what}: output {g.shape} {g.dtype} or non-finite LLRs")
+        assert_consistent(H, g[c], syn01[c], f"({path}) {what} (converged lanes)")
+        print(f"main ({path}) {what} per 0.01: converged {c.mean():.4f}, exact recovery "
+              f"{(g.astype(bool) == errs01).all(axis=1).mean():.4f}, "
+              f"iterations mean {iters.mean():.2f} max {iters.max()}")
+        if c.mean() < 0.99:
+            raise AssertionError(f"({path}) {what}: only {c.mean():.4f} of the lanes converged")
+    gm, cm = drive("g", minsum_kernels + ["gf2_osd0"], lambda: osd_ms.batch_decode(syn20))
+    assert_consistent(H, gm, syn20, "min-sum+OSD-0 per 0.2")
+    print(f"main (g) BP+OSD-0, inner min-sum damping 0.4, per 0.2: converged {cm.mean():.4f}, "
+          f"exact recovery {(gm.astype(bool) == errs20).all(axis=1).mean():.4f}, "
+          "all syndrome-consistent")
+    gm2, cm2 = drive("h", minsum_kernels + ["gf2_eliminate"],
+                     lambda: osd2_ms.batch_decode(syn20[:128]))
+    assert_consistent(H, gm2, syn20[:128], "min-sum+OSD-2 failed scope per 0.2")
+    print(f"main (h) BP+OSD-2 on failing lanes, inner min-sum damping 0.4, per 0.2, 128 lanes: "
+          f"converged {cm2.mean():.4f}, all syndrome-consistent")
+    # in the summary, ``launches`` is the count of the first path that must
+    # launch the kernel; ``launches_by_path`` has every path's own count
+    own_path = {"gf2_osd0": "b", "gf2_eliminate": "c", "minsum_check": "e", "minsum_var": "e"}
+    for k, path in own_path.items():
+        kernels[k]["launches"] = path_launches[path][k]
+        kernels[k]["launches_path"] = path
+        kernels[k]["launches_by_path"] = {p: c[k] for p, c in path_launches.items()}
+
+    # (i) the card's min-sum against the CPU's on the same 64 lanes, float32:
+    # err, converged, iters and LLRs must agree bitwise
+    ms_cpu = pt.MinSumDecoder(graph, 0.01, MAX_ITERS, device="cpu")
+    e_c, c_c, i_c, a_c, _ = ms_cpu.batch_decode_detailed(lanes)
+    e_g, c_g, i_g, a_g, _ = ms32.batch_decode_detailed(lanes)
+    same = (np.array_equal(e_c, e_g), np.array_equal(c_c, c_g), np.array_equal(i_c, i_g),
+            np.array_equal(a_c["llrs"].view(np.uint32), a_g["llrs"].view(np.uint32)))
+    print(f"main (i) min-sum cuda vs cpu, 64 lanes: err/converged/iters/llrs bitwise {same}")
+    if not all(same):
+        raise AssertionError("min-sum on the card disagrees with min-sum on the CPU")
+
     # 5. steady-state rates (host clock around calls that end in a sync)
     tag = f"| B={B} | {card}"
     d01, d20, d50 = (torch.as_tensor(s, device=dev) for s in (syn01, syn20, syn50))
@@ -224,8 +429,31 @@ def main() -> int:
     t, _ = wall_s(torch, lambda: dec2.batch_decode_async(d01), 3)
     print(f"rate BP+OSD-2 per 0.01: {B / t:.1f} syndromes/s ({t * 1e3:.1f} ms/batch) {tag}")
 
+    for what, dec in (("float32", ms32), ("bfloat16", ms16)):
+        t, out = wall_s(torch, lambda: dec.minsum(d50), 3)
+        iters = int(out[2].max()) or MAX_ITERS
+        print(f"rate min-sum {what} per 0.5: {B * iters * graph.n_edges / t:.4e} "
+              f"edge-iterations/s ({iters} iterations, {t * 1e3:.1f} ms/batch) {tag}")
+    t, _ = wall_s(torch, lambda: ms32.batch_decode_async(d01), 3)
+    print(f"rate min-sum float32 per 0.01: {B / t:.1f} syndromes/s ({t * 1e3:.1f} ms/batch) "
+          f"{tag}")
+    t, _ = wall_s(torch, lambda: osd_ms.batch_decode_async(d20), 3)
+    print(f"rate BP+OSD-0 inner min-sum damping 0.4 per 0.2: {B / t:.1f} syndromes/s "
+          f"({t * 1e3:.1f} ms/batch) {tag}")
+
+    if want_profile:
+        for name, fn, its in (
+            ("BP per 0.5", lambda: bp_gpu.bp(d50), MAX_ITERS),
+            ("min-sum float32 per 0.5", lambda: ms32.minsum(d50), MAX_ITERS),
+            ("min-sum bfloat16 per 0.5", lambda: ms16.minsum(d50), MAX_ITERS),
+            ("min-sum damping 0.4 per 0.5", lambda: osd_ms.bp(d50), MAX_ITERS),
+            ("BP+OSD-0 inner min-sum per 0.2", lambda: osd_ms.batch_decode_async(d20),
+             MAX_ITERS),
+        ):
+            profile_call(torch, name, fn, its)
+
     # 6. summary lines; the last line is the result
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": list(kernels.values())}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

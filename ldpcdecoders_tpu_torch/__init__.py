@@ -2,10 +2,11 @@
 
 A port of ``ldpcdecoders_tpu`` (JAX on a TPU), which stays the reference it
 is tested against.  This package imports torch and numpy, never jax.  It
-carries the sum-product BP and BP+OSD decode path: Gallager codes,
-Tanner-graph compilation, batched BP in plain torch, and the OSD
-eliminations as hand-written CUDA kernels (``csrc/``, built with nvcc at
-first use on a CUDA device).
+carries the sum-product BP, min-sum and BP+OSD decode paths: Gallager
+codes, Tanner-graph compilation, batched BP in plain torch, and the
+min-sum message updates and the OSD eliminations as hand-written CUDA
+kernels (``csrc/``, built with nvcc at first use on a CUDA device).
+Decoders run on the current CUDA card unless built with ``device="cpu"``.
 """
 
 from .codes import TannerGraph, parity_check_matrix
@@ -14,8 +15,11 @@ from .models import (
     BeliefPropagationOSDDecoder,
     DecodeStats,
     Decoder,
+    MinSumDecode,
+    MinSumDecoder,
     batchdecode,
     decode,
+    decode_soft,
 )
 
 __all__ = [
@@ -25,8 +29,11 @@ __all__ = [
     "DecodeStats",
     "decode",
     "batchdecode",
+    "decode_soft",
     "BeliefPropagationDecoder",
     "BeliefPropagationOSDDecoder",
+    "MinSumDecoder",
+    "MinSumDecode",
 ]
 
 __version__ = "0.1.0"

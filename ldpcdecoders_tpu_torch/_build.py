@@ -1,7 +1,8 @@
 """Build the CUDA kernels in ``csrc/`` with nvcc at first use, load with ctypes.
 
 The sources compile into one shared library with a plain C interface
-(no PyTorch headers, so the build takes seconds).  The library lands in
+(no PyTorch headers, so the build takes seconds): one nvcc per source, all
+started together, then one link.  The library lands in
 ``_kernels/`` beside this file (listed in ``.gitignore``) under a name that
 hashes the sources and flags, so an edited source is rebuilt and a build
 from an older checkout is never loaded.
@@ -25,7 +26,7 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -51,24 +52,32 @@ def build_library() -> tuple[Path, float, str]:
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    lib = BUILD_DIR / f"libldpc_gf2_{digest.hexdigest()[:16]}.so"
+    lib = BUILD_DIR / f"libldpc_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name and rename: concurrent builds never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, seconds, proc.stdout + proc.stderr
+    # objects and the library get temporary names, and the library is
+    # renamed when complete: concurrent builds never load a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for obj, src in zip(objs, sources)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in cmds]
+        outs = [proc.communicate()[0] for proc in procs]
+        cmds.append([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(Path(tmp) / "lib.so"), *objs])
+        if all(proc.returncode == 0 for proc in procs):
+            link = subprocess.run(cmds[-1], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+            procs.append(link)
+            outs.append(link.stdout)
+        for cmd, proc, out in zip(cmds, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+        os.replace(Path(tmp) / "lib.so", lib)
+    return lib, time.perf_counter() - t0, "".join(outs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,6 +90,11 @@ def load_library() -> ctypes.CDLL:
     lib.ldpc_gf2_eliminate.restype = i32
     lib.ldpc_gf2_osd0.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
     lib.ldpc_gf2_osd0.restype = i32
+    i64, f32 = ctypes.c_longlong, ctypes.c_float
+    lib.ldpc_minsum_check.argtypes = [ptr] * 5 + [i32] * 3 + [i64] + [f32] * 3 + [i32, ptr]
+    lib.ldpc_minsum_check.restype = i32
+    lib.ldpc_minsum_var.argtypes = [ptr] * 7 + [i32] * 3 + [i64, i32, ptr]
+    lib.ldpc_minsum_var.restype = i32
     lib.ldpc_cuda_error_string.argtypes = [i32]
     lib.ldpc_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -6,8 +6,9 @@ single-syndrome ``decode`` is the batch-of-one case.  Every decoder returns
 a uniform int8 error estimate.
 
 Each decoder is an ``nn.Module`` whose graph tables are registered buffers
-on the ``device`` it was built for.  A decoder never picks a device itself:
-asking for CUDA where none is available raises.
+on the ``device`` it was built for.  ``device=None`` is the current CUDA
+card; a decoder never picks the CPU itself, and asking for CUDA where none
+is available raises.
 """
 
 from __future__ import annotations
@@ -17,15 +18,20 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["Decoder", "DecodeStats", "decode", "batchdecode", "resolve_device"]
+__all__ = ["Decoder", "DecodeStats", "decode", "batchdecode", "decode_soft", "resolve_device"]
 
 
 def resolve_device(device) -> torch.device:
-    """``torch.device(device)``, raising if it names an absent CUDA card."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} was requested but torch.cuda.is_available() is False")
+    """``torch.device(device)``, or the current CUDA card for None; raises if
+    that is an absent CUDA card."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device} was requested but torch.cuda.is_available() is False "
+                "(pass device='cpu' to decode on the CPU)")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -106,6 +112,12 @@ class Decoder(torch.nn.Module):
         errors, converged, _, _ = self._call_decode(syndromes, per)
         return errors, converged
 
+    def batch_decode_detailed_async(self, syndromes, *, per=None):
+        """Like :meth:`batch_decode_detailed` without the copies to the
+        host: returns ``(errors, converged, iters, aux)`` as tensors on the
+        decoder's device."""
+        return self._call_decode(syndromes, per)
+
     def batch_decode_detailed(self, syndromes, *, per=None):
         """Like :meth:`batch_decode` but also returns iteration counts,
         decoder-specific auxiliary output, and :class:`DecodeStats`."""
@@ -113,7 +125,9 @@ class Decoder(torch.nn.Module):
         errors = errors.cpu().numpy()
         converged = converged.cpu().numpy()
         iters = iters.cpu().numpy()
-        aux = {k: v.cpu().numpy() for k, v in aux.items()}
+        # numpy has no bfloat16: such values come back as float32 (exact)
+        aux = {k: (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
+               for k, v in aux.items()}
         return errors, converged, iters, aux, DecodeStats.from_arrays(converged, iters)
 
 
@@ -126,3 +140,33 @@ def batchdecode(decoder: Decoder, syndromes, **kw):
     """Free-function form of ``decoder.batch_decode`` (reference
     ``batchdecode!``), batch-first."""
     return decoder.batch_decode(syndromes, **kw)
+
+
+def decode_soft(decoder: Decoder, llrs):
+    """Codeword-domain soft-input decoding from received channel LLRs.
+
+    The classical-FEC entry point (BPSK/AWGN etc.): given per-bit received
+    LLRs ``[B, n]`` (positive = bit 0 more likely), take the hard decision,
+    decode its syndrome with per-lane priors derived from the LLR
+    magnitudes (``p_wrong = 1/(1+e^{|llr|})``), and flip the estimated
+    error pattern back out.  Needs a decoder that accepts ``[B, n]`` priors
+    (BP, min-sum).
+
+    Returns ``(codeword [B, n] int8, converged [B] bool)``.
+    """
+    from ..ops.syndrome import SyndromeCheck
+
+    llrs = np.asarray(llrs, dtype=np.float64)
+    if llrs.ndim != 2 or llrs.shape[1] != decoder.n:
+        raise ValueError(f"expected llrs of shape [B, {decoder.n}], got {llrs.shape}")
+    hard = (llrs < 0).astype(np.int8)
+    syn_fn = getattr(decoder, "_soft_syndrome_fn", None)
+    if syn_fn is None:  # built once; re-used across streaming calls
+        syn_fn = SyndromeCheck(decoder.graph, decoder.device)
+        decoder._soft_syndrome_fn = syn_fn
+    syn = syn_fn(torch.as_tensor(hard.astype(np.float32), device=decoder.device))
+    # probability the hard decision is wrong; floored away from 0 so the
+    # prior stays finite for saturated LLRs
+    p_wrong = np.clip(1.0 / (1.0 + np.exp(np.abs(llrs))), 1e-12, 0.5)
+    err, converged = decoder.batch_decode(syn.to(torch.int8).cpu().numpy(), per=p_wrong)
+    return (hard ^ err.astype(np.int8)).astype(np.int8), converged

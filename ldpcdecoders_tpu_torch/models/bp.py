@@ -57,10 +57,10 @@ class BPDecode(torch.nn.Module):
         buf("v2c", v2c_t.astype(np.int64))
         buf("chk_mask", chk_mask_t)  # [max_dc, m]
         buf("var_mask", var_mask_t)  # [max_dv, n]
-        self.register_buffer("default_ratio", self.as_ratio(per))
+        self.register_buffer("default_ratio", self.as_prior(per))
         self.syndrome_from = SyndromeCheck(graph, device)
 
-    def as_ratio(self, per) -> torch.Tensor:
+    def as_prior(self, per) -> torch.Tensor:
         """Validate a scalar / [n] / [B, n] prior; convert to the ratio domain."""
         return torch.as_tensor(per_to_ratio(per, self.n), dtype=self.dtype,
                                device=self.var_mask.device)
@@ -129,11 +129,12 @@ class BeliefPropagationDecoder(Decoder):
         compiled :class:`TannerGraph`.
       per: physical error rate (scalar or per-bit ``[n]``).
       max_iters: maximum BP iterations.
-      device: where the graph tables live and decoding runs.
+      device: where the graph tables live and decoding runs; None is the
+        current CUDA card.
       dtype: message dtype (float32 default).
     """
 
-    def __init__(self, H, per, max_iters: int, *, device="cpu", dtype=torch.float32):
+    def __init__(self, H, per, max_iters: int, *, device=None, dtype=torch.float32):
         super().__init__()
         self.device = resolve_device(device)
         self.graph = as_graph(H)
@@ -144,6 +145,6 @@ class BeliefPropagationDecoder(Decoder):
                            dtype=dtype)
 
     def _decode_batch(self, syndromes, per=None):
-        ratio = None if per is None else self.bp.as_ratio(per)
+        ratio = None if per is None else self.bp.as_prior(per)
         err, converged, iters, logp = self.bp(syndromes, ratio)
         return err, converged, iters, {"log_probabs": logp}

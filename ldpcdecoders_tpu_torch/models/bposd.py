@@ -2,15 +2,18 @@
 
 Counterpart of ``ldpcdecoders_tpu/models/bposd.py``:
 
-  * inner BP is the batched sum-product decoder (models/bp.py), whose log
-    probabilities rank column reliability;
+  * the inner soft-output decoder is the batched sum-product decoder
+    (models/bp.py) or a min-sum decoder (models/minsum.py); its log
+    probability ratios / LLRs (the same quantity, log(p0/p1)) rank column
+    reliability;
   * per lane, the columns of H are sorted most-reliable-first and
     bit-packed on the device (:meth:`OSD.sort_and_pack`);
   * OSD-0 runs only on the lanes whose BP output misses the syndrome: the
     host gathers them into a power-of-two bucket, the OSD-0 kernel
     (ops/cuda_gf2.py ``gf2_osd0_cuda``) decodes them, and the result is
     scattered back;
-  * OSD-w (w > 0) runs on every lane: the Gauss–Jordan kernel
+  * OSD-w (w > 0) runs on every lane, or with ``osd_scope="failed"`` on
+    the failing lanes only: the Gauss–Jordan kernel
     (``gf2_eliminate_cuda``) reduces each system and the 2^w sweep
     (ops/gf2.py ``osdw_sweep``) picks the lightest completion.
 
@@ -18,9 +21,8 @@ Counterpart of ``ldpcdecoders_tpu/models/bposd.py``:
 always syndrome-consistent for OSD-0, and for OSD-w whenever H's rows span
 the syndrome.
 
-Not carried over yet: ``fused``, ``osd_scope="failed"``,
-``osd_method="combination_sweep"``, ``osd_impl="host"``, ``inner=`` and
-``damping``; they raise ``NotImplementedError``.
+Not carried over yet: ``fused``, ``osd_method="combination_sweep"`` and
+``osd_impl="host"``; they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,9 +36,40 @@ from ..ops.cuda_gf2 import gf2_eliminate_cuda, gf2_osd0_cuda
 from ..ops.gf2 import osdw_sweep, wrap_int32
 from .base import Decoder, resolve_device
 from .bp import BPDecode, as_graph
+from .minsum import MinSumDecode, MinSumDecoder
 from .priors import next_pow2
 
 __all__ = ["BeliefPropagationOSDDecoder", "OSD", "make_osd_fns"]
+
+
+def _make_inner(graph, per, max_iters, inner, damping, device):
+    """Resolve the OSD's inner soft-output decoder: a module
+    ``(syndromes, prior) -> (err, converged, iters, soft)`` whose
+    ``as_prior(per)`` builds the per-call override in its own prior domain
+    (probability ratio for BP, LLR for min-sum).
+
+    ``inner`` is ``"sumproduct"`` (or None), ``"minsum"``, or a constructed
+    :class:`MinSumDecoder` on the same code and device.
+    """
+    if inner is None or inner == "sumproduct":
+        if damping:
+            raise ValueError(
+                "damping is a min-sum knob; use inner='minsum' (or pass a "
+                "damped MinSumDecoder instance)")
+        return BPDecode(graph, per, max_iters, device=device)
+    if isinstance(inner, str) and inner == "minsum":
+        return MinSumDecode(graph, per, max_iters, damping=damping, device=device)
+    if not isinstance(inner, MinSumDecoder):
+        raise TypeError(
+            "inner must be 'sumproduct', 'minsum', or a MinSumDecoder instance, "
+            f"got {inner!r}")
+    if (inner.m, inner.n) != (graph.m, graph.n):
+        raise ValueError(
+            f"inner decoder is built on an [{inner.m}, {inner.n}] "
+            f"code; this OSD wraps [{graph.m}, {graph.n}]")
+    if inner.device != device:
+        raise ValueError(f"inner decoder is on {inner.device}; this OSD runs on {device}")
+    return inner.minsum
 
 
 def _gf2_rank(H: np.ndarray) -> int:
@@ -152,10 +185,18 @@ class BeliefPropagationOSDDecoder(Decoder):
       max_iters: maximum BP iterations.
       osd_order: OSD order w (default 0); the sweep scales as 2^w.
       osd_method: only ``"exhaustive"`` (the reference's 2^w sweep).
-      osd_scope: only ``"all"``: with osd_order > 0 the sweep runs on
-        every lane.
-      device: where the graph tables live and decoding runs.  On a CUDA
-        device the OSD eliminations run in the hand-written kernels.
+      osd_scope: ``"all"`` (default): with osd_order > 0 the sweep runs on
+        every lane, and may return a lower-weight solution even where the
+        inner decoder converged.  ``"failed"``: OSD-w goes through the same
+        failing-lane compaction as OSD-0 and converged lanes keep the
+        inner decoder's output.
+      inner: the soft-output decoder whose LLRs rank the OSD column
+        reliabilities: ``"sumproduct"`` (default), ``"minsum"``, or a
+        constructed :class:`MinSumDecoder` on the same code and device.
+      damping: message damping of ``inner="minsum"``.
+      device: where the graph tables live and decoding runs; None is the
+        current CUDA card.  On a CUDA device the OSD eliminations and the
+        min-sum message updates run in the hand-written kernels.
     """
 
     def __init__(
@@ -171,7 +212,7 @@ class BeliefPropagationOSDDecoder(Decoder):
         fused: bool = False,
         inner=None,
         damping: float = 0.0,
-        device="cpu",
+        device=None,
     ):
         super().__init__()
         if osd_scope not in ("all", "failed"):
@@ -183,11 +224,8 @@ class BeliefPropagationOSDDecoder(Decoder):
             raise ValueError("osd_impl must be 'device' or 'host'")
         unported = {
             "fused=True": fused,
-            "osd_scope='failed'": osd_scope != "all",
             "osd_method='combination_sweep'": osd_method != "exhaustive",
             "osd_impl='host'": osd_impl != "device",
-            "inner=": inner not in (None, "sumproduct"),
-            "damping": bool(damping),
         }
         missing = [k for k, v in unported.items() if v]
         if missing:
@@ -210,19 +248,23 @@ class BeliefPropagationOSDDecoder(Decoder):
                     f"{max_order}; clamping.", stacklevel=2)
                 osd_order = int(max_order)
         self.osd_order = int(osd_order)
-        self.bp = BPDecode(self.graph, self.per, self.max_iters, device=self.device)
+        self.osd_scope = osd_scope
+        self.damping = float(damping)
+        self.bp = _make_inner(self.graph, self.per, self.max_iters, inner, self.damping,
+                              self.device)
         self.osd = OSD(self.graph, self.osd_order, device=self.device)
 
     def _decode_batch(self, syndromes, per=None):
-        ratio = None if per is None else self.bp.as_ratio(per)
-        bp_err, converged, iters, logp = self.bp(syndromes, ratio)
+        prior = None if per is None else self.bp.as_prior(per)
+        bp_err, converged, iters, logp = self.bp(syndromes, prior)
         aux = {"log_probabs": logp}
-        if self.osd_order > 0:
+        if self.osd_order > 0 and self.osd_scope == "all":
             corr = self.osd.osdw_batch(syndromes, bp_err, logp)
             return corr.to(torch.int8), converged, iters, aux
 
-        # OSD-0: only lanes whose BP output misses the syndrome need work;
-        # BP's converged flag is exactly that test
+        # OSD-0 (and OSD-w under osd_scope="failed"): only lanes whose inner
+        # output misses the syndrome need work; the converged flag is
+        # exactly that test
         need = np.flatnonzero(~converged.cpu().numpy())
         if need.size == 0:
             return bp_err, converged, iters, aux
@@ -231,7 +273,8 @@ class BeliefPropagationOSDDecoder(Decoder):
         bucket = next_pow2(need.size)
         idx = np.concatenate([need, np.repeat(need[:1], bucket - need.size)])
         idx = torch.as_tensor(idx, device=self.device)
-        corr = self.osd.osd0_batch(syndromes[idx], bp_err[idx], logp[idx])
+        post = self.osd.osd0_batch if self.osd_order == 0 else self.osd.osdw_batch
+        corr = post(syndromes[idx], bp_err[idx], logp[idx])
         out = bp_err.clone()
         out[idx[: need.size]] = corr[: need.size].to(torch.int8)
         return out, converged, iters, aux

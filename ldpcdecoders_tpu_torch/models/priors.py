@@ -8,7 +8,13 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["validate_per", "per_to_ratio", "next_pow2"]
+__all__ = [
+    "validate_per",
+    "per_to_ratio",
+    "per_to_llr",
+    "per_to_depolarizing_llr",
+    "next_pow2",
+]
 
 
 def validate_per(per, n: int) -> np.ndarray:
@@ -24,6 +30,18 @@ def per_to_ratio(per, n: int) -> np.ndarray:
     """p -> p/(1-p) (sum-product probability-ratio domain)."""
     p = validate_per(per, n)
     return p / (1.0 - p)
+
+
+def per_to_llr(per, n: int) -> np.ndarray:
+    """p -> log((1-p)/p) (binary-symmetric-channel LLR)."""
+    p = validate_per(per, n)
+    return np.log((1.0 - p) / p)
+
+
+def per_to_depolarizing_llr(per, n: int) -> np.ndarray:
+    """p -> log((1-2p/3)/(2p/3)) (depolarizing prior)."""
+    p = validate_per(per, n)
+    return np.log((1.0 - 2.0 * p / 3.0) / (2.0 * p / 3.0))
 
 
 def next_pow2(x: int) -> int:

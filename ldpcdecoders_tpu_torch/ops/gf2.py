@@ -73,7 +73,8 @@ def _first_row(avail: torch.Tensor):
     return k, k < m
 
 
-def gf2_osd0(Ht: torch.Tensor, resid: torch.Tensor, bp_err: torch.Tensor, n: int):
+def gf2_osd0(Ht: torch.Tensor, resid: torch.Tensor, bp_err: torch.Tensor, n: int,
+             return_work: bool = False):
     """Batched OSD-0 elimination; returns the ``[B, n]`` int32 correction.
 
     Semantics of the reference's OSD-0 kernel (pallas_gf2.py ``_osd0_kernel``,
@@ -89,12 +90,17 @@ def gf2_osd0(Ht: torch.Tensor, resid: torch.Tensor, bp_err: torch.Tensor, n: int
       resid: ``[B, m]`` 0/1 residual syndrome of ``bp_err``.
       bp_err: ``[B, n]`` 0/1 BP hard decisions (sorted order).
       n: column count.
+      return_work: also return the work these inputs needed, ``(trips [B],
+        row_xors [B])`` int64: the column trips a lane made before it
+        stopped, and the rows its pivots were XORed into.
     """
     B, W, m = Ht.shape
     device = Ht.device
     Ht = Ht.to(torch.int32).clone()
     s = resid.to(torch.int32).clone()
     bp = bp_err.to(torch.int32)
+    trips = torch.zeros(B, dtype=torch.int64, device=device)
+    row_xors = torch.zeros(B, dtype=torch.int64, device=device)
     piv = torch.full((B, m), n, dtype=torch.int32, device=device)
     rows = torch.arange(m, device=device)
     active = torch.ones(B, dtype=torch.bool, device=device)
@@ -115,7 +121,11 @@ def gf2_osd0(Ht: torch.Tensor, resid: torch.Tensor, bp_err: torch.Tensor, n: int
         Ht = torch.where(elim[:, None, :], Ht ^ pivrow, Ht)
         s = torch.where(elim, s ^ pivs, s)
         piv = torch.where(is_k & do[:, None], j, piv)
-    return scatter_pivots(bp, piv, s, n)
+        if return_work:
+            trips += active
+            row_xors += elim.sum(dim=1)
+    corr = scatter_pivots(bp, piv, s, n)
+    return (corr, (trips, row_xors)) if return_work else corr
 
 
 def scatter_pivots(values: torch.Tensor, piv: torch.Tensor, s: torch.Tensor, n: int):
@@ -128,7 +138,7 @@ def scatter_pivots(values: torch.Tensor, piv: torch.Tensor, s: torch.Tensor, n: 
     return out[:, :n]
 
 
-def gf2_eliminate(Ht: torch.Tensor, s: torch.Tensor, n: int):
+def gf2_eliminate(Ht: torch.Tensor, s: torch.Tensor, n: int, return_work: bool = False):
     """Batched Gauss–Jordan RREF of packed columns, syndrome co-transformed.
 
     The pivot of column j is the first unused row with bit j set; it is
@@ -141,12 +151,16 @@ def gf2_eliminate(Ht: torch.Tensor, s: torch.Tensor, n: int):
 
     Returns ``(Ht [B, W, m] int32, s [B, m] int32, pivcol [B, m] int32, r [B])``
     where ``pivcol[b, i]`` is row i's pivot column (sentinel ``n``) and
-    ``r`` the rank.
+    ``r`` the rank; with ``return_work`` a fifth item ``(trips [B],
+    row_xors [B])`` int64, the column trips a lane made before it reached
+    full rank and the rows its pivots were XORed into.
     """
     B, W, m = Ht.shape
     device = Ht.device
     Ht = Ht.to(torch.int32).clone()
     s = s.to(torch.int32).clone()
+    trips = torch.zeros(B, dtype=torch.int64, device=device)
+    row_xors = torch.zeros(B, dtype=torch.int64, device=device)
     piv = torch.full((B, m), n, dtype=torch.int32, device=device)
     rows = torch.arange(m, device=device)
     r = torch.zeros(B, dtype=torch.int32, device=device)
@@ -163,8 +177,11 @@ def gf2_eliminate(Ht: torch.Tensor, s: torch.Tensor, n: int):
         Ht = torch.where(elim[:, None, :], Ht ^ pivrow, Ht)
         s = torch.where(elim, s ^ pivs, s)
         piv = torch.where(is_k & found[:, None], j, piv)
+        if return_work:
+            trips += r < m
+            row_xors += elim.sum(dim=1)
         r = r + found.to(torch.int32)
-    return Ht, s, piv, r
+    return (Ht, s, piv, r, (trips, row_xors)) if return_work else (Ht, s, piv, r)
 
 
 def _first_min(x: torch.Tensor):

@@ -1,0 +1,101 @@
+"""Plain torch versions of the min-sum message updates.
+
+These are the functions the two min-sum kernels compute
+(``csrc/minsum.cu``, wrapped in ops/cuda_minsum.py), written with the
+rounding points and reduction orders of the reference package's default
+path (``ldpcdecoders_tpu/models/minsum.py`` ``check_core`` /
+``var_update``), so that the CPU, the card and the kernels agree bit for
+bit:
+
+  * check update: padded slots read as ``+BIG``; the leave-one-out minimum
+    is ``min2`` at a unique minimum slot and ``min1`` elsewhere (equal to
+    the two-minimum sweep with first-minimum ties); signs combine by XOR
+    parity with the syndrome; ``alpha * excl`` and ``- beta`` round
+    separately (no fused multiply-add);
+  * variable update: masked messages (optionally weighted) are summed
+    slot by slot in float32 starting from 0, the sum is rounded to the
+    message dtype once, then ``total = L0 + sum`` and ``nu = total - msg``
+    each round to the message dtype.  The sum takes the float32 products
+    ``msg * W`` (exact for bfloat16 factors), as the reference's compiled
+    program does; ``nu`` subtracts the product rounded to the message
+    dtype.
+
+Messages are slot-major ``[B, slot, node]``; the ``*_update_ref`` forms
+take the other side's flattened messages and gather through the static
+tables of codes/graph.py first.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "BIG",
+    "check_core_ref",
+    "var_core_ref",
+    "check_update_ref",
+    "var_update_ref",
+]
+
+#: magnitude a padded check slot reads as (positive, so inert in the parity)
+BIG = 1e30
+
+
+def check_core_ref(Ng, syn_flip, chk_mask, alpha, beta):
+    """Check-slot messages ``Ng [B, dc, m]`` -> ``mu [B, dc, m]``.
+
+    Args:
+      Ng: var->check messages in check-slot layout.
+      syn_flip: ``[B, m]`` bool syndrome.
+      chk_mask: ``[dc, m]`` bool edge-validity mask.
+      alpha, beta: normalization factor and offset (floats already rounded
+        to the message dtype).
+    """
+    big = torch.tensor(BIG, dtype=Ng.dtype, device=Ng.device)
+    masked = torch.where(chk_mask, Ng, big)
+    mag = masked.abs()
+    neg = masked < 0
+    min1 = mag.amin(dim=1, keepdim=True)
+    eq1 = mag == min1
+    unique = eq1.sum(dim=1, keepdim=True) == 1
+    min2 = torch.where(eq1, big, mag).amin(dim=1, keepdim=True)
+    parity = (neg.sum(dim=1, keepdim=True) & 1).to(torch.bool)
+    excl = torch.where(eq1 & unique, min2, min1)
+    flip = parity ^ neg ^ syn_flip[:, None, :]
+    mag_out = torch.clamp_min(alpha * excl - beta, 0.0)
+    return torch.where(flip, -mag_out, mag_out)
+
+
+def var_core_ref(Mg, var_mask, L0, W=None, want_nu=True):
+    """Var-slot messages ``Mg [B, dv, n]`` -> ``(nu [B, dv, n], total [B, n])``.
+
+    ``L0`` is the channel LLR, broadcastable to ``[B, n]``; ``W [dv, n]``
+    optionally weights each incoming message.  With ``want_nu=False`` only
+    ``total`` is computed and ``nu`` is None.
+    """
+    dtype = Mg.dtype
+    Mg = torch.where(var_mask, Mg, torch.zeros((), dtype=dtype, device=Mg.device))
+    prod = Mg.to(torch.float32)
+    if W is not None:
+        prod = prod * W.to(dtype).to(torch.float32)
+        Mg = prod.to(dtype)
+    acc = torch.zeros((Mg.shape[0], Mg.shape[2]), dtype=torch.float32, device=Mg.device)
+    for k in range(Mg.shape[1]):  # slot order, so every backend adds alike
+        acc = acc + prod[:, k]
+    total = L0 + acc.to(dtype)
+    nu = total[:, None, :] - Mg if want_nu else None
+    return nu, total
+
+
+def check_update_ref(nu_flat, c2v, syn_flip, chk_mask, alpha, beta):
+    """Var-side ``nu_flat [B, dv*n]`` -> check-side ``mu [B, dc, m]``."""
+    dc, m = chk_mask.shape
+    Ng = nu_flat.index_select(1, c2v).reshape(nu_flat.shape[0], dc, m)
+    return check_core_ref(Ng, syn_flip, chk_mask, alpha, beta)
+
+
+def var_update_ref(mu_flat, v2c, var_mask, L0, W=None, want_nu=True):
+    """Check-side ``mu_flat [B, dc*m]`` -> ``(nu [B, dv, n], total [B, n])``."""
+    dv, n = var_mask.shape
+    Mg = mu_flat.index_select(1, v2c).reshape(mu_flat.shape[0], dv, n)
+    return var_core_ref(Mg, var_mask, L0, W, want_nu)

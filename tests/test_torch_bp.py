@@ -99,7 +99,8 @@ def decode_both(H, built_per, max_iters, syns, **kw):
     reference's compiled graph arrays."""
     ref = lt.BeliefPropagationDecoder(H, built_per, max_iters)
     port = pt.BeliefPropagationDecoder(
-        pt.TannerGraph.from_arrays(**dataclasses.asdict(ref.graph)), built_per, max_iters)
+        pt.TannerGraph.from_arrays(**dataclasses.asdict(ref.graph)), built_per, max_iters,
+        device="cpu")
     r = ref.batch_decode_detailed(syns, **kw)
     p = port.batch_decode_detailed(syns, **kw)
     return r, p
@@ -133,7 +134,7 @@ def test_bp_matches_golden_exactly(medium_code):
     per, B = 0.02, 16
     errs = rng.random((B, H.shape[1])) < per
     syns = (errs @ H.T) % 2
-    dec = pt.BeliefPropagationDecoder(H, per, 25)
+    dec = pt.BeliefPropagationDecoder(H, per, 25, device="cpu")
     err, conv, iters, aux, _ = dec.batch_decode_detailed(syns)
     for b in range(B):
         ge, gc, glogp, giters = golden_bp(H, syns[b], per, 25, dtype=np.float32)
@@ -154,10 +155,10 @@ def test_bp_per_override(medium_code):
         r, p = decode_both(H, 0.01, 20, syns, per=per)
         assert_bp_outputs_match(r, p)
     # an override equals a decoder built at that rate
-    built = pt.BeliefPropagationDecoder(H, 0.05, 20).batch_decode(syns)
-    over = pt.BeliefPropagationDecoder(H, 0.01, 20).batch_decode(syns, per=0.05)
+    built = pt.BeliefPropagationDecoder(H, 0.05, 20, device="cpu").batch_decode(syns)
+    over = pt.BeliefPropagationDecoder(H, 0.01, 20, device="cpu").batch_decode(syns, per=0.05)
     assert np.array_equal(built[0], over[0]) and np.array_equal(built[1], over[1])
-    dec = pt.BeliefPropagationDecoder(H, 0.01, 20)
+    dec = pt.BeliefPropagationDecoder(H, 0.01, 20, device="cpu")
     with pytest.raises(ValueError, match="per-lane prior batch"):
         dec.batch_decode(syns, per=per_lane[:3])
 

@@ -116,6 +116,57 @@ def test_gf2_eliminate_ref_matches_reference(B, m, n, dens):
     assert cuda_gf2.gf2_eliminate_cuda.launches == launches
 
 
+def dense_elimination_work(H, n, resid=None, bp=None):
+    """(trips, row XORs) of one lane's elimination on a dense 0/1 matrix, in
+    plain numpy: the full elimination, or OSD-0's with its early stop."""
+    H = H.astype(np.uint8).copy()
+    m = H.shape[0]
+    used = np.zeros(m, bool)
+    s = None if resid is None else resid.astype(np.uint8).copy()
+    trips = xors = 0
+    for j in range(n):
+        if (used.all() if s is None else not (s.astype(bool) & ~used).any()):
+            break
+        trips += 1
+        col = H[:, j].astype(bool)
+        free = np.flatnonzero(col & ~used)
+        if free.size == 0:
+            continue
+        k = free[0]
+        if s is not None and bp[j]:
+            s ^= col
+        others = col.copy()
+        others[k] = False
+        xors += int(others.sum())
+        H[others] ^= H[k]
+        if s is not None:
+            s[others] ^= s[k]
+        used[k] = True
+    return trips, xors
+
+
+@pytest.mark.parametrize("B,m,n,dens", [(4, 60, 80, 0.3), (3, 90, 130, 0.08), (3, 31, 33, 0.5)])
+def test_elimination_work_counts(B, m, n, dens):
+    """``return_work`` leaves the results as they are and counts the trips
+    and row XORs that a dense numpy elimination of the same lanes makes."""
+    rng = np.random.default_rng(11 + m)
+    H, _, Ht = packed_systems(rng, B, m, n, dens)
+    s = (rng.random((B, m)) < 0.5).astype(np.uint32)
+    bp = (rng.random((B, n)) < 0.2).astype(np.uint32)
+    resid = (np.einsum("bmn,bn->bm", H, (rng.random((B, n)) < 0.1)) % 2).astype(np.uint32)
+    resid[0] = rng.random(m) < 0.5
+    plain = port_gf2.gf2_eliminate(i32(Ht), i32(s), n)
+    *same, (trips, xors) = port_gf2.gf2_eliminate(i32(Ht), i32(s), n, return_work=True)
+    assert all(torch.equal(a, b) for a, b in zip(plain, same))
+    want = [dense_elimination_work(H[b], n) for b in range(B)]
+    assert [(int(t), int(x)) for t, x in zip(trips, xors)] == want
+    corr, (trips, xors) = port_gf2.gf2_osd0(i32(Ht), i32(resid), i32(bp), n, return_work=True)
+    assert torch.equal(corr, port_gf2.gf2_osd0(i32(Ht), i32(resid), i32(bp), n))
+    want = [dense_elimination_work(H[b], n, resid[b], bp[b]) for b in range(B)]
+    assert [(int(t), int(x)) for t, x in zip(trips, xors)] == want
+    assert min(t for t, _ in want) < n  # OSD-0 stops early on these
+
+
 @pytest.mark.parametrize("w", [0, 1, 2, 3, 5])
 def test_osdw_sweep_matches_reference(w):
     rng = np.random.default_rng(20 + w)
@@ -209,36 +260,105 @@ def test_bposd_decoder_matches_reference(order, code, per, iters):
     assert np.array_equal(c, c_ref)
     assert not c.all(), "the case needs lanes that fail BP"
     _, _, _, a_ref, _ = lt.BeliefPropagationDecoder(H, per, iters).batch_decode_detailed(syns)
-    _, _, _, a_port, _ = pt.BeliefPropagationDecoder(H, per, iters).batch_decode_detailed(syns)
+    _, _, _, a_port, _ = pt.BeliefPropagationDecoder(
+        H, per, iters, device="cpu").batch_decode_detailed(syns)
     ties = tie_lanes(np.asarray(a_ref["log_probabs"]), a_port["log_probabs"])
     assert_lanes_equal(g_ref, g, H, syns, ties, f"BP+OSD-{order}")
 
 
+INNER_VARIANTS = {
+    "minsum": lambda mk: dict(inner="minsum"),
+    "minsum_damped": lambda mk: dict(inner="minsum", damping=0.5),
+    "instance": lambda mk: dict(inner=mk(alpha=0.8, check_every=2)),
+    "minsum_failed_scope": lambda mk: dict(inner="minsum", osd_scope="failed"),
+    "sumproduct_failed_scope": lambda mk: dict(osd_scope="failed"),
+}
+
+
+@pytest.mark.parametrize("order", [0, 2])
+@pytest.mark.parametrize("variant", list(INNER_VARIANTS))
+def test_bposd_inner_and_scope_match_reference(order, variant):
+    """``inner=`` (by name, damped, or a constructed MinSumDecoder) and
+    ``osd_scope="failed"``, end to end through batch_decode with lanes that
+    fail the inner decoder; bitwise but for reliability ties."""
+    n, wr, wc, seed = 240, 8, 4, 17
+    per, iters, B = 0.055, 20, 16
+    H = lt.parity_check_matrix(n, wr, wc, rng=seed)
+    rng = np.random.default_rng(seed)
+    errs = rng.random((B, n)) < per
+    syns = ((errs @ H.T) % 2).astype(np.uint8)
+    kw_ref = INNER_VARIANTS[variant](lambda **kw: lt.MinSumDecoder(H, per, iters, **kw))
+    kw_port = INNER_VARIANTS[variant](
+        lambda **kw: pt.MinSumDecoder(H, per, iters, device="cpu", **kw))
+    ref = lt.BeliefPropagationOSDDecoder(H, per, iters, osd_order=order, **kw_ref)
+    port = pt.BeliefPropagationOSDDecoder(H, per, iters, osd_order=order, device="cpu",
+                                          **kw_port)
+    # built-in prior, then a per-call override, which goes through the
+    # inner decoder's own prior domain (ratio for BP, LLR for min-sum)
+    for override in (None, 0.04):
+        g_ref, c_ref, i_ref, a_ref, _ = ref.batch_decode_detailed(syns, per=override)
+        g, c, i, a, _ = port.batch_decode_detailed(syns, per=override)
+        assert g.dtype == np.int8 and set(a) == {"log_probabs"}
+        assert np.array_equal(c, c_ref) and np.array_equal(i, i_ref)
+        assert c.any() and not c.all(), "the case needs lanes that fail and that converge"
+        ties = tie_lanes(np.asarray(a_ref["log_probabs"]), a["log_probabs"])
+        assert_lanes_equal(g_ref, g, H, syns, ties, f"BP+OSD-{order} {variant}")
+    if "failed" in variant:  # converged lanes keep the inner decoder's output
+        inner = (pt.MinSumDecoder if "minsum" in variant else pt.BeliefPropagationDecoder)(
+            H, per, iters, device="cpu")
+        assert np.array_equal(g[c], inner.batch_decode(syns, per=0.04)[0][c])
+
+
+def test_bposd_damped_minsum_inner_small_case():
+    """The case of tests/test_minsum.py:96 (toric code, damping 0.3): the
+    port equals the reference's compacting and fused decoders."""
+    H = lt.toric_code_x(3)
+    syn = np.zeros((4, 9), np.uint8)
+    syn[1, 2] = 1
+    syn[1, 5] = 1
+    for damping in (0.3, 0.4):
+        ref = lt.BeliefPropagationOSDDecoder(H, 0.05, 30, inner="minsum", damping=damping)
+        port = pt.BeliefPropagationOSDDecoder(H, 0.05, 30, inner="minsum", damping=damping,
+                                              device="cpu")
+        e_r, c_r = ref.batch_decode(syn)
+        e_p, c_p = port.batch_decode(syn)
+        assert np.array_equal(e_r, e_p) and np.array_equal(c_r, c_p)
+        assert (((e_p.astype(np.uint8) @ H.T) & 1) == syn).all()
+        assert port.damping == damping
+
+
 def test_bposd_options_and_validation():
     H = lt.parity_check_matrix(60, 6, 3, rng=19)
-    for kw in (dict(fused=True), dict(osd_scope="failed"),
-               dict(osd_method="combination_sweep"), dict(osd_impl="host"),
-               dict(inner="minsum"), dict(damping=0.5)):
+    make = lambda *a, **kw: pt.BeliefPropagationOSDDecoder(*a, device="cpu", **kw)  # noqa: E731
+    for kw in (dict(fused=True), dict(osd_method="combination_sweep"), dict(osd_impl="host")):
         with pytest.raises(NotImplementedError, match="not ported"):
-            pt.BeliefPropagationOSDDecoder(H, 0.1, 10, **kw)
+            make(H, 0.1, 10, **kw)
+    with pytest.raises(ValueError, match="min-sum knob"):
+        make(H, 0.1, 10, damping=0.3)
+    with pytest.raises(TypeError, match="inner must be"):
+        make(H, 0.1, 10, inner=pt.BeliefPropagationDecoder(H, 0.1, 10, device="cpu"))
+    with pytest.raises(TypeError, match="inner must be"):
+        make(H, 0.1, 10, inner="bogus")
+    other = pt.MinSumDecoder(lt.parity_check_matrix(120, 6, 3, rng=51), 0.1, 10, device="cpu")
+    with pytest.raises(ValueError, match="inner decoder is built on"):
+        make(H, 0.1, 10, inner=other)
     for kw, match in ((dict(osd_scope="bogus"), "osd_scope"),
                       (dict(osd_method="bogus"), "osd_method"),
                       (dict(osd_impl="bogus"), "osd_impl"),
                       (dict(osd_order=-1), "osd_order")):
         with pytest.raises(ValueError, match=match):
-            pt.BeliefPropagationOSDDecoder(H, 0.1, 10, **kw)
+            make(H, 0.1, 10, **kw)
     with pytest.raises(ValueError, match="dense parity-check"):
-        pt.BeliefPropagationOSDDecoder(pt.TannerGraph.from_edges(*np.nonzero(H), *H.shape),
-                                       0.1, 10)
+        make(pt.TannerGraph.from_edges(*np.nonzero(H), *H.shape), 0.1, 10)
     hamming = np.array([[1, 0, 1, 0, 1, 0, 1],
                         [0, 1, 1, 0, 0, 1, 1],
                         [0, 0, 0, 1, 1, 1, 1]], np.uint8)  # rank 3, n 7
     with pytest.warns(UserWarning, match="clamping"):
-        dec = pt.BeliefPropagationOSDDecoder(hamming, 0.05, 10, osd_order=6)
+        dec = make(hamming, 0.05, 10, osd_order=6)
     assert dec.osd_order == 4
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        assert pt.BeliefPropagationOSDDecoder(hamming, 0.05, 10, osd_order=4).osd_order == 4
+        assert make(hamming, 0.05, 10, osd_order=4).osd_order == 4
 
 
 def test_bposd_per_override_and_single_decode():
@@ -246,8 +366,8 @@ def test_bposd_per_override_and_single_decode():
     rng = np.random.default_rng(8)
     errs = rng.random((8, 120)) < 0.08
     syns = ((errs @ H.T) % 2).astype(np.uint8)
-    built = pt.BeliefPropagationOSDDecoder(H, 0.08, 20).batch_decode(syns)
-    over = pt.BeliefPropagationOSDDecoder(H, 0.01, 20)
+    built = pt.BeliefPropagationOSDDecoder(H, 0.08, 20, device="cpu").batch_decode(syns)
+    over = pt.BeliefPropagationOSDDecoder(H, 0.01, 20, device="cpu")
     g, c = over.batch_decode(syns, per=0.08)
     assert np.array_equal(g, built[0]) and np.array_equal(c, built[1])
     assert np.array_equal(over.decode(syns[3], per=0.08)[0], g[3])

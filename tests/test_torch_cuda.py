@@ -13,7 +13,8 @@ import pytest
 import torch
 
 import ldpcdecoders_tpu_torch as pt
-from ldpcdecoders_tpu_torch.ops import cuda_gf2
+from ldpcdecoders_tpu_torch.ops import cuda_gf2, cuda_minsum
+from ldpcdecoders_tpu_torch.ops import minsum as plain_minsum
 
 pytestmark = pytest.mark.cuda
 
@@ -109,3 +110,120 @@ def test_decoder_on_card_matches_cpu(dev, order):
     agree = (same[0] == same[1]).all(axis=1)
     assert agree.mean() >= 0.75
     assert np.array_equal(e_c[agree], e_g[agree])
+
+
+def random_graph(rng, m, n, dens, heavy_row=False):
+    """A random Tanner graph with degree-1 checks and padded slots."""
+    H = (rng.random((m, n)) < dens).astype(np.uint8)
+    if heavy_row:
+        H[0] = 1
+    H[-1] = 0
+    H[-1, rng.integers(n)] = 1  # a degree-1 check
+    H[rng.integers(m), H.sum(axis=0) == 0] = 1  # no isolated variable
+    return pt.TannerGraph.from_pcm(H)
+
+
+def bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+# (B, m, n, density, heavy row): m not a multiple of 32, dc = 1 (m x m
+# identity-like), dc > 64 (signs past the register mask), B = 1 and B = 0
+MINSUM_SHAPES = [(5, 37, 75, 0.1, False), (1, 33, 50, 0.2, False), (3, 21, 90, 0.1, True),
+                 (0, 37, 75, 0.1, False), (4, 1, 1, 1.0, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,m,n,dens,heavy", MINSUM_SHAPES)
+def test_minsum_kernels_match_plain_versions(dev, dtype, B, m, n, dens, heavy):
+    rng = np.random.default_rng(m * n + B)
+    g = random_graph(rng, m, n, dens, heavy) if n > 1 else pt.TannerGraph.from_pcm(
+        np.ones((1, 1), np.uint8))
+    if heavy:
+        assert g.max_dc > 64
+    c2v, v2c, chk_mask, var_mask = (torch.as_tensor(a) for a in g.slot_major())
+    c2v, v2c = c2v.to(torch.int32), v2c.to(torch.int32)
+    dc, dv = g.max_dc, g.max_dv
+    nu = torch.as_tensor(rng.normal(size=(B, dv * n)) * 3).to(dtype)
+    nu[:, ::7] = 0.0
+    nu[:, 1::11] = nu[:, :1].expand(-1, nu[:, 1::11].shape[1])  # ties
+    Ng = torch.as_tensor(rng.normal(size=(B, dc, m)) * 3).to(dtype)
+    syn = torch.as_tensor(rng.random((B, m)) < 0.5)
+    mu_flat = torch.as_tensor(rng.normal(size=(B, dc * m)) * 3).to(dtype)
+    L0 = torch.as_tensor(rng.normal(size=(B, n)) * 2).to(dtype)
+    W = torch.as_tensor(rng.uniform(0.3, 1.4, size=(dv, n))).to(dtype)
+    on = lambda *ts: [None if t is None else t.to(dev) for t in ts]  # noqa: E731
+
+    for alpha, beta in ((1.0, 0.0), (0.8125, 0.15625)):
+        for x, idx in ((nu, c2v), (Ng, None)):
+            want = cuda_minsum.minsum_check_cuda(x, idx, syn, chk_mask, alpha, beta)
+            before = cuda_minsum.minsum_check_cuda.launches
+            got = cuda_minsum.minsum_check_cuda(*on(x, idx, syn, chk_mask), alpha, beta)
+            torch.cuda.synchronize()
+            assert cuda_minsum.minsum_check_cuda.launches == before + (B > 0)
+            assert got.dtype == dtype and torch.equal(bits(got.cpu()), bits(want))
+    for w in (None, W):
+        for want_nu in (True, False):
+            want = cuda_minsum.minsum_var_cuda(mu_flat, v2c, var_mask, L0, w, want_nu)
+            got = cuda_minsum.minsum_var_cuda(*on(mu_flat, v2c, var_mask, L0, w), want_nu)
+            torch.cuda.synchronize()
+            assert (got[0] is None) == (not want_nu)
+            for a, b in zip(got, want):
+                if a is not None:
+                    assert torch.equal(bits(a.cpu()), bits(b))
+    # the plain versions on the card equal the plain versions on the CPU
+    got = plain_minsum.check_update_ref(*on(nu, c2v, syn, chk_mask), 0.8125, 0.15625)
+    want = plain_minsum.check_update_ref(nu, c2v, syn, chk_mask, 0.8125, 0.15625)
+    assert torch.equal(bits(got.cpu()), bits(want))
+
+
+def test_minsum_wrappers_check_inputs(dev):
+    g = pt.TannerGraph.from_pcm(pt.parity_check_matrix(60, 6, 3, rng=19))
+    c2v, v2c, chk_mask, var_mask = (torch.as_tensor(a).to(dev) for a in g.slot_major())
+    c2v, v2c = c2v.to(torch.int32), v2c.to(torch.int32)
+    nu = torch.zeros((2, g.max_dv * g.n), device=dev)
+    syn = torch.zeros((2, g.m), dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError, match="int32"):
+        cuda_minsum.minsum_check_cuda(nu, c2v.to(torch.int64), syn, chk_mask, 1.0, 0.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cuda_minsum.minsum_check_cuda(nu.to(torch.float16), c2v, syn, chk_mask, 1.0, 0.0)
+    with pytest.raises(TypeError, match="bool"):
+        cuda_minsum.minsum_check_cuda(nu, c2v, syn.to(torch.uint8), chk_mask, 1.0, 0.0)
+    with pytest.raises(ValueError, match="expected cuda"):
+        cuda_minsum.minsum_check_cuda(nu, c2v.cpu(), syn, chk_mask, 1.0, 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_minsum.minsum_var_cuda(torch.zeros((g.max_dc * g.m, 2), device=dev).t(), v2c,
+                                    var_mask, torch.zeros((2, g.n), device=dev))
+    with pytest.raises(TypeError, match="L0"):
+        cuda_minsum.minsum_var_cuda(torch.zeros((2, g.max_dc * g.m), device=dev), v2c,
+                                    var_mask, torch.zeros((2, g.n), device=dev,
+                                                          dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(dtype=torch.bfloat16), dict(damping=0.4),
+                                dict(layout="check", check_every=4),
+                                dict(alpha=0.8, beta=0.1, track_best=True)])
+def test_minsum_on_card_matches_cpu(dev, kw):
+    H = pt.parity_check_matrix(240, 8, 4, rng=37)
+    rng = np.random.default_rng(3)
+    errs = rng.random((32, 240)) < 0.05
+    syns = torch.as_tensor(((errs @ H.T) % 2).astype(np.uint8))
+    graph = pt.TannerGraph.from_pcm(H)
+    cpu = pt.MinSumDecode(graph, 0.05, 30, device="cpu", **kw)
+    gpu = pt.MinSumDecode(graph, 0.05, 30, device=dev, **kw)
+    before = cuda_minsum.minsum_var_cuda.launches
+    want = cpu(syns)
+    got = gpu(syns.to(dev))
+    assert cuda_minsum.minsum_var_cuda.launches > before
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(bits(got[3].cpu()), bits(want[3]))
+
+
+def test_default_device_is_the_card(dev):
+    H = pt.parity_check_matrix(60, 6, 3, rng=19)
+    for dec in (pt.MinSumDecoder(H, 0.05, 10), pt.BeliefPropagationDecoder(H, 0.05, 10),
+                pt.BeliefPropagationOSDDecoder(H, 0.05, 10, inner="minsum")):
+        assert dec.device == torch.device("cuda", torch.cuda.current_device())
+        g, c = dec.batch_decode(np.zeros((2, H.shape[0]), np.uint8))
+        assert c.all() and not g.any()
