@@ -4,8 +4,10 @@
     python3 chip_smoke.py [--profile]
 
 Drives the BP+OSD and min-sum decode paths of the reference benchmark — the
-(1000, 10, 9) Gallager code, max_iters 100, batch 1024 — through the public
-decoder API on ``cuda:0`` and prints, in order:
+(1000, 10, 9) Gallager code, max_iters 100, batch 1024 — and the
+quasi-cyclic paths (the (6, 3)-regular nb=24, Z=128 code of the reference
+benchmark's QC extra; the bb144 six-round space-time lift) through the
+public decoder API on ``cuda:0`` and prints, in order:
 
   1. the card (``nvidia-smi`` name and power limit);
   2. the nvcc build of ``ldpcdecoders_tpu_torch/csrc`` and its seconds;
@@ -21,7 +23,11 @@ decoder API on ``cuda:0`` and prints, in order:
      (h) BP+OSD with the damped min-sum inner decoder at per 0.2 (OSD-0,
      and OSD-2 on the failing lanes).  Every OSD output is
      syndrome-consistent.  (d), (i): the card's BP and min-sum against the
-     CPU's on 64 lanes;
+     CPU's on 64 lanes.  (j) ``QCMinSumDecoder`` layered at per 0.04, 32
+     sweeps; (k) ``SpaceTimeDecoder.for_bicycle("bb144", "x", 6, 0.003, 60)``
+     on 2048 detector records: one launch of the whole-decode kernel per
+     call, converged lanes reproduce their input; (l) both against the CPU
+     on 64 lanes, bitwise;
   5. steady-state rates;
   6. a JSON line with each kernel's numbers, the card line again, and last
      ``{"ok": true, "device": {...}}``.
@@ -43,6 +49,7 @@ import time
 import numpy as np
 
 B = 1024
+BK = 2048  # detector records of the space-time path
 MAX_ITERS = 100
 DEVICE = "cuda:0"
 # published peaks of one H100 SXM: device memory rate, and the float32 rate
@@ -120,30 +127,38 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(n_bytes, n_ops, ops_per_s):
-    """Least milliseconds the card could take, what sets it, and both terms."""
-    by_bytes, by_ops = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / ops_per_s * 1e3
+def bound(n_bytes, n_ops, ops_per_s, n_int_ops=0):
+    """Least milliseconds the card could take, what sets it, and both terms.
+    ``n_int_ops`` is 32-bit integer work done beside ``n_ops`` (index
+    arithmetic): its time at the integer rate adds to the operations term."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = (n_ops / ops_per_s + n_int_ops / PEAK_I32_OPS_PER_S) * 1e3
     return (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations",
             by_bytes, by_ops)
 
 
-def profile_call(torch, name, fn, iterations):
-    """torch.profiler over one steady call: wall, device busy, launches."""
+def profile_call(torch, name, fn, iterations, calls=1):
+    """torch.profiler over ``calls`` steady calls in a row (several for a
+    call much shorter than the profiler's own start): wall, device busy,
+    launches."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    iterations *= calls
     # device-side rows only: an operator's row repeats its kernels' time
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(r[1] for r in rows)
     launches = sum(r[2] for r in rows)
-    print(f"profile {name}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+    print(f"profile {name}: {calls} call(s), wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
           f"({100 * busy / wall_ms:.1f}%), {launches} launches "
           f"({launches / iterations:.1f} per iteration over {iterations})")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:6]:
@@ -161,8 +176,10 @@ def main() -> int:
         return 1
     import ldpcdecoders_tpu_torch as pt
     from ldpcdecoders_tpu_torch import _build
-    from ldpcdecoders_tpu_torch.ops import cuda_gf2, cuda_minsum, gf2
+    from ldpcdecoders_tpu_torch.models.priors import per_to_llr
+    from ldpcdecoders_tpu_torch.ops import cuda_gf2, cuda_minsum, cuda_qc, gf2
     from ldpcdecoders_tpu_torch.ops import minsum as plain_minsum
+    from ldpcdecoders_tpu_torch.ops.qc_minsum import qc_launch_shape, qc_minsum_ref
 
     # float32 products here are 0/1 sums; keep them in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -284,19 +301,124 @@ def main() -> int:
                    PEAK_F32_OPS_PER_S)),
         ]
 
+    # the whole-decode group-circulant kernel: the reference benchmark's QC
+    # code (mb=12, nb=24, 72 terms, Z=128) at per 0.04, 32 sweeps, and the
+    # bb144 six-round space-time lift (Z=72, 6-8 terms a row, 60 sweeps)
+    base_qc = pt.random_qc_base_matrix(24, 6, 3, 128, rng=7)
+    Hq = pt.qc_lift(base_qc, 128)
+    rng_qc = np.random.default_rng(0)
+    qerrs, qsyn = syndromes(Hq, 0.04, rng_qc)
+    # erased bits (prior 0.5, LLR 0) on 8% of the positions, per lane
+    erased = rng_qc.random(qerrs.shape) < 0.08
+    qerrs_e = np.where(erased, rng_qc.random(qerrs.shape) < 0.5, qerrs)
+    qsyn_e = ((qerrs_e.astype(np.float32) @ Hq.T.astype(np.float32)) % 2).astype(np.uint8)
+    pri_e = torch.as_tensor(per_to_llr(np.where(erased, 0.5, 0.04), Hq.shape[1]),
+                            dtype=torch.float32, device=dev)
+
+    def qc_dec(**kw):
+        return pt.QCMinSumDecoder(base_qc, 128, 0.04, 32, device=dev, **kw)
+
+    qdec = qc_dec(schedule="layered")
+    st = pt.SpaceTimeDecoder.for_bicycle("bb144", "x", 6, 0.003, 60, device=dev)
+    rng_st = np.random.default_rng(9)
+    st_x = (rng_st.random((BK, st.n_cols)) < st._prior[None, :]).astype(np.uint8)
+    st_det = np.asarray((st.A.astype(np.int32) @ st_x.T.astype(np.int32)).T % 2, np.uint8)
+    st_pri = torch.as_tensor(per_to_llr(st._prior, st.n_cols), dtype=torch.float32, device=dev)
+    qc_src = "ldpcdecoders_tpu_torch/csrc/qc_minsum.cu"
+
+    # operations per edge position and sweep that the function needs, counted
+    # from the decode's body.  Check rule: min-sum 14 (as the min-sum check
+    # kernel: abs, sign, compare, min, three selects, parity; then select,
+    # multiply, subtract, max, two XORs); sum-product 17 with tanh and each
+    # log1p counted as ONE operation (no published rate exists for them, so
+    # the bound stays a lower one): halve, tanh, clamp 2, suffix and prefix
+    # product 2, their product 1, clamp 2, two log1p, subtract, clamp 2,
+    # negate and select by the syndrome 2.  Around it: layered 3 (total
+    # minus old message; new minus old, plus total) and 2 for the syndrome
+    # check (decision and XOR); flooding 2 (sum and leave-one-out
+    # difference) and 1.  Index arithmetic, at the integer rate: ONE shifted
+    # position per edge position and sweep (per cyclic factor larger than 1
+    # an add, a compare and a subtract; with two factors a multiply and an
+    # add to join them) and two address adds (the message's, the total's).
+    def qc_int_ops(t):
+        factors = (t.l > 1) + (t.m > 1)
+        return 3 * factors + (2 if factors == 2 else 0) + 2
+
+    def qc_case(label, dec, syn_np, priors, shape):
+        syn_t = torch.as_tensor(syn_np, device=dev)
+        kw = dict(alpha=dec.alpha, beta=dec.beta, schedule=dec.schedule,
+                  algorithm=dec.algorithm, dtype=dec.dtype, priors=priors)
+        t = dec.qc_terms
+        layered, sumprod = dec.schedule == "layered", dec.algorithm == "sumproduct"
+        f_ops = (17 if sumprod else 14) + (5 if layered else 3)
+        i_ops = qc_int_ops(t)
+        size = 4 if dec.dtype == torch.float32 else 2
+        threads, smem = qc_launch_shape(t, size, layered, sumprod)
+        # shared-memory bytes per edge position and sweep: layered reads the
+        # total three times and the message twice and writes each once (7
+        # stored values) and passes the new message through the float32 row
+        # buffer; flooding touches 5 stored values and a decision byte
+        traffic = (7 * size + 8 if layered else 5 * size + 1) * t.Eb * t.Z
+
+        def bounds(got):
+            # this batch's work: each lane's own sweeps
+            edge_sweeps = int(got[2].sum()) * t.Eb * t.Z
+            out = bound(nbytes(syn_t, priors, dec.table, *got), edge_sweeps * f_ops,
+                        PEAK_F32_OPS_PER_S, edge_sweeps * i_ops)
+            print(f"work {label}: sweeps per lane mean {got[2].float().mean():.2f} max "
+                  f"{int(got[2].max())}, converged {got[1].float().mean():.4f}, "
+                  f"{f_ops} float32-rate + {i_ops} integer operations per edge position "
+                  f"and sweep, {edge_sweeps:.4e} edge-sweeps | one lane per block of "
+                  f"{threads} threads, {smem} B shared memory, "
+                  f"{traffic} B shared-memory traffic per lane and sweep")
+            return out
+
+        return (f"qc_minsum {label}", qc_src, "ldpcdecoders_tpu/ops/pallas_qc.py:202", shape,
+                lambda: cuda_qc.qc_minsum_cuda(syn_t, t, dec.table, dec.L0, dec.max_iters, **kw),
+                lambda: qc_minsum_ref(syn_t, t, dec.L0, dec.max_iters, **kw), bounds,
+                (3, 1), sumprod)
+
+    shape_qc = f"B={B} mb=12 nb=24 Eb=72 Z=128 sweeps<=32"
+    cases += [
+        qc_case("layered f32", qdec, qsyn, None, shape_qc),
+        qc_case("flooding f32", qc_dec(), qsyn, None, shape_qc),
+        qc_case("layered bf16", qc_dec(schedule="layered", dtype=torch.bfloat16), qsyn, None,
+                shape_qc),
+        qc_case("layered f32 per-lane priors", qdec, qsyn_e, pri_e, shape_qc),
+        qc_case("flooding f32 sumproduct", qc_dec(algorithm="sumproduct"), qsyn, None, shape_qc),
+        qc_case("bb144 R=6 layered f32 prior vector", st.inner, st_det, st_pri,
+                f"B={BK} mb=6 nb=17 Eb=46 Z=72 (12x6) sweeps<=60"),
+    ]
+
     # one entry per kernel in the summary: the first case of each name is
-    # the main path's (float32, gathered); the others add their times
+    # the main path's (float32; gathered; layered with the baked prior); the
+    # others add their times
     kernels = {}
-    for name, source, replaces, shape, kern, plain, bounds in cases:
-        bound_ms, bound_by, by_bytes, by_ops = bounds
+    for name, source, replaces, shape, kern, plain, bounds, *rest in cases:
+        (reps_k, reps_p), loose = rest if rest else ((10, 2), False)
         got = kern()
         torch.cuda.synchronize()
         want = plain()
         torch.cuda.synchronize()
-        err = max_abs_err(torch, got, want)
-        ms_k = event_ms(torch, kern, 10)
-        plain_ms = event_ms(torch, plain, 2)
-        print(f"kernel {name}: max_abs_err {err} (bitwise required) | kernel {ms_k:.3f} ms | "
+        if callable(bounds):
+            bounds = bounds(got)
+        bound_ms, bound_by, by_bytes, by_ops = bounds
+        # sum-product: the flags bitwise; the LLRs in float32 spacings (raw
+        # bit distance).  tanhf and log1pf are the same library functions in
+        # the kernel and in torch's kernels, but one spacing of a tanh
+        # product near the clamp moves a message by 2/(1 - 0.99999^2) = 1e5
+        # times as much: up to 2^13 spacings of an LLR are allowed
+        err = max_abs_err(torch, got[:3] if loose else got, want[:3] if loose else want)
+        need = "bitwise required"
+        if loose:
+            spacings = max_abs_err(torch, got[3:], want[3:])
+            need = (f"err/converged/iters bitwise required; llrs {spacings} float32 spacings "
+                    f"apart, {2**13} allowed (tanhf/log1pf at the clamp)")
+            if spacings > 2**13:
+                raise AssertionError(f"{name}: LLRs {spacings} float32 spacings apart")
+        ms_k = event_ms(torch, kern, reps_k)
+        plain_ms = event_ms(torch, plain, reps_p)
+        print(f"kernel {name}: max_abs_err {err} ({need}) | kernel {ms_k:.3f} ms | "
               f"plain torch {plain_ms:.3f} ms | bound {bound_ms:.4f} ms by {bound_by} "
               f"(bytes {by_bytes:.4f}, operations {by_ops:.4f}) | "
               f"library call: none | {shape} | {card}")
@@ -312,9 +434,13 @@ def main() -> int:
             kernels[key]["max_abs_err"] = max(kernels[key]["max_abs_err"], err)
             kernels[key]["variants"][variant] = {"ms": ms_k, "plain_ms": plain_ms,
                                                  "bound_ms": bound_ms}
+            if loose:
+                kernels[key]["variants"][variant]["llr_spacings"] = spacings
+
     wrappers = {"gf2_osd0": cuda_gf2.gf2_osd0_cuda, "gf2_eliminate": cuda_gf2.gf2_eliminate_cuda,
                 "minsum_check": cuda_minsum.minsum_check_cuda,
-                "minsum_var": cuda_minsum.minsum_var_cuda}
+                "minsum_var": cuda_minsum.minsum_var_cuda,
+                "qc_minsum": cuda_qc.qc_minsum_cuda}
 
     path_launches = {}
 
@@ -328,6 +454,8 @@ def main() -> int:
         for k in expect:
             if counts[k] == 0:
                 raise AssertionError(f"main ({path}) never launched {k}")
+        if "qc_minsum" not in expect and counts["qc_minsum"]:
+            raise AssertionError(f"main ({path}) launched qc_minsum")
         path_launches[path] = counts
         print(f"main ({path}) launches: {counts}")
         return out
@@ -395,9 +523,41 @@ def main() -> int:
     assert_consistent(H, gm2, syn20[:128], "min-sum+OSD-2 failed scope per 0.2")
     print(f"main (h) BP+OSD-2 on failing lanes, inner min-sum damping 0.4, per 0.2, 128 lanes: "
           f"converged {cm2.mean():.4f}, all syndrome-consistent")
+    # (j) the QC decoder, layered, through the public API: one launch
+    e_j, c_j, i_j, a_j, _ = drive("j", ["qc_minsum"],
+                                  lambda: qdec.batch_decode_detailed(qsyn))
+    if (e_j.shape != (B, Hq.shape[1]) or e_j.dtype != np.int8 or i_j.dtype != np.int32
+            or a_j["llrs"].dtype != np.float32 or not np.isfinite(a_j["llrs"]).all()):
+        raise AssertionError(f"(j) output {e_j.shape} {e_j.dtype} or non-finite LLRs")
+    assert_consistent(Hq, e_j[c_j], qsyn[c_j], "(j) QC layered (converged lanes)")
+    print(f"main (j) QCMinSumDecoder layered per 0.04, 32 sweeps: converged {c_j.mean():.4f}, "
+          f"exact recovery {(e_j.astype(bool) == qerrs).all(axis=1).mean():.4f}, "
+          f"sweeps mean {i_j.mean():.2f} max {i_j.max()}")
+    if path_launches["j"]["qc_minsum"] != 1 or c_j.mean() < 0.99:
+        raise AssertionError(f"(j): {path_launches['j']['qc_minsum']} launches, "
+                             f"converged {c_j.mean():.4f}")
+
+    # (k) the bb144 six-round space-time decoder on 2048 detector records
+    e_k, c_k, i_k, a_k, _ = drive("k", ["qc_minsum"],
+                                  lambda: st.batch_decode_detailed(st_det))
+    full = np.concatenate([a_k["data_rounds"].reshape(BK, -1), a_k["meas"].reshape(BK, -1)],
+                          axis=1)
+    rec = np.asarray((st.A.astype(np.int32) @ full.T.astype(np.int32)).T % 2, np.uint8)
+    if e_k.shape != (BK, st.n) or e_k.dtype != np.int8 or not (rec[c_k] == st_det[c_k]).all():
+        raise AssertionError("(k): converged lanes do not reproduce their detector record")
+    true_cum = st_x[:, : st.rounds * st.block_n].reshape(BK, st.rounds, st.block_n).sum(1) % 2
+    print(f"main (k) SpaceTimeDecoder.for_bicycle bb144 x R=6 per 0.003, 60 sweeps, {BK} "
+          f"records: converged {c_k.mean():.4f}, cumulative correction equal to the true one "
+          f"{(e_k == true_cum).all(axis=1).mean():.4f}, sweeps mean {i_k.mean():.2f} "
+          f"max {i_k.max()}")
+    if path_launches["k"]["qc_minsum"] != 1 or c_k.mean() < 0.99:
+        raise AssertionError(f"(k): {path_launches['k']['qc_minsum']} launches, "
+                             f"converged {c_k.mean():.4f}")
+
     # in the summary, ``launches`` is the count of the first path that must
     # launch the kernel; ``launches_by_path`` has every path's own count
-    own_path = {"gf2_osd0": "b", "gf2_eliminate": "c", "minsum_check": "e", "minsum_var": "e"}
+    own_path = {"gf2_osd0": "b", "gf2_eliminate": "c", "minsum_check": "e", "minsum_var": "e",
+                "qc_minsum": "j"}
     for k, path in own_path.items():
         kernels[k]["launches"] = path_launches[path][k]
         kernels[k]["launches_path"] = path
@@ -413,6 +573,21 @@ def main() -> int:
     print(f"main (i) min-sum cuda vs cpu, 64 lanes: err/converged/iters/llrs bitwise {same}")
     if not all(same):
         raise AssertionError("min-sum on the card disagrees with min-sum on the CPU")
+
+    # (l) the card against the CPU through the public API on 64 lanes of (j)
+    # and of (k): every output bitwise
+    qdec_cpu = pt.QCMinSumDecoder(base_qc, 128, 0.04, 32, schedule="layered", device="cpu")
+    st_cpu = pt.SpaceTimeDecoder.for_bicycle("bb144", "x", 6, 0.003, 60, device="cpu")
+    for what, cpu, gpu, rows, llr_of in (
+            ("QC layered", qdec_cpu, qdec, qsyn[:64], lambda a: a["llrs"]),
+            ("bb144 space-time", st_cpu, st, st_det[:64], lambda a: a["inner"]["llrs"])):
+        w_e, w_c, w_i, w_a, _ = cpu.batch_decode_detailed(rows)
+        g_e, g_c, g_i, g_a, _ = gpu.batch_decode_detailed(rows)
+        same = (np.array_equal(w_e, g_e), np.array_equal(w_c, g_c), np.array_equal(w_i, g_i),
+                np.array_equal(llr_of(w_a).view(np.uint32), llr_of(g_a).view(np.uint32)))
+        print(f"main (l) {what} cuda vs cpu, 64 lanes: err/converged/iters/llrs bitwise {same}")
+        if not all(same):
+            raise AssertionError(f"{what} on the card disagrees with the CPU")
 
     # 5. steady-state rates (host clock around calls that end in a sync)
     tag = f"| B={B} | {card}"
@@ -441,8 +616,46 @@ def main() -> int:
     print(f"rate BP+OSD-0 inner min-sum damping 0.4 per 0.2: {B / t:.1f} syndromes/s "
           f"({t * 1e3:.1f} ms/batch) {tag}")
 
+    # the QC paths, device-resident (a CUDA tensor in, tensors out: one
+    # launch, no host sync inside), and the same syndromes through the
+    # lifted backend in flooding float32 (the min-sum kernels, a host sync
+    # per iteration)
+    q_lift = qc_dec(backend="lifted")
+    st_lift = pt.SpaceTimeDecoder.for_bicycle("bb144", "x", 6, 0.003, 60, schedule="flooding",
+                                              backend="lifted", device=dev)
+    dq, dk = torch.as_tensor(qsyn, device=dev), torch.as_tensor(st_det, device=dev)
+    for what, fused, lifted, d in (("(j) QC per 0.04", qdec, q_lift, dq),
+                                   ("(k) bb144 R=6 per 0.003", st, st_lift, dk)):
+        inner = getattr(fused, "inner", fused)
+        for how, dec in ((f"{inner.schedule} whole-decode kernel", fused),
+                         ("lifted backend, flooding float32", lifted)):
+            ts = [wall_s(torch, lambda dec=dec: dec.batch_decode_detailed_async(d), 3)
+                  for _ in range(3)]
+            t, out = sum(r[0] for r in ts) / 3, ts[-1][1]  # all 9 calls over all their time
+            sweeps = int(out[2].sum())
+            print(f"rate {what}, {how}: {d.shape[0] / t:.1f} syndromes/s, "
+                  f"{sweeps * inner.qc_terms.Eb * inner.Z / t:.4e} edge-sweeps/s "
+                  f"({t * 1e3:.3f} ms/batch, mean of 9 calls; the three means of 3: "
+                  f"{', '.join(f'{r[0] * 1e3:.3f}' for r in ts)}; converged "
+                  f"{out[1].float().mean():.4f}, sweeps mean {sweeps / d.shape[0]:.2f}) "
+                  f"| B={d.shape[0]} | {card}")
+    t, _ = wall_s(torch, lambda: qdec.batch_decode_detailed(qsyn), 3)
+    print(f"rate (j) QC per 0.04 from and to numpy (batch_decode_detailed): {B / t:.1f} "
+          f"syndromes/s ({t * 1e3:.3f} ms/batch) {tag}")
+
     if want_profile:
+        # the one-launch decodes take a fraction of a millisecond: 50 calls
+        # in one window, so that the profiler's start does not fill it
         for name, fn, its in (
+            ("(j) QC layered whole-decode kernel", lambda: qdec.batch_decode_detailed_async(dq),
+             int(i_j.max())),
+            ("(k) bb144 R=6 whole-decode kernel", lambda: st.batch_decode_detailed_async(dk),
+             int(i_k.max())),
+        ):
+            profile_call(torch, name, fn, its, calls=50)
+        for name, fn, its in (
+            ("(j) QC lifted backend flooding float32",
+             lambda: q_lift.batch_decode_detailed_async(dq), 32),
             ("BP per 0.5", lambda: bp_gpu.bp(d50), MAX_ITERS),
             ("min-sum float32 per 0.5", lambda: ms32.minsum(d50), MAX_ITERS),
             ("min-sum bfloat16 per 0.5", lambda: ms16.minsum(d50), MAX_ITERS),

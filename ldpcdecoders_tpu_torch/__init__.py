@@ -2,14 +2,30 @@
 
 A port of ``ldpcdecoders_tpu`` (JAX on a TPU), which stays the reference it
 is tested against.  This package imports torch and numpy, never jax.  It
-carries the sum-product BP, min-sum and BP+OSD decode paths: Gallager
-codes, Tanner-graph compilation, batched BP in plain torch, and the
-min-sum message updates and the OSD eliminations as hand-written CUDA
-kernels (``csrc/``, built with nvcc at first use on a CUDA device).
-Decoders run on the current CUDA card unless built with ``device="cpu"``.
+carries the sum-product BP, min-sum, BP+OSD, quasi-cyclic and space-time
+decode paths: Gallager, quasi-cyclic and bivariate bicycle codes,
+Tanner-graph compilation, batched BP in plain torch, and the min-sum
+message updates, the OSD eliminations and the whole decode of a
+group-circulant code as hand-written CUDA kernels (``csrc/``, built with
+nvcc at first use on a CUDA device).  Decoders run on the current CUDA card
+unless built with ``device="cpu"``.
 """
 
-from .codes import TannerGraph, parity_check_matrix
+from .codes import (
+    TannerGraph,
+    bivariate_bicycle_code,
+    css_code_k,
+    detectors_of,
+    load_base_matrix,
+    named_bicycle_code,
+    parity_check_matrix,
+    qc_lift,
+    qc_lift_edges,
+    random_qc_base_matrix,
+    save_base_matrix,
+    spacetime_pcm,
+    spacetime_prior,
+)
 from .models import (
     BeliefPropagationDecoder,
     BeliefPropagationOSDDecoder,
@@ -17,6 +33,8 @@ from .models import (
     Decoder,
     MinSumDecode,
     MinSumDecoder,
+    QCMinSumDecoder,
+    SpaceTimeDecoder,
     batchdecode,
     decode,
     decode_soft,
@@ -25,6 +43,17 @@ from .models import (
 __all__ = [
     "parity_check_matrix",
     "TannerGraph",
+    "qc_lift",
+    "qc_lift_edges",
+    "random_qc_base_matrix",
+    "save_base_matrix",
+    "load_base_matrix",
+    "bivariate_bicycle_code",
+    "css_code_k",
+    "named_bicycle_code",
+    "spacetime_pcm",
+    "spacetime_prior",
+    "detectors_of",
     "Decoder",
     "DecodeStats",
     "decode",
@@ -34,6 +63,8 @@ __all__ = [
     "BeliefPropagationOSDDecoder",
     "MinSumDecoder",
     "MinSumDecode",
+    "QCMinSumDecoder",
+    "SpaceTimeDecoder",
 ]
 
 __version__ = "0.1.0"

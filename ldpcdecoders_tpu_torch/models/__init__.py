@@ -2,6 +2,8 @@ from .base import Decoder, DecodeStats, decode, batchdecode, decode_soft
 from .bp import BeliefPropagationDecoder
 from .bposd import BeliefPropagationOSDDecoder
 from .minsum import MinSumDecode, MinSumDecoder
+from .qc_minsum import QCMinSumDecoder
+from .spacetime import SpaceTimeDecoder
 
 __all__ = [
     "Decoder",
@@ -13,4 +15,6 @@ __all__ = [
     "BeliefPropagationOSDDecoder",
     "MinSumDecoder",
     "MinSumDecode",
+    "QCMinSumDecoder",
+    "SpaceTimeDecoder",
 ]

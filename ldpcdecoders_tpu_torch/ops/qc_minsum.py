@@ -1,0 +1,339 @@
+"""Whole-decode min-sum / sum-product for group-circulant codes: the host
+side and the plain torch version.
+
+Counterpart of ``ldpcdecoders_tpu/ops/pallas_qc.py``.  A group-circulant
+code over ``Z_l x Z_m`` (``Z = l*m``) is a list of edge terms
+``(i, j, a, b)``: the monomial ``x^a y^b`` in block ``(i, j)`` connects
+lifted check ``i*Z + w`` with ``(u, v) = divmod(w, m)`` to lifted variable
+``j*Z + sigma(w)``, ``sigma(w) = ((u+a)%l)*m + (v+b)%m`` (codes/qc.py).
+Plain quasi-cyclic codes are the ``m == 1`` case; bivariate bicycle codes
+(codes/bicycle.py) use the full 2-D form.  With messages laid out
+``[base edge, lane, Z]`` every check<->variable move is such a shift, so
+the whole decode (every sweep, the syndrome check, the per-lane freeze)
+needs no message outside on-chip memory: ops/cuda_qc.py does that in one
+kernel launch.
+
+This module holds what that kernel and its tests share:
+
+  * :func:`qc_term_adjacency` and :class:`QCTerms`: the sorted term list,
+    its per-block-row and per-block-column edge lists, and the int32 table
+    the kernel reads;
+  * :func:`qc_smem_bytes` / :func:`qc_launch_shape`: the kernel's
+    shared-memory footprint and its block size;
+  * :func:`qc_minsum_ref`: the plain torch version, the same arithmetic in
+    the same order as the reference kernel body.  It runs on the CPU, and
+    on a card only to be compared with the kernel.
+
+Semantics: normalized/offset min-sum (two-min exclusive reduction, finite
+1e30 sentinel) or exact sum-product (tanh rule with the clamps of
+ops/clamps.py); ``flooding`` or serial-C ``layered`` schedule over base
+rows; float32 or bfloat16 message *storage* with float32 arithmetic; a
+baked scalar prior or per-bit priors; ``err`` / ``llr`` frozen per lane at
+the sweep where the lane's syndrome is first met.  The variable update adds
+in sorted-term order, not in ascending lifted check index, so multi-term
+blocks can differ from the lifted-graph decoders in the last place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .clamps import MSG_CLAMP, TANH_CLAMP
+from .minsum import BIG  # finite, so that a weight-1 row's message keeps the totals finite
+
+__all__ = [
+    "QCTerms",
+    "qc_term_adjacency",
+    "qc_smem_bytes",
+    "qc_launch_shape",
+    "qc_minsum_ref",
+    "qc_modes",
+    "SMEM_LIMIT",
+]
+
+#: dynamic shared memory one block can be given on an H100 (227 KB)
+SMEM_LIMIT = 232_448
+#: most threads of one block
+MAX_THREADS = 1024
+
+
+def qc_term_adjacency(terms, mb: int, nb: int):
+    """Static per-block-row / per-block-column edge lists.
+
+    ``terms`` is an iterable of ``(i, j, a, b)``; returns
+    ``(edges, row_edges, col_edges)`` where ``edges`` is the sorted term
+    list (block-row-major, ascending block column then shift: the order
+    codes/qc.py::qc_group_lift_edges emits) and ``row_edges[i]`` /
+    ``col_edges[j]`` hold indices into it.
+    """
+    edges = sorted((int(i), int(j), int(a), int(b)) for i, j, a, b in terms)
+    if len(set(edges)) != len(edges):
+        raise ValueError("duplicate edge terms (cancel over GF(2))")
+    row_edges = [[] for _ in range(mb)]
+    col_edges = [[] for _ in range(nb)]
+    for e, (i, j, _, _) in enumerate(edges):
+        row_edges[i].append(e)
+        col_edges[j].append(e)
+    for i, r in enumerate(row_edges):
+        if not r:
+            raise ValueError(f"base row {i} has no edges")
+    for j, c in enumerate(col_edges):
+        if not c:
+            raise ValueError(f"base column {j} has no edges")
+    return edges, row_edges, col_edges
+
+
+@dataclasses.dataclass(frozen=True)
+class QCTerms:
+    """A group-circulant code as the decode functions take it."""
+
+    edges: tuple  # sorted (i, j, a, b)
+    row_edges: tuple  # per block row: edge indices, a contiguous range
+    col_edges: tuple  # per block column: edge indices, ascending
+    mb: int
+    nb: int
+    l: int
+    m: int
+
+    @classmethod
+    def build(cls, terms, mb: int, nb: int, group) -> "QCTerms":
+        gl, gm = (int(x) for x in group)
+        if gl < 1 or gm < 1:
+            raise ValueError(f"group sizes must be >= 1, got {group}")
+        edges, row_edges, col_edges = qc_term_adjacency(terms, mb, nb)
+        for i, j, a, b in edges:
+            if not (0 <= i < mb and 0 <= j < nb and 0 <= a < gl and 0 <= b < gm):
+                raise ValueError(f"term {(i, j, a, b)} outside [{mb}, {nb}] x Z_{gl} x Z_{gm}")
+        return cls(tuple(edges), tuple(map(tuple, row_edges)), tuple(map(tuple, col_edges)),
+                   int(mb), int(nb), gl, gm)
+
+    @property
+    def Z(self) -> int:
+        return self.l * self.m
+
+    @property
+    def Eb(self) -> int:
+        return len(self.edges)
+
+    @property
+    def max_row_weight(self) -> int:
+        return max(len(r) for r in self.row_edges)
+
+    def table(self) -> np.ndarray:
+        """The int32 table the kernel reads: per edge its block column and
+        its two shifts (``Eb`` each), the row pointer (``mb+1``: a row's
+        edges are contiguous in sorted order), the column pointer
+        (``nb+1``) and the column edge list (``Eb``)."""
+        j, a, b = (np.array([t[k] for t in self.edges], np.int32) for k in (1, 2, 3))
+        row_ptr = np.cumsum([0] + [len(r) for r in self.row_edges])
+        col_ptr = np.cumsum([0] + [len(c) for c in self.col_edges])
+        col_idx = np.array([e for c in self.col_edges for e in c])
+        return np.concatenate([j, a, b, row_ptr, col_ptr, col_idx]).astype(np.int32)
+
+
+def qc_smem_bytes(terms: QCTerms, threads: int, itemsize: int, layered: bool,
+                  sumproduct: bool) -> int:
+    """Dynamic shared memory (bytes) of one block of the kernel, which holds
+    one lane on ``threads`` threads: the term table and the lane's flag; two
+    message arrays in the storage type (layered: edge messages and totals;
+    flooding: both directions' edge messages), the syndrome bytes, and for
+    layered one row's new messages in float32, for flooding the decisions;
+    for sum-product one float32 per thread and row slot (the suffix
+    products)."""
+    Eb, mb, nb, Z, rw = terms.Eb, terms.mb, terms.nb, terms.Z, terms.max_row_weight
+    ints = 4 * Eb + mb + nb + 2 + 1
+    floats = (rw * Z if layered else 0) + (rw * threads if sumproduct else 0)
+    stored = (Eb + (nb if layered else Eb)) * Z
+    flags = (mb + (0 if layered else nb)) * Z
+    return 4 * ints + 4 * floats + itemsize * stored + flags
+
+
+def qc_launch_shape(terms: QCTerms, itemsize: int, layered: bool, sumproduct: bool):
+    """``(threads per block, shared-memory bytes)`` of the kernel's launch:
+    one lane per block on ``min(Z, 1024)`` threads.  Raises when the lane
+    does not fit a block's shared memory.
+    """
+    threads = min(terms.Z, MAX_THREADS)
+    need = qc_smem_bytes(terms, threads, itemsize, layered, sumproduct)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"one lane needs {need} B of shared memory, over the {SMEM_LIMIT} B a block can "
+            f"have (Eb={terms.Eb}, nb={terms.nb}, Z={terms.Z}, "
+            f"{'layered' if layered else 'flooding'}, {itemsize} B messages): "
+            "use dtype=torch.bfloat16, the layered schedule, or backend='lifted' "
+            "(messages in device memory) for codes this large")
+    return threads, need
+
+
+def qc_minsum_ref(syndromes, terms: QCTerms, L0: float, max_iters: int, *, alpha: float = 1.0,
+                  beta: float = 0.0, schedule: str = "flooding", algorithm: str = "minsum",
+                  dtype=torch.float32, priors=None):
+    """Plain torch version of the whole decode.
+
+    ``syndromes [B, mb*Z]`` (nonzero = violated check), ``priors`` None
+    (the scalar ``L0`` everywhere) or float32 LLRs ``[nb*Z]`` / ``[B,
+    nb*Z]``.  Returns ``(err int8 [B, nb*Z], converged bool [B], iters
+    int32 [B], llrs float32 [B, nb*Z])``.
+
+    Every step works on ``[B, Z]`` tensors per base edge or block column,
+    in the order of the reference kernel body; values are rounded to
+    ``dtype`` exactly where that body writes its message scratch, and all
+    arithmetic is float32.  The loop stops once every lane has met its
+    syndrome: outputs are frozen per lane, so lanes that would go on
+    sweeping beside an unfinished one change nothing.
+    """
+    layered, sumprod = qc_modes(schedule, algorithm, dtype)
+    gl, gm, Z, mb, nb, Eb = terms.l, terms.m, terms.Z, terms.mb, terms.nb, terms.Eb
+    edges, row_edges, col_edges = terms.edges, terms.row_edges, terms.col_edges
+    B, device = syndromes.shape[0], syndromes.device
+    f32 = torch.float32
+    if priors is not None:
+        priors = torch.broadcast_to(priors.to(f32), (B, nb * Z))
+    const_p = torch.full((B, Z), float(L0), dtype=f32, device=device)
+
+    def p32(j):
+        return const_p if priors is None else priors[:, j * Z:(j + 1) * Z]
+
+    lane_v = torch.arange(Z, device=device) % gm
+
+    def apply_shift(x, a, b):
+        """out[w] = x[sigma(w)] for the monomial (a, b): one roll for
+        ``b == 0``, else a select between two rolls on ``v < m - b``."""
+        c1 = (a * gm + b) % Z
+        if b == 0:
+            return torch.roll(x, -c1, dims=-1) if c1 else x
+        c2 = (a * gm + b - gm) % Z
+        return torch.where(lane_v < gm - b, torch.roll(x, -c1, dims=-1),
+                           torch.roll(x, -c2, dims=-1))
+
+    def inv(a, b):
+        return (gl - a) % gl, (gm - b) % gm
+
+    def sumproduct_mu(ncs, syn_i):
+        k = len(ncs)
+        ts = [torch.clamp(torch.tanh(nc * 0.5), -TANH_CLAMP, TANH_CLAMP) for nc in ncs]
+        one = torch.ones((B, Z), dtype=f32, device=device)
+        fwd = [one]
+        for i in range(k - 1):
+            fwd.append(fwd[-1] * ts[i])
+        bwd = [one]
+        for i in range(k - 1, 0, -1):
+            bwd.append(bwd[-1] * ts[i])
+        bwd.reverse()
+        outs = []
+        for i in range(k):
+            excl = torch.clamp(fwd[i] * bwd[i], -TANH_CLAMP, TANH_CLAMP)
+            mu = torch.log1p(excl) - torch.log1p(-excl)  # = 2 atanh(excl)
+            mu = torch.clamp(mu, -MSG_CLAMP, MSG_CLAMP)
+            outs.append(torch.where(syn_i, -mu, mu))
+        return outs
+
+    def two_min_mu(ncs, syn_i):
+        mags = [nc.abs() for nc in ncs]
+        negs = [nc < 0.0 for nc in ncs]
+        min1 = mags[0]
+        idx1 = torch.zeros((B, Z), dtype=torch.int32, device=device)
+        min2 = torch.full((B, Z), BIG, dtype=f32, device=device)
+        parity = negs[0]
+        for k in range(1, len(ncs)):
+            v = mags[k]
+            smaller = v < min1
+            min2 = torch.where(smaller, min1, torch.minimum(min2, v))
+            idx1 = torch.where(smaller, k, idx1)
+            min1 = torch.where(smaller, v, min1)
+            parity = parity ^ negs[k]
+        outs = []
+        for k in range(len(ncs)):
+            excl = torch.where(idx1 == k, min2, min1)
+            flip = parity ^ negs[k] ^ syn_i
+            mag_out = torch.clamp_min(alpha * excl - beta, 0.0)
+            outs.append(torch.where(flip, -mag_out, mag_out))
+        return outs
+
+    check_mu = sumproduct_mu if sumprod else two_min_mu
+
+    # iteration-0 state: flooding seeds the variable-to-check messages with
+    # the prior, layered zero check-to-variable messages and prior totals
+    zeros = torch.zeros((B, Z), dtype=dtype, device=device)
+    if layered:
+        mu = [zeros for _ in range(Eb)]
+        tot = [p32(j).to(dtype) for j in range(nb)]
+    else:
+        nu = [p32(edges[e][1]).to(dtype) for e in range(Eb)]
+        mu = [zeros for _ in range(Eb)]
+    err = [torch.zeros((B, Z), dtype=torch.bool, device=device) for _ in range(nb)]
+    llr = [p32(j) for j in range(nb)]
+    syn_b = [syndromes[:, i * Z:(i + 1) * Z] != 0 for i in range(mb)]
+
+    done = torch.zeros((B,), dtype=torch.bool, device=device)
+    iters = torch.zeros((B,), dtype=torch.int32, device=device)
+    it = 0
+    while it < max_iters and not bool(done.all()):
+        active = ~done[:, None]
+        if layered:
+            # serial-C: each base row reads totals already updated by the
+            # rows before it; within a row all reads precede all updates
+            for i in range(mb):
+                row = row_edges[i]
+                ncs, olds = [], []
+                for e in row:
+                    _, j, a, b = edges[e]
+                    old = mu[e].to(f32)
+                    olds.append(old)
+                    ncs.append(apply_shift(tot[j].to(f32) - old, a, b))
+                outs = check_mu(ncs, syn_b[i])
+                for k, e in enumerate(row):
+                    _, j, a, b = edges[e]
+                    mu_new = apply_shift(outs[k], *inv(a, b))
+                    tot[j] = (tot[j].to(f32) + (mu_new - olds[k])).to(dtype)
+                    mu[e] = mu_new.to(dtype)
+            totals = [t.to(f32) for t in tot]
+        else:
+            for i in range(mb):
+                row = row_edges[i]
+                ncs = [apply_shift(nu[e].to(f32), *edges[e][2:]) for e in row]
+                outs = check_mu(ncs, syn_b[i])
+                for k, e in enumerate(row):
+                    mu[e] = apply_shift(outs[k], *inv(*edges[e][2:])).to(dtype)
+            totals = []
+            for j in range(nb):
+                total = p32(j)
+                mus = [mu[e].to(f32) for e in col_edges[j]]
+                for x in mus:
+                    total = total + x
+                for e, x in zip(col_edges[j], mus):
+                    nu[e] = (total - x).to(dtype)
+                totals.append(total)
+        for j in range(nb):
+            err[j] = torch.where(active, totals[j] < 0.0, err[j])
+            llr[j] = torch.where(active, totals[j], llr[j])
+
+        # syndrome check: check-oriented XOR of the frozen decisions
+        ok = torch.ones((B,), dtype=torch.bool, device=device)
+        for i in range(mb):
+            par = torch.zeros((B, Z), dtype=torch.bool, device=device)
+            for e in row_edges[i]:
+                _, j, a, b = edges[e]
+                par = par ^ apply_shift(err[j], a, b)
+            ok = ok & (par == syn_b[i]).all(dim=1)
+        iters = torch.where(ok & ~done, it + 1, iters)
+        done = done | ok
+        it += 1
+    iters = torch.where(done, iters, it).to(torch.int32)
+    err = torch.stack(err, dim=1).reshape(B, nb * Z).to(torch.int8)
+    llrs = torch.stack(llr, dim=1).reshape(B, nb * Z).contiguous()
+    return err, done, iters, llrs
+
+
+def qc_modes(schedule, algorithm, dtype):
+    """Validate the three mode arguments; returns ``(layered, sumproduct)``."""
+    if schedule not in ("flooding", "layered"):
+        raise ValueError(f"unknown schedule {schedule!r} (want 'flooding' or 'layered')")
+    if algorithm not in ("minsum", "sumproduct"):
+        raise ValueError(f"unknown algorithm {algorithm!r} (want 'minsum' or 'sumproduct')")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+    return schedule == "layered", algorithm == "sumproduct"

@@ -13,8 +13,9 @@ import pytest
 import torch
 
 import ldpcdecoders_tpu_torch as pt
-from ldpcdecoders_tpu_torch.ops import cuda_gf2, cuda_minsum
+from ldpcdecoders_tpu_torch.ops import cuda_gf2, cuda_minsum, cuda_qc
 from ldpcdecoders_tpu_torch.ops import minsum as plain_minsum
+from ldpcdecoders_tpu_torch.ops.qc_minsum import QCTerms, qc_minsum_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -227,3 +228,167 @@ def test_default_device_is_the_card(dev):
         assert dec.device == torch.device("cuda", torch.cuda.current_device())
         g, c = dec.batch_decode(np.zeros((2, H.shape[0]), np.uint8))
         assert c.all() and not g.any()
+
+
+# ---- the whole-decode group-circulant kernel --------------------------------
+
+
+def random_terms(rng, mb, nb, l, m, per_row, light_row=False):
+    """Random group-circulant terms: ``per_row`` per base row (several may
+    share a block), every block column covered; ``light_row`` makes the
+    last base row a weight-1 row."""
+    terms = set()
+    for i in range(mb):
+        want = 1 if (light_row and i == mb - 1) else per_row
+        row = set()
+        while len(row) < want:
+            row.add((i, int(rng.integers(nb)), int(rng.integers(l)), int(rng.integers(m))))
+        terms |= row
+    for j in range(nb):
+        if not any(t[1] == j for t in terms):
+            terms.add((int(rng.integers(mb - light_row)), j, int(rng.integers(l)),
+                       int(rng.integers(m))))
+    return QCTerms.build(sorted(terms), mb, nb, (l, m))
+
+
+def qc_inputs(rng, terms, B, per):
+    """Syndromes of random errors through the lifted code, and per-lane priors."""
+    Z, n = terms.Z, terms.nb * terms.Z
+    errs = rng.random((B, n)) < per
+    syn = np.zeros((B, terms.mb * Z), np.uint8)
+    w = np.arange(Z)
+    u, v = np.divmod(w, terms.m)
+    for i, j, a, b in terms.edges:
+        sig = ((u + a) % terms.l) * terms.m + (v + b) % terms.m
+        syn[:, i * Z + w] ^= errs[:, j * Z + sig]
+    pri = np.log((1 - per) / per) * rng.uniform(0.5, 1.5, size=(B, n))
+    pri[:, ::9] = 0.0  # erased bits
+    return torch.as_tensor(syn), torch.as_tensor(pri.astype(np.float32))
+
+
+# (B, mb, nb, l, m, terms per row, weight-1 row): odd Z, Z not a multiple of
+# 32 with several terms per block, Z above 1024 (positions strided over the
+# threads), a lift of 15 positions (half a warp) over 37 lanes, B = 1
+QC_SHAPES = [(5, 3, 5, 7, 1, 3, False), (9, 2, 4, 6, 6, 4, True), (3, 2, 3, 1100, 1, 2, False),
+             (37, 2, 4, 3, 5, 5, False), (1, 3, 6, 12, 6, 4, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+@pytest.mark.parametrize("B,mb,nb,l,m,per_row,light", QC_SHAPES)
+def test_qc_kernel_matches_plain_version(dev, dtype, schedule, B, mb, nb, l, m, per_row, light):
+    rng = np.random.default_rng(B * 1000 + l)
+    terms = random_terms(rng, mb, nb, l, m, per_row, light)
+    table = torch.as_tensor(terms.table(), device=dev)
+    syn, pri = qc_inputs(rng, terms, B, 0.03)
+    for priors in (None, pri, pri[0].contiguous()):
+        kw = dict(alpha=0.8125, beta=0.15625, schedule=schedule, dtype=dtype)
+        want = qc_minsum_ref(syn, terms, 3.0, 12, priors=priors, **kw)
+        before = cuda_qc.qc_minsum_cuda.launches
+        got = cuda_qc.qc_minsum_cuda(syn.to(dev), terms, table, 3.0, 12,
+                                     priors=None if priors is None else priors.to(dev), **kw)
+        torch.cuda.synchronize()
+        assert cuda_qc.qc_minsum_cuda.launches == before + 1
+        for a, b in zip(got[:3], want[:3]):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+        assert torch.equal(bits(got[3].cpu()), bits(want[3]))  # min-sum: bitwise
+
+
+@pytest.mark.parametrize("schedule", ["flooding", "layered"])
+def test_qc_kernel_sumproduct(dev, schedule):
+    rng = np.random.default_rng(5)
+    terms = random_terms(rng, 3, 6, 12, 6, 4)
+    table = torch.as_tensor(terms.table(), device=dev)
+    syn, pri = qc_inputs(rng, terms, 21, 0.02)
+    kw = dict(schedule=schedule, algorithm="sumproduct")
+    want = qc_minsum_ref(syn.to(dev), terms, 3.5, 15, **kw)  # the card's own tanh / log1p
+    got = cuda_qc.qc_minsum_cuda(syn.to(dev), terms, table, 3.5, 15, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    # the same library functions in the same order: a few float32
+    # spacings at the clamp's slope at most (measured: bitwise)
+    torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=0.024)
+
+
+def test_qc_wrapper_edges_and_refusal(dev):
+    rng = np.random.default_rng(1)
+    terms = random_terms(rng, 2, 4, 8, 1, 3)
+    table = torch.as_tensor(terms.table(), device=dev)
+    before = cuda_qc.qc_minsum_cuda.launches
+    out = cuda_qc.qc_minsum_cuda(torch.zeros((0, 16), dtype=torch.uint8, device=dev), terms,
+                                 table, 3.0, 5)
+    assert [tuple(t.shape) for t in out] == [(0, 32), (0,), (0,), (0, 32)]
+    assert cuda_qc.qc_minsum_cuda.launches == before  # nothing to launch
+    syn = torch.zeros((2, 16), dtype=torch.uint8, device=dev)
+    err, conv, iters, llrs = cuda_qc.qc_minsum_cuda(syn, terms, table, 3.0, 0)  # no sweep
+    assert not conv.any() and not iters.any() and not err.any() and (llrs == 3.0).all()
+    with pytest.raises(ValueError, match=r"syndromes must be \[B, 16\]"):
+        cuda_qc.qc_minsum_cuda(syn[:, :8], terms, table, 3.0, 5)
+    with pytest.raises(TypeError, match="int32"):
+        cuda_qc.qc_minsum_cuda(syn, terms, table.to(torch.int64), 3.0, 5)
+    with pytest.raises(ValueError, match="expected cuda"):
+        cuda_qc.qc_minsum_cuda(syn, terms, table.cpu(), 3.0, 5)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_qc.qc_minsum_cuda(syn, terms, table, 3.0, 5,
+                               priors=torch.zeros(32, dtype=torch.float64, device=dev))
+    # (6, 3)-regular nb=24 at Z=512: float32 layered fits a block alone,
+    # float32 flooding does not, bfloat16 flooding does
+    base = pt.random_qc_base_matrix(24, 6, 3, 512, rng=7)
+    zeros = np.zeros((2, 12 * 512), np.uint8)
+    pt.QCMinSumDecoder(base, 512, 0.04, 4, schedule="layered").batch_decode(zeros)
+    with pytest.raises(ValueError, match="shared memory"):
+        pt.QCMinSumDecoder(base, 512, 0.04, 4)
+    g, c = pt.QCMinSumDecoder(base, 512, 0.04, 4, dtype=torch.bfloat16).batch_decode(zeros)
+    assert c.all() and not g.any()
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(schedule="layered"),
+                                dict(schedule="layered", dtype=torch.bfloat16)])
+def test_qc_decoders_on_card_match_cpu(dev, kw):
+    base = pt.random_qc_base_matrix(12, 6, 3, 64, rng=3)
+    H = pt.qc_lift(base, 64)
+    rng = np.random.default_rng(4)
+    errs = rng.random((48, H.shape[1])) < 0.04
+    syn = ((errs @ H.T) % 2).astype(np.uint8)
+    cpu = pt.QCMinSumDecoder(base, 64, 0.04, 20, device="cpu", **kw)
+    gpu = pt.QCMinSumDecoder(base, 64, 0.04, 20, **kw)
+    assert gpu.device.type == "cuda"
+    for per in (None, 0.03, np.where(rng.random((48, H.shape[1])) < 0.1, 0.5, 0.04)):
+        want = cpu.batch_decode_detailed(syn, per=per)
+        got = gpu.batch_decode_detailed(syn, per=per)
+        for a, b in zip(got[:3], want[:3]):
+            assert np.array_equal(a, b)
+        assert np.array_equal(got[3]["llrs"].view(np.uint32), want[3]["llrs"].view(np.uint32))
+    # flooding: the kernel against the lifted backend (the min-sum kernels).
+    # Their variable updates add the prior first and last, so a total that
+    # cancels to a rounding residue decides differently for a sweep
+    # (tests/test_torch_qc.py shows those totals): the same lanes converge,
+    # every one of them, to the same correction, which reproduces its
+    # syndrome; lanes that never converge drift apart
+    if not kw:
+        lifted = pt.QCMinSumDecoder(base, 64, 0.04, 20, backend="lifted")
+        outs = [d.batch_decode(syn) for d in (gpu, lifted)]
+        for e, c in outs:
+            assert (((e.astype(np.int64) @ H.T) % 2)[c] == syn[c]).all()
+        conv = outs[0][1]
+        assert conv.sum() >= 20 and np.array_equal(conv, outs[1][1])
+        assert (outs[0][0][conv] == outs[1][0][conv]).all()
+
+
+def test_spacetime_for_bicycle_on_card_matches_cpu(dev):
+    cpu = pt.SpaceTimeDecoder.for_bicycle("bb72", "x", 3, 0.01, 40, meas_error_rate=0.015,
+                                          device="cpu")
+    gpu = pt.SpaceTimeDecoder.for_bicycle("bb72", "x", 3, 0.01, 40, meas_error_rate=0.015)
+    rng = np.random.default_rng(5)
+    x = (rng.random((40, cpu.n_cols)) < cpu._prior[None, :]).astype(np.uint8)
+    det = (x @ cpu.A.T.toarray() % 2).astype(np.uint8)
+    before = cuda_qc.qc_minsum_cuda.launches
+    want = cpu.batch_decode_detailed(det)
+    got = gpu.batch_decode_detailed(det)
+    assert cuda_qc.qc_minsum_cuda.launches == before + 1
+    for a, b in zip(got[:3], want[:3]):
+        assert np.array_equal(a, b)
+    assert np.array_equal(got[3]["inner"]["llrs"].view(np.uint32),
+                          want[3]["inner"]["llrs"].view(np.uint32))
+    assert got[1].mean() > 0.9

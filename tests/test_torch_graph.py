@@ -134,6 +134,8 @@ def test_port_imports_without_jax():
     code = (
         "import sys, ldpcdecoders_tpu_torch\n"
         "import ldpcdecoders_tpu_torch.ops.cuda_gf2, ldpcdecoders_tpu_torch._build\n"
+        "import ldpcdecoders_tpu_torch.ops.cuda_qc, ldpcdecoders_tpu_torch.models.spacetime\n"
+        "import ldpcdecoders_tpu_torch.codes.bicycle, ldpcdecoders_tpu_torch.utils.metrics\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'ldpcdecoders_tpu.'))"
         " or k == 'ldpcdecoders_tpu']\n"
         "print(','.join(bad))\n"
