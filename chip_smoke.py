@@ -15,7 +15,11 @@ public decoder API on ``cuda:0`` and prints, in order:
      main path's shape: bitwise equality, both times, and the least time
      the card could take (bytes over 3.35 TB/s, or the operations these
      inputs need over 67 TFLOP/s in float32 and a quarter of that for
-     32-bit integer work, whichever is larger);
+     32-bit integer work, whichever is larger); the two eliminations also
+     against their plain blocked forms, with the panel width and shared
+     memory the launcher reports (``ldpc_gf2_plan`` of the built library,
+     which must equal ``cuda_gf2.launch_plan``), and their times at 128
+     lanes and with the panel capped at 4, 2 and 1 columns;
   4. the main paths, each one with every launch count set to 0 just before
      it and read just after it, and failing if a kernel of that path was
      never launched: (a), (b) BP+OSD-0 at per 0.01 and 0.2, (c) BP+OSD-2 at
@@ -33,7 +37,10 @@ public decoder API on ``cuda:0`` and prints, in order:
      ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a ``torch.profiler`` summary of one steady call of each
-configuration (launches, device-busy share, largest kernels) before 6.
+configuration (launches, device-busy share, largest kernels; the OSD paths
+(b), (c), (g), (h) among them) before 6, and a second build of the kernels
+with ``-DLDPC_GF2_PHASE_CLOCKS``: block 0's SM clocks in the phases of the
+two eliminations, and that build's times beside the plain build's.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  It needs a CUDA device and the package beside it.
@@ -41,6 +48,7 @@ line.  It needs a CUDA device and the package beside it.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -437,6 +445,65 @@ def main() -> int:
             if loose:
                 kernels[key]["variants"][variant]["llr_spacings"] = spacings
 
+    # the two eliminations once more: against the plain BLOCKED forms (the
+    # kernel's own algorithm in torch), with the launcher's plan, at the 128
+    # lanes of path (h), and with the panel capped at 4, 2 and 1 columns
+    clock_lib = _build.load_library(("LDPC_GF2_PHASE_CLOCKS",)) if want_profile else None
+    b128 = slice(0, 128)
+    gf2_extra = (
+        ("gf2_osd0", True,
+         lambda sl=slice(None), **kw: (cuda_gf2.gf2_osd0_cuda(
+             Ht[sl], resid[sl], bp_sorted[sl], n, **kw),),
+         lambda P: (gf2.gf2_osd0_blocked(Ht, resid, bp_sorted, n, P),)),
+        ("gf2_eliminate", False,
+         lambda sl=slice(None), **kw: cuda_gf2.gf2_eliminate_cuda(Ht[sl], s_int[sl], n, **kw),
+         lambda P: gf2.gf2_eliminate_blocked(Ht, s_int, n, P)[:3]),
+    )
+    for key, osd0, kern, blocked in gf2_extra:
+        plan = cuda_gf2.launcher_plan(W, m, osd0=osd0)  # what the launcher takes
+        if plan != cuda_gf2.launch_plan(W, m, osd0=osd0) or plan.panel == 0:
+            raise AssertionError(f"{key}: the launcher plans {plan}, cuda_gf2.launch_plan "
+                                 f"{cuda_gf2.launch_plan(W, m, osd0=osd0)}")
+        err_b = max_abs_err(torch, kern(), blocked(plan.panel))
+        ms128 = event_ms(torch, lambda: kern(b128), 10)
+        by_panel = {}
+        for P in (8, 4, 2, 1):
+            if max_abs_err(torch, kern(_max_panel=P), kern()) != 0:
+                raise AssertionError(f"{key}: panel {P} differs from panel {plan.panel}")
+            by_panel[str(P)] = event_ms(torch, lambda: kern(_max_panel=P), 3)
+        if clock_lib is not None:
+            if max_abs_err(torch, kern(_lib=clock_lib), kern()) != 0:
+                raise AssertionError(f"{key}: the build with phase clocks differs")
+            torch.cuda.synchronize()
+            clk = (ctypes.c_longlong * 5)()
+            if clock_lib.ldpc_gf2_phase_clocks(clk) != 0:
+                raise AssertionError(f"{key}: the phase clocks could not be read")
+            trips_c, serial_c, overlap_c, all_c, panels = clk
+            ms_clk = event_ms(torch, lambda: kern(_lib=clock_lib), 10)
+            ms_plain = event_ms(torch, kern, 10)
+            print(f"phases {key}, block 0: {all_c} SM clocks in the elimination; warp 0 in its "
+                  f"trips {trips_c} ({100 * trips_c / all_c:.1f}%), stretches behind barriers (Q "
+                  f"rows, codes, slices, table) {serial_c} ({100 * serial_c / all_c:.1f}%), "
+                  f"overlapped stretches (trips beside the apply pass) {overlap_c} "
+                  f"({100 * overlap_c / all_c:.1f}%); {panels} panels with a pivot: "
+                  f"{trips_c / panels:.0f} / {serial_c / panels:.0f} / {overlap_c / panels:.0f} "
+                  f"clocks a panel | the build with the clocks {ms_clk:.3f} ms, without "
+                  f"{ms_plain:.3f} ms")
+        print(f"kernel {key} blocked: panel {plan.panel} columns, {plan.bytes} B shared memory "
+              f"(row stride {cuda_gf2.row_stride(m, plan.pad)} words), max_abs_err {err_b} "
+              f"against the plain blocked form (bitwise required) | B=128 {ms128:.3f} ms | "
+              f"panel capped at "
+              + ", ".join(f"{P}: {t:.3f} ms" for P, t in by_panel.items())
+              + f" at B={B} | {card}")
+        if err_b != 0:
+            raise AssertionError(f"{key}: kernel differs from its plain blocked form")
+        kernels[key]["max_abs_err"] = max(kernels[key]["max_abs_err"], err_b)
+        kernels[key]["max_abs_err_blocked"] = err_b
+        kernels[key]["panel"] = plan.panel
+        kernels[key]["smem_bytes"] = plan.bytes
+        kernels[key]["variants"]["B=128"] = {"ms": ms128}
+        kernels[key]["variants"]["by_panel_ms"] = by_panel
+
     wrappers = {"gf2_osd0": cuda_gf2.gf2_osd0_cuda, "gf2_eliminate": cuda_gf2.gf2_eliminate_cuda,
                 "minsum_check": cuda_minsum.minsum_check_cuda,
                 "minsum_var": cuda_minsum.minsum_var_cuda,
@@ -662,6 +729,10 @@ def main() -> int:
             ("min-sum damping 0.4 per 0.5", lambda: osd_ms.bp(d50), MAX_ITERS),
             ("BP+OSD-0 inner min-sum per 0.2", lambda: osd_ms.batch_decode_async(d20),
              MAX_ITERS),
+            ("(b) BP+OSD-0 per 0.2", lambda: dec0.batch_decode_async(d20, per=0.2), MAX_ITERS),
+            ("(c) BP+OSD-2 per 0.01", lambda: dec2.batch_decode_async(d01), MAX_ITERS),
+            ("(h) BP+OSD-2 on failing lanes, inner min-sum, per 0.2, 128 lanes",
+             lambda: osd2_ms.batch_decode_async(d20[:128]), MAX_ITERS),
         ):
             profile_call(torch, name, fn, its)
 

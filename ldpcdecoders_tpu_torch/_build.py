@@ -41,14 +41,18 @@ def _nvcc() -> str:
     return found
 
 
-def build_library() -> tuple[Path, float, str]:
+def build_library(defines: tuple[str, ...] = ()) -> tuple[Path, float, str]:
     """Compile ``csrc/*.cu`` unless an identical build exists.
 
-    Returns ``(library path, build seconds, compiler output)``; seconds is 0
-    and the output empty when the build was already there.
+    ``defines`` are preprocessor names for a build of its own beside the
+    plain one (``LDPC_GF2_PHASE_CLOCKS``: the eliminations count the SM
+    clocks of their phases).  Returns ``(library path, build seconds,
+    compiler output)``; seconds is 0 and the output empty when the build was
+    already there.
     """
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = [*NVCC_FLAGS, *(f"-D{name}" for name in defines)]
+    digest = hashlib.sha256(" ".join(flags).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -62,7 +66,7 @@ def build_library() -> tuple[Path, float, str]:
     # renamed when complete: concurrent builds never load a half-written one
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [str(Path(tmp) / f"{src.stem}.o") for src in sources]
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+        cmds = [[nvcc, *flags, "-c", "-o", obj, str(src)]
                 for obj, src in zip(objs, sources)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True) for cmd in cmds]
@@ -81,15 +85,21 @@ def build_library() -> tuple[Path, float, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build if needed and load the kernel library (once per process)."""
-    path, _, _ = build_library()
+def load_library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build if needed and load the kernel library (once per process and
+    set of ``defines``)."""
+    path, _, _ = build_library(defines)
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ldpc_gf2_eliminate.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    lib.ldpc_gf2_eliminate.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
     lib.ldpc_gf2_eliminate.restype = i32
-    lib.ldpc_gf2_osd0.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+    lib.ldpc_gf2_osd0.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.ldpc_gf2_osd0.restype = i32
+    lib.ldpc_gf2_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+    lib.ldpc_gf2_plan.restype = None
+    if "LDPC_GF2_PHASE_CLOCKS" in defines:
+        lib.ldpc_gf2_phase_clocks.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+        lib.ldpc_gf2_phase_clocks.restype = i32
     i64, f32 = ctypes.c_longlong, ctypes.c_float
     lib.ldpc_minsum_check.argtypes = [ptr] * 5 + [i32] * 3 + [i64] + [f32] * 3 + [i32, ptr]
     lib.ldpc_minsum_check.restype = i32

@@ -1,35 +1,78 @@
 // Batched GF(2) elimination kernels for OSD post-processing, for sm_90a.
 //
 // Replaces the two Pallas TPU kernels of ldpcdecoders_tpu/ops/pallas_gf2.py:
-//   gf2_osd0_kernel  <- pallas_gf2.py:_osd0_kernel (wrapper gf2_osd0_pallas)
-//   gf2_elim_kernel  <- pallas_gf2.py:_elim_kernel (wrapper gf2_eliminate_pallas)
+//   gf2_pipelined_kernel<P, true>, gf2_panel_kernel<P, true>
+//       <- pallas_gf2.py:_osd0_kernel (wrapper gf2_osd0_pallas)
+//   gf2_pipelined_kernel<P, false>, gf2_panel_kernel<P, false>
+//       <- pallas_gf2.py:_elim_kernel (wrapper gf2_eliminate_pallas)
 // and computes what they compute: the same pivot columns (the first unused
 // row with the column bit set), the same co-transformed syndrome, the same
-// pivot map with sentinel n, and for OSD-0 the same correction.
+// pivot map with sentinel n, the same RREF, and for OSD-0 the same
+// correction.  ops/gf2.py holds the plain versions: gf2_osd0 / gf2_eliminate
+// column by column, and gf2_osd0_blocked / gf2_eliminate_blocked panel by
+// panel as here.
 //
 // Layout.  One block per lane.  The lane's bit-packed, transposed system
 // Ht[W][m] (word w of row i holds columns 32w..32w+31) is copied once into
-// dynamic shared memory and stays there for the whole column loop; device
-// memory sees one read and one write per lane.  Thread t owns rows
-// t, t + blockDim, ...  Reading a column and XOR-ing the pivot row are then
-// runs of neighbouring words across a warp (conflict-free), and the pivot
-// row's words are a broadcast.
+// dynamic shared memory and stays there for the whole elimination; device
+// memory sees one read and one write per lane.  The row stride mp is a
+// multiple of 4 words with mp % 8 == 4: a warp reads 32 rows of one word, or
+// 4 rows of each of 32 words as one 16-byte access per thread, without a
+// bank conflict.  One state word per row holds its pivot column (23 bits,
+// sentinel n), its syndrome bit and, in gf2_panel_kernel, its code in the
+// current panel (8 bits).
 //
-// Each column trip j: (1) every thread tests its rows' bit j; a warp ballot
-// plus __ffs gives the warp's first free row with the bit set, and an
-// atomicMin in shared memory the block's; (2) after a __syncthreads the
-// pivot row's W words and syndrome bit are XORed into every other row with
-// the bit set; a second __syncthreads ends the trip.
+// Blocked elimination (the "method of four Russians"), P columns a panel,
+// P in {8, 4, 2, 1} and all within one word:
+//   (1) Panel pass.  The P column trips run on the panel's bits and the
+//       syndrome bit only: pivot choice, full-rank stop, OSD-0's stop at the
+//       first column at whose entry no residual is left outside the pivot
+//       space, and the fold of bp_err[j] into the pivot row stay exactly
+//       sequential.  Every row records a code: bit t set when the pivot of
+//       the panel's column t was XORed into it.
+//   (2) Table.  Q_t, the pivot row of trip t as it stood when its column
+//       was reached, is its start XOR the Q_u of its code's lower bits.
+//       T[c] = XOR of Q_t over the bits of c, 2^P rows of W words.
+//   (3) Apply.  A warp per 4 rows, a lane per word: row ^= T[code], every
+//       lane busy, one pass per P columns.  OSD-0 skips the words left of
+//       the panel, which no later column reads and which are no output.
 //
-// What bounds it on the H100: a serial loop of up to n trips, each two
-// block-wide barriers plus shared-memory traffic of at most W words per
-// eliminated row.  At the (1000, 10, 9) code a lane takes
-// 4 * (32 * 900 + 3 * 900) bytes, about 126 KB, so one block fits an SM and
-// 132 lanes run at a time.  The design keeps the trip short (one ballot,
-// one atomic per warp, no copy of the pivot row: row k is never written in
-// its own trip) and lets a lane leave the loop as soon as its answer is
-// fixed: at full rank (elimination) or once the residual outside the pivot
-// space is empty (OSD-0).
+// gf2_pipelined_kernel (m <= 1024, P > 1) is the main path's.  Warp 0 makes
+// the trips alone, without a barrier, on bit slices in its registers: lane b
+// holds rows 32 b .. 32 b + 31, one register per panel column, one each for
+// the syndrome bits and the free rows.  A trip is a few 32-row logic
+// operations, one warp reduction for the first row and one shuffle per
+// column for the pivot row's bits.  It runs one panel AHEAD of the apply
+// pass: while the other warps apply panel q - 1, warp 0 takes the raw bits
+// of panel q (sliced before that pass began), corrects them by panel q - 1's
+// pivots (column t' of a row changes by Q_t's bit t' for every bit t of the
+// row's code) and makes panel q's trips.  Beside the trips the warps of
+// warp 0's scheduler (warps 4, 8, ...) stay out of the apply pass: a warp
+// alone on its scheduler makes a trip in two thirds of the time.  Between
+// two such overlapped stretches, behind a block barrier: warp 1 works out
+// the Q_t of panel q, the other warps turn the code slices into the rows'
+// table offsets and state words and slice panel q + 1's raw bits; barrier;
+// all warps write the table; barrier.  Three block barriers a panel.
+//
+// gf2_panel_kernel takes every other shape (m > 1024, P = 1, a lane that
+// fits only bare): thread t owns rows t, t + blockDim, ... in shared
+// memory; a trip is a warp ballot for the warp's first free row with the
+// bit, a slot per warp, one block barrier, a warp reduction over the slots,
+// and the XOR of the pivot's panel word into the own rows with the bit.
+// With P = 1 there is no table: the trip XORs the pivot row itself into the
+// rows with the bit, all words, a thread per row and one barrier a column.
+//
+// What bounds it on the H100: one SM per lane, in series over n / P
+// panels.  A panel is the longer of the apply pass (the lane is read, a
+// table row is read, the lane is written: 3 * 4 * W * m bytes of shared
+// memory at 128 bytes a clock, and 18 instructions per 4 rows and word) and
+// of P dependent trips in one warp, a chain of warp-wide latencies; then
+// the stretch behind barriers, whose instructions (32-bit integer and
+// shared-memory) are the table's 2^P rows, the bit transposes of the
+// slices, and warp 1's chain.  The launcher picks the widest panel whose
+// table fits the 232,448 bytes a block may take beside the lane;
+// ldpc_gf2_plan reports that choice, and ops/cuda_gf2.py:launch_plan
+// computes the same in Python (the card's tests hold the two together).
 //
 // Plain C interface (pointers, sizes, stream), loaded with ctypes.  Each
 // launcher returns the cudaError_t of its launch; 0 is success.
@@ -39,160 +82,641 @@
 
 namespace {
 
-// Shared memory: [kmin 2][piv m][s nbuf*m][ht W*m] 32-bit words
-// (ops/cuda_gf2.py:smem_bytes computes the same size).
-inline size_t smem_words(int W, int m, int nbuf) {
-  return 2 + (size_t)m * (1 + nbuf) + (size_t)W * m;
-}
+constexpr uint32_t kPivMask = 0x7fffffu;  // state word: pivot column, sentinel n
+constexpr int kCodeShift = 23;            // 8 bits of panel code
+constexpr uint32_t kCodeMask = 0xffu << kCodeShift;
+constexpr int kSynShift = 31;             // the row's syndrome bit
+constexpr uint32_t kNoKey = 0xffffffffu;    // no candidate row
+constexpr uint32_t kNoPivot = 0xfffffffeu;  // trip key: the column has no pivot
+constexpr uint32_t kStop = 0xfffffffdu;     // trip key: the panel ended before this trip
+constexpr size_t kMaxSmemBytes = 232448;  // dynamic shared memory of one Hopper block
+constexpr uint32_t kFull = 0xffffffffu;
 
-// First row (ascending) among this thread's rows where `pred(i)` holds,
-// reduced over the warp with a ballot; returns m if none.  Every thread of
-// the warp must call it (the loop bound is uniform).
-template <typename Pred>
-__device__ inline int warp_first_row(int m, Pred pred) {
-  const int lane_base = threadIdx.x & ~31;
-  for (int i0 = 0; i0 < m; i0 += blockDim.x) {
-    const int i = i0 + threadIdx.x;
-    const unsigned ballot = __ballot_sync(0xffffffffu, i < m && pred(i));
-    if (ballot) return i0 + lane_base + __ffs(ballot) - 1;
-  }
-  return m;
-}
-
-__global__ void gf2_elim_kernel(const uint32_t* __restrict__ ht_in,
-                                const uint32_t* __restrict__ s_in,
-                                uint32_t* __restrict__ ht_out,
-                                uint32_t* __restrict__ s_out,
-                                int32_t* __restrict__ piv_out,
-                                int W, int m, int n) {
-  extern __shared__ uint32_t smem[];
-  int* kmin = reinterpret_cast<int*>(smem);
-  int32_t* piv = reinterpret_cast<int32_t*>(smem + 2);
-  uint32_t* s = smem + 2 + m;
-  uint32_t* ht = s + m;
-
-  const size_t lane_off = (size_t)blockIdx.x * W * m;
-  const size_t row_off = (size_t)blockIdx.x * m;
-  for (int idx = threadIdx.x; idx < W * m; idx += blockDim.x) ht[idx] = ht_in[lane_off + idx];
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    s[i] = s_in[row_off + i];
-    piv[i] = n;
-  }
-  if (threadIdx.x == 0) kmin[0] = kmin[1] = m;
-  __syncthreads();
-
-  int rank = 0;  // identical in every thread
-  for (int j = 0; j < n && rank < m; ++j) {
-    const uint32_t* colw = ht + (size_t)(j >> 5) * m;
-    const int bit = j & 31;
-    // (1) pivot: first unused row with bit j set
-    const int first = warp_first_row(m, [&](int i) {
-      return piv[i] == n && ((colw[i] >> bit) & 1u);
-    });
-    if ((threadIdx.x & 31) == 0 && first < m) atomicMin(&kmin[j & 1], first);
-    __syncthreads();
-    const int k = kmin[j & 1];
-    // the other slot was last read before the previous trip's final barrier
-    if (threadIdx.x == 0) kmin[(j + 1) & 1] = m;
-    if (k < m) {
-      // (2) eliminate bit j from every other row; row k is not written
-      const uint32_t sk = s[k];
-      for (int i = threadIdx.x; i < m; i += blockDim.x) {
-        if (i != k && ((colw[i] >> bit) & 1u)) {
-          s[i] ^= sk;
-          for (int w = 0; w < W; ++w) ht[(size_t)w * m + i] ^= ht[(size_t)w * m + k];
-        }
-      }
-      if (threadIdx.x == 0) piv[k] = j;
-      ++rank;
-    }
-    __syncthreads();
-  }
-
-  for (int idx = threadIdx.x; idx < W * m; idx += blockDim.x) ht_out[lane_off + idx] = ht[idx];
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    s_out[row_off + i] = s[i];
-    piv_out[row_off + i] = piv[i];
-  }
-}
-
-__global__ void gf2_osd0_kernel(const uint32_t* __restrict__ ht_in,
-                                const uint32_t* __restrict__ resid,
-                                const int32_t* __restrict__ bp,
-                                int32_t* __restrict__ corr,
-                                int W, int m, int n) {
-  extern __shared__ uint32_t smem[];
-  int* kmin = reinterpret_cast<int*>(smem);
-  int32_t* piv = reinterpret_cast<int32_t*>(smem + 2);
-  // the residual is double-buffered: a trip reads every row of one buffer
-  // (including the pivot row, whose bit changes in the same trip) and
-  // writes the other
-  uint32_t* sbuf[2] = {smem + 2 + m, smem + 2 + 2 * m};
-  uint32_t* ht = smem + 2 + 3 * m;
-
-  const size_t lane_off = (size_t)blockIdx.x * W * m;
-  const size_t row_off = (size_t)blockIdx.x * m;
-  const size_t col_off = (size_t)blockIdx.x * n;
-  for (int idx = threadIdx.x; idx < W * m; idx += blockDim.x) ht[idx] = ht_in[lane_off + idx];
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    sbuf[0][i] = resid[row_off + i];
-    piv[i] = n;
-  }
-  if (threadIdx.x == 0) kmin[0] = kmin[1] = m;
-  __syncthreads();
-
-  int cur = 0;  // identical in every thread
-  for (int j = 0; j < n; ++j) {
-    const uint32_t* colw = ht + (size_t)(j >> 5) * m;
-    const int bit = j & 31;
-    const uint32_t* s = sbuf[cur];
-    // residual left outside the pivot space? (tested at trip entry)
-    int rem = 0;
-    for (int i = threadIdx.x; i < m; i += blockDim.x) rem |= (piv[i] == n) && s[i];
-    const int first = warp_first_row(m, [&](int i) {
-      return piv[i] == n && ((colw[i] >> bit) & 1u);
-    });
-    if ((threadIdx.x & 31) == 0 && first < m) atomicMin(&kmin[j & 1], first);
-    if (!__syncthreads_or(rem)) break;  // this lane's answer is fixed
-    const int k = kmin[j & 1];
-    if (threadIdx.x == 0) kmin[(j + 1) & 1] = m;
-    if (k < m) {
-      // bp_err[j] folds into every row with bit j set; on the rows that
-      // are then eliminated it cancels, so only the pivot row keeps it
-      const uint32_t sk = s[k];
-      uint32_t* s_next = sbuf[cur ^ 1];
-      for (int i = threadIdx.x; i < m; i += blockDim.x) {
-        uint32_t v = s[i];
-        if (i == k) {
-          v ^= (uint32_t)bp[col_off + j];
-          piv[i] = j;
-        } else if ((colw[i] >> bit) & 1u) {
-          v ^= sk;
-          for (int w = 0; w < W; ++w) ht[(size_t)w * m + i] ^= ht[(size_t)w * m + k];
-        }
-        s_next[i] = v;
-      }
-      cur ^= 1;
-    }
-    __syncthreads();
-  }
-
-  // correction: bp_err with each pivot column reassigned from the residual
-  for (int c = threadIdx.x; c < n; c += blockDim.x) corr[col_off + c] = bp[col_off + c];
-  __syncthreads();
-  const uint32_t* s = sbuf[cur];
-  for (int i = threadIdx.x; i < m; i += blockDim.x)
-    if (piv[i] < n) corr[col_off + piv[i]] = (int32_t)s[i];
-}
-
+// At least two warps: the pipelined kernel gives warp 0 the trips and warp 1
+// the Q rows.
 int block_threads(int m) {
   const int t = ((m + 31) / 32) * 32;
-  return t < 32 ? 32 : (t > 1024 ? 1024 : t);
+  return t < 64 ? 64 : (t > 1024 ? 1024 : t);
+}
+
+__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
+
+// Trip slots of a panel in gf2_panel_kernel: one per column; two, taken in
+// turn, at P = 1, where a panel has the one barrier of its trip.
+__host__ __device__ constexpr int trip_slots(int P) { return P == 1 ? 2 : P; }
+
+// Row stride of the lane in shared memory: padded to mp % 8 == 4, or bare.
+int row_stride(int m, bool pad) {
+  if (!pad) return m;
+  const int m4 = round4(m);
+  return m4 % 8 == 4 ? m4 : m4 + 4;
+}
+
+// Shared memory of a block, as offsets in 32-bit words; every part is a
+// multiple of 4 words (ops/cuda_gf2.py:launch_plan computes the same sum).
+struct Layout {
+  int ctrl;    // [16] pipelined: loop state of the panel in flight, its trip keys
+  int slices;  // [2P + 2][32] pipelined: column, code, syndrome, free-row slices
+  int slots;   // [S][nwarps][2] panel kernel: a candidate key and word per warp
+  int qs;      // [P][W] pivot rows Q_t (P > 1)
+  int state;   // [m] pivot column | code << 23 | syndrome bit << 31
+  int rowoff;  // [m] pipelined: the row's code times W, its offset in the table
+  int ht;      // [W][mp] the lane
+  int table;   // [2^P][W] (P > 1)
+  int bpw;     // [W] OSD-0: packed bp_err, if it fits
+  int total;
+};
+
+// One warp holds 32 chunks of 32 rows in its registers, and a table is needed.
+__host__ __device__ constexpr bool is_pipelined(int m, int P) { return P > 1 && m <= 1024; }
+
+__host__ __device__ inline Layout layout(int W, int m, int mp, int P, int nwarps, bool bp_bits) {
+  const bool pipelined = is_pipelined(m, P);
+  Layout l;
+  int o = 0;
+  l.ctrl = o, o += pipelined ? 16 : 0;
+  l.slices = o, o += pipelined ? 32 * (2 * P + 2) : 0;
+  l.slots = o, o += pipelined ? 0 : round4(2 * trip_slots(P) * nwarps);
+  l.qs = o, o += P > 1 ? round4(P * W) : 0;
+  l.state = o, o += round4(m);
+  l.rowoff = o, o += pipelined ? round4(m) : 0;
+  l.ht = o, o += W * mp;
+  l.table = o, o += P > 1 ? (W << P) : 0;
+  l.bpw = o, o += bp_bits ? W : 0;
+  l.total = o;
+  return l;
+}
+
+// The lane and its state into shared memory; OSD-0's bp_err packed.
+template <bool OSD0>
+__device__ inline void copy_in(const uint32_t* __restrict__ ht_in,
+                               const uint32_t* __restrict__ s_in,
+                               const int32_t* __restrict__ bp, uint32_t* ht, uint32_t* state,
+                               uint32_t* bpw, int W, int m, int mp, int n, int bp_bits) {
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const size_t lane_off = (size_t)blockIdx.x * W * m;
+  for (int w = 0; w < W; ++w) {
+    for (int i = tid; i < m; i += nthreads) ht[w * mp + i] = ht_in[lane_off + (size_t)w * m + i];
+    if (m + tid < mp) ht[w * mp + m + tid] = 0u;  // rows of padding: never a pivot
+  }
+  for (int i = tid; i < round4(m); i += nthreads) {
+    state[i] = (uint32_t)n |
+               (i < m ? (s_in[(size_t)blockIdx.x * m + i] & 1u) << kSynShift : 0u);
+  }
+  if (OSD0 && bp_bits) {
+    for (int w = tid >> 5; w < W; w += nthreads >> 5) {
+      const int c = 32 * w + (tid & 31);
+      const unsigned word = __ballot_sync(kFull, c < n && bp[(size_t)blockIdx.x * n + c] != 0);
+      if ((tid & 31) == 0) bpw[w] = word;
+    }
+  }
+}
+
+// The results out of shared memory: OSD-0's correction (bp_err with each
+// pivot column reassigned from the residual), or the RREF, the syndrome
+// and the pivot map.  Ends no barrier; begins after one.
+template <bool OSD0>
+__device__ inline void copy_out(const uint32_t* ht, const uint32_t* state,
+                                const int32_t* __restrict__ bp, uint32_t* __restrict__ ht_out,
+                                uint32_t* __restrict__ s_out, int32_t* __restrict__ piv_out,
+                                int32_t* __restrict__ corr, int W, int m, int mp, int n) {
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  if (OSD0) {
+    const size_t col_off = (size_t)blockIdx.x * n;
+    for (int c = tid; c < n; c += nthreads) corr[col_off + c] = bp[col_off + c];
+    __syncthreads();
+    for (int i = tid; i < m; i += nthreads) {
+      const uint32_t sv = state[i];
+      const uint32_t piv = sv & kPivMask;
+      if (piv < (uint32_t)n) corr[col_off + piv] = (int32_t)(sv >> kSynShift);
+    }
+  } else {
+    const size_t lane_off = (size_t)blockIdx.x * W * m;
+    for (int w = 0; w < W; ++w)
+      for (int i = tid; i < m; i += nthreads)
+        ht_out[lane_off + (size_t)w * m + i] = ht[w * mp + i];
+    for (int i = tid; i < m; i += nthreads) {
+      const uint32_t sv = state[i];
+      s_out[(size_t)blockIdx.x * m + i] = sv >> kSynShift;
+      piv_out[(size_t)blockIdx.x * m + i] = (int32_t)(sv & kPivMask);
+    }
+  }
+}
+
+// (2) Every warp writes the table rows c = g * 2^L + e of its groups g.
+template <int P>
+__device__ inline void build_table(const uint32_t* qs, uint32_t* table, int W) {
+  constexpr int L = P < 3 ? P : 3;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  for (int w = lane; w < W; w += 32) {
+    uint32_t q[P];
+#pragma unroll
+    for (int t = 0; t < P; ++t) q[t] = qs[t * W + w];
+    for (int g = warp; g < (1 << (P - L)); g += nwarps) {
+      uint32_t base = 0;
+#pragma unroll
+      for (int u = L; u < P; ++u)
+        if ((g >> (u - L)) & 1) base ^= q[u];
+#pragma unroll
+      for (int e = 0; e < (1 << L); ++e) {
+        uint32_t v = base;
+#pragma unroll
+        for (int u = 0; u < L; ++u)
+          if ((e >> u) & 1) v ^= q[u];
+        table[((g << L) | e) * W + w] = v;
+      }
+    }
+  }
+}
+
+// (3) row ^= T[code] over the words [w_first, W) but `w_skip`, by the warps
+// from `first_warp` on: a warp per 4 rows, a lane per word, 16-byte
+// accesses down the column of four rows.  OFFSETS: `rows` holds each row's
+// offset in the table, code * W; otherwise its state word.
+template <bool OFFSETS>
+__device__ inline void apply_table(uint32_t* ht, const uint32_t* rows, const uint32_t* table,
+                                   int W, int m, int mp, int w_first, int w_skip,
+                                   int first_warp) {
+  // beside warp 0's trips (first_warp 1) the warps of its scheduler, warps
+  // 4, 8, ..., stay out: the trips keep their pace
+  const int lane = threadIdx.x & 31, all = blockDim.x >> 5, me = threadIdx.x >> 5;
+  const int warp = first_warp == 0 ? me : (me % 4 != 0 ? me - 1 - (me >> 2) : -1);
+  const int nwarps = first_warp == 0 ? all : (all - 1) - ((all - 1) >> 2);
+  if (warp < 0) return;
+  for (int w = w_first + lane; w < W; w += 32) {
+    if (w == w_skip) continue;
+    uint32_t* col = ht + w * mp;
+    const uint32_t* tw = table + w;
+    for (int i = 4 * warp; i < round4(m); i += 4 * nwarps) {
+      const uint4 a = *reinterpret_cast<const uint4*>(rows + i);
+      uint4 x = *reinterpret_cast<uint4*>(col + i);
+      if (OFFSETS) {
+        x.x ^= tw[a.x], x.y ^= tw[a.y], x.z ^= tw[a.z], x.w ^= tw[a.w];
+      } else {
+        x.x ^= tw[((a.x & kCodeMask) >> kCodeShift) * W];
+        x.y ^= tw[((a.y & kCodeMask) >> kCodeShift) * W];
+        x.z ^= tw[((a.z & kCodeMask) >> kCodeShift) * W];
+        x.w ^= tw[((a.w & kCodeMask) >> kCodeShift) * W];
+      }
+      *reinterpret_cast<uint4*>(col + i) = x;
+    }
+  }
+}
+
+// Phase clocks, compiled in with -DLDPC_GF2_PHASE_CLOCKS only: block 0 of
+// the last launch leaves five numbers for ldpc_gf2_phase_clocks: a, b, c,
+// the whole elimination, the panels with a pivot.  (The clock read behind a
+// barrier may issue before the wait is over: a wait can land in the next
+// phase.)  Without the flag the reads are the constant 0 and fall away.
+#ifdef LDPC_GF2_PHASE_CLOCKS
+__device__ long long g_phase_clocks[5];
+#define LDPC_CLOCK() clock64()
+#else
+#define LDPC_CLOCK() 0LL
+#endif
+
+__device__ inline void write_clocks(long long a, long long b, long long c, long long start,
+                                    long long panels) {
+#ifdef LDPC_GF2_PHASE_CLOCKS
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    g_phase_clocks[0] = a, g_phase_clocks[1] = b, g_phase_clocks[2] = c;
+    g_phase_clocks[3] = clock64() - start;
+    g_phase_clocks[4] = panels;
+  }
+#endif
+}
+
+// Warp 0's registers in the pipelined kernel: lane b holds chunk b (rows
+// 32 b .. 32 b + 31, bit l = row 32 b + l).
+template <int P>
+struct Slices {
+  uint32_t code[P];  // bit t of the rows' codes in the panel last made
+  uint32_t syn;      // syndrome bits
+  uint32_t fre;      // rows not yet a pivot
+};
+
+// (1) One panel's trips, by warp 0 alone.  `correct`: the raw column slices
+// were cut before the last panel's apply pass, and that panel's pivots are
+// still to be brought in.  Leaves the code slices, the trip keys, the
+// syndrome slices and the loop state in shared memory.
+template <int P, bool OSD0>
+__device__ inline void make_trips(Slices<P>& r, const uint32_t* col_bits, uint32_t* code_bits,
+                                  uint32_t* syn_bits, uint32_t* trip_key, uint32_t* ctl,
+                                  const uint32_t* qs, const uint32_t* bpw,
+                                  const int32_t* __restrict__ bp, int j0, bool correct, int rank,
+                                  int W, int m, int n, int bp_bits) {
+  const int lane = threadIdx.x & 31;
+  const bool live = lane < ((m + 31) >> 5);
+  uint32_t X[P];
+#pragma unroll
+  for (int t = 0; t < P; ++t) X[t] = live ? col_bits[t * 32 + lane] : 0u;
+  if (correct) {
+#pragma unroll
+    for (int t = 0; t < P; ++t) {
+      // the bits of Q_t at this panel's columns
+      const uint32_t q = qs[t * W + (j0 >> 5)] >> (j0 & 31);
+#pragma unroll
+      for (int u = 0; u < P; ++u) X[u] ^= r.code[t] & (0u - ((q >> u) & 1u));
+    }
+  }
+  const uint32_t bpword = (OSD0 && bp_bits) ? bpw[j0 >> 5] : 0u;
+  int pivots = 0, made = 0;
+  bool done = false;  // OSD-0: this lane's answer is fixed
+#pragma unroll
+  for (int t = 0; t < P; ++t) {
+    const int j = j0 + t;
+    bool stop = made < t || j >= n || (!OSD0 && rank >= m);
+    // OSD-0: residual left outside the pivot space? (at trip entry)
+    if (OSD0 && !stop) done = stop = !__any_sync(kFull, (r.fre & r.syn) != 0u);
+    uint32_t rows = 0u;  // the rows with bit j but the pivot row
+    uint32_t key = kStop;
+    if (!stop) {
+      ++made;
+      const uint32_t hit = X[t] & r.fre;  // free rows with bit j
+      const uint32_t k = __reduce_min_sync(
+          kFull, hit != 0u ? (uint32_t)(32 * lane + __ffs(hit) - 1) : kNoKey);
+      key = kNoPivot;
+      if (k != kNoKey) {
+        const int kb = (int)(k >> 5), kl = (int)(k & 31u);
+        const uint32_t own = lane == kb ? 1u << kl : 0u;
+        rows = X[t] & ~own;
+        const uint32_t psyn = 0u - ((__shfl_sync(kFull, r.syn, kb) >> kl) & 1u);
+#pragma unroll
+        for (int u = 0; u < P; ++u)
+          X[u] ^= rows & (0u - ((__shfl_sync(kFull, X[u], kb) >> kl) & 1u));
+        // bp_err[j] folds into every row with bit j set; on the rows that
+        // are then eliminated it cancels: the pivot row alone keeps it
+        uint32_t fold = 0u;
+        if (OSD0) {
+          fold = 0u - (bp_bits ? (bpword >> (j & 31)) & 1u
+                               : (uint32_t)(bp[(size_t)blockIdx.x * n + j] != 0));
+        }
+        r.syn ^= (rows & psyn) ^ (own & fold);
+        r.fre &= ~own;
+        ++rank;
+        ++pivots;
+        key = k;
+      }
+    }
+    r.code[t] = rows;
+    code_bits[t * 32 + lane] = rows;
+    trip_key[t] = key;  // every lane stores the same key: no branch
+  }
+  syn_bits[lane] = r.syn;
+  ctl[0] = (uint32_t)rank;
+  ctl[1] = (done ? 1u : 0u) | (pivots != 0 ? 2u : 0u);
+}
+
+template <int P, bool OSD0>
+__global__ void __launch_bounds__(1024, 1)
+gf2_pipelined_kernel(const uint32_t* __restrict__ ht_in, const uint32_t* __restrict__ s_in,
+                     const int32_t* __restrict__ bp, uint32_t* __restrict__ ht_out,
+                     uint32_t* __restrict__ s_out, int32_t* __restrict__ piv_out,
+                     int32_t* __restrict__ corr, int W, int m,
+                     int mp, int n, int bp_bits) {
+  static_assert(P > 1, "the pipelined kernel needs a table");
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const Layout l = layout(W, m, mp, P, nwarps, bp_bits != 0);
+  uint32_t* ctl = smem + l.ctrl;            // [0] rank, [1] done | pivots << 1
+  uint32_t* trip_key = smem + l.ctrl + 8;   // [P] pivot row of trip t, kNoPivot or kStop
+  uint32_t* col_bits = smem + l.slices;     // [P][32] column t of chunk b, raw
+  uint32_t* code_bits = col_bits + 32 * P;  // [P][32] code bit t of chunk b
+  uint32_t* syn_bits = code_bits + 32 * P;  // [32] syndrome bits of chunk b
+  uint32_t* free_bits = syn_bits + 32;      // [32] free rows of chunk b (at the start)
+  uint32_t* qs = smem + l.qs;
+  uint32_t* state = smem + l.state;
+  uint32_t* rowoff = smem + l.rowoff;  // [m] the row's offset in the table, code * W
+  uint32_t* ht = smem + l.ht;
+  uint32_t* table = smem + l.table;
+  uint32_t* bpw = smem + l.bpw;
+  const int chunks = (m + 31) >> 5;
+  // the warps but warp 1, numbered: they share the work beside the Q rows
+  const int side = warp == 0 ? 0 : warp - 1, sides = nwarps > 2 ? nwarps - 1 : 1;
+  const bool on_side = warp != 1 || nwarps == 2;
+
+  copy_in<OSD0>(ht_in, s_in, bp, ht, state, bpw, W, m, mp, n, bp_bits);
+  for (int i = tid; i < round4(m); i += blockDim.x) rowoff[i] = 0u;  // and the rows of padding
+  __syncthreads();
+
+  // Chunk b's panel bits as one word per column (bit l = row 32 b + l); at
+  // the start also its syndrome bits and free rows.
+  auto slice_columns = [&](int j0, bool with_state) {
+    const uint32_t* colw = ht + (j0 >> 5) * mp;
+    for (int b = side; b < chunks && on_side; b += sides) {
+      const int i = 32 * b + lane;
+      const uint32_t cv = i < m ? colw[i] >> (j0 & 31) : 0u;
+      uint32_t mine = 0u;
+#pragma unroll
+      for (int t = 0; t < P; ++t) {
+        const unsigned column = __ballot_sync(kFull, (cv >> t) & 1u);
+        if (lane == t) mine = column;
+      }
+      if (lane < P) col_bits[lane * 32 + b] = mine;
+      if (with_state) {
+        const uint32_t sv = i < m ? state[i] : 0u;
+        const unsigned syn_b = __ballot_sync(kFull, sv >> kSynShift);
+        const unsigned free_b = __ballot_sync(kFull, i < m);  // no row is a pivot yet
+        if (lane == 0) syn_bits[b] = syn_b, free_bits[b] = free_b;
+      }
+    }
+  };
+  slice_columns(0, true);
+  __syncthreads();
+
+  Slices<P> r;  // warp 0's
+#pragma unroll
+  for (int t = 0; t < P; ++t) r.code[t] = 0u;
+  r.syn = warp == 0 && lane < chunks ? syn_bits[lane] : 0u;
+  r.fre = warp == 0 && lane < chunks ? free_bits[lane] : 0u;
+
+  long long c_trips = 0, c_serial = 0, c_overlap = 0, c_panels = 0;
+  const long long c_start = LDPC_CLOCK();
+
+  int rank = 0;              // identical in every thread at the top of a panel
+  bool have_table = false;   // the last panel had a pivot: its table waits to be applied
+  for (int j0 = 0;; j0 += P) {
+    // warp 0 makes this panel's trips while the others apply the last one
+    const long long c0 = LDPC_CLOCK();
+    if (warp == 0) {
+      make_trips<P, OSD0>(r, col_bits, code_bits, syn_bits, trip_key, ctl, qs, bpw, bp, j0,
+                          have_table, rank, W, m, n, bp_bits);
+      c_trips += LDPC_CLOCK() - c0;
+    } else if (have_table) {
+      apply_table<true>(ht, rowoff, table, W, m, mp, OSD0 ? (j0 - P) >> 5 : 0, -1, 1);
+    }
+    __syncthreads();
+    const long long c1 = LDPC_CLOCK();
+    c_overlap += c1 - c0;
+    rank = (int)ctl[0];
+    const bool done = ctl[1] & 1u, pivots = ctl[1] & 2u;
+    const bool next = !done && j0 + P < n && (OSD0 || rank < m);
+    if (pivots) {
+      ++c_panels;
+      // back from bit slices: every row's code, syndrome bit and pivot column
+      for (int b = side; b < chunks && on_side; b += sides) {
+        const int i = 32 * b + lane;
+        uint32_t code = 0u, piv = kNoKey;
+#pragma unroll
+        for (int t = 0; t < P; ++t) {
+          code |= ((code_bits[t * 32 + b] >> lane) & 1u) << t;
+          if (trip_key[t] == (uint32_t)i) piv = (uint32_t)(j0 + t);
+        }
+        if (i < m) {
+          rowoff[i] = code * W;
+          state[i] = (piv != kNoKey ? piv : state[i] & kPivMask) |
+                     (((syn_bits[b] >> lane) & 1u) << kSynShift);
+        }
+      }
+      // Q_t: the pivot row of trip t as it stood when its column was
+      // reached: its words now, XOR the Q_u of its code's lower bits
+      if (warp == 1 && !done) {
+        uint32_t mask[P][P];  // all ones where the code of pivot t has bit u
+#pragma unroll
+        for (int t = 0; t < P; ++t) {
+          const uint32_t k = trip_key[t] < kStop ? trip_key[t] : 0u;
+#pragma unroll
+          for (int u = 0; u < t; ++u)
+            mask[t][u] = 0u - ((code_bits[u * 32 + (k >> 5)] >> (k & 31u)) & 1u);
+        }
+        for (int w = lane; w < W; w += 32) {
+          uint32_t q[P];
+#pragma unroll
+          for (int t = 0; t < P; ++t) {
+            q[t] = trip_key[t] < kStop ? ht[w * mp + trip_key[t]] : 0u;
+#pragma unroll
+            for (int u = 0; u < t; ++u) q[t] ^= q[u] & mask[t][u];
+            qs[t * W + w] = q[t];
+          }
+        }
+      }
+    }
+    if (done) break;  // OSD-0 has its answer
+    if (next) slice_columns(j0 + P, false);
+    if (!pivots && !next) break;
+    __syncthreads();
+    if (pivots) build_table<P>(qs, table, W);
+    __syncthreads();
+    c_serial += LDPC_CLOCK() - c1;
+    have_table = pivots;
+    if (!next) {
+      if (pivots) apply_table<true>(ht, rowoff, table, W, m, mp, OSD0 ? j0 >> 5 : 0, -1, 0);
+      break;
+    }
+  }
+  __syncthreads();
+  write_clocks(c_trips, c_serial, c_overlap, c_start, c_panels);
+  copy_out<OSD0>(ht, state, bp, ht_out, s_out, piv_out, corr, W, m, mp, n);
+}
+
+__device__ inline uint32_t make_key(int row, uint32_t st) {
+  return ((uint32_t)row << 9) | ((st >> (kCodeShift - 1)) & 0x1feu) | (st >> kSynShift);
+}
+
+template <int P, bool OSD0>
+__global__ void __launch_bounds__(1024, 1)
+gf2_panel_kernel(const uint32_t* __restrict__ ht_in, const uint32_t* __restrict__ s_in,
+                 const int32_t* __restrict__ bp, uint32_t* __restrict__ ht_out,
+                 uint32_t* __restrict__ s_out, int32_t* __restrict__ piv_out,
+                 int32_t* __restrict__ corr, int W, int m,
+                 int mp, int n, int bp_bits) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  const Layout l = layout(W, m, mp, P, nwarps, bp_bits != 0);
+  uint32_t* slot_key = smem + l.slots;                         // [S][nwarps] candidate key
+  uint32_t* slot_word = slot_key + trip_slots(P) * nwarps;     // [S][nwarps] its panel word
+  uint32_t* qs = smem + l.qs;
+  uint32_t* state = smem + l.state;
+  uint32_t* ht = smem + l.ht;
+  uint32_t* table = smem + l.table;
+  uint32_t* bpw = smem + l.bpw;
+  const size_t col_off = (size_t)blockIdx.x * n;
+
+  copy_in<OSD0>(ht_in, s_in, bp, ht, state, bpw, W, m, mp, n, bp_bits);
+  __syncthreads();
+
+  long long c_trips = 0, c_table = 0, c_apply = 0, c_panels = 0;
+  const long long c_start = LDPC_CLOCK();
+
+  int rank = 0;       // identical in every thread
+  bool done = false;  // OSD-0: this lane's answer is fixed
+  for (int j0 = 0; j0 < n && !done && (OSD0 || rank < m); j0 += P) {
+    const int wd = j0 >> 5;
+    uint32_t* colw = ht + wd * mp;  // the trips update the panel's word in place
+    const long long c0 = LDPC_CLOCK();
+    int pivots = 0, made = 0;
+    const uint32_t bpword = (OSD0 && bp_bits) ? bpw[wd] : 0u;
+
+    // (1) panel pass
+#pragma unroll 1  // one copy of the trip
+    for (int t = 0; t < P; ++t) {
+      const int j = j0 + t;
+      if (j >= n || (!OSD0 && rank >= m)) break;
+      const int bit = j & 31;
+      const int ts = P == 1 ? (j0 & 1) : t;  // this trip's slot
+      int rem = 0;  // residual left outside the pivot space (at trip entry)
+      bool found = false;  // uniform in the warp
+      for (int i0 = 0; i0 < m; i0 += nthreads) {
+        const int i = i0 + tid;
+        uint32_t sv = i < m ? state[i] : 0u;
+        if (P > 1 && t == 0 && i < m) state[i] = sv = sv & ~kCodeMask;  // the last panel's code
+        const uint32_t cv = i < m ? colw[i] : 0u;
+        const bool unused = i < m && (sv & kPivMask) == (uint32_t)n;
+        if (OSD0) rem |= unused && (sv >> kSynShift);
+        if (!found) {
+          const unsigned ballot = __ballot_sync(kFull, unused && ((cv >> bit) & 1u));
+          if (ballot && lane == __ffs(ballot) - 1) {
+            slot_key[ts * nwarps + warp] = make_key(i, sv);
+            if (P > 1) slot_word[ts * nwarps + warp] = cv;
+          }
+          found = ballot != 0;
+        }
+      }
+      if (!found && lane == 0) slot_key[ts * nwarps + warp] = kNoKey;
+      if (OSD0) {
+        if (!__syncthreads_or(rem)) {
+          done = true;
+          break;
+        }
+      } else {
+        __syncthreads();
+      }
+      ++made;
+      // the least key is the first row: rows differ between warps
+      const uint32_t key =
+          __reduce_min_sync(kFull, lane < nwarps ? slot_key[ts * nwarps + lane] : kNoKey);
+      if (key != kNoKey) {
+        const int k = (int)(key >> 9);
+        const uint32_t code = (key >> 1) & 0xffu;
+        const uint32_t pw =
+            P > 1 ? slot_word[ts * nwarps + ((k < nthreads ? k : k % nthreads) >> 5)] : 0u;
+        // bp_err[j] folds into every row with bit j set; on the rows that
+        // are then eliminated it cancels: the pivot row alone keeps it
+        uint32_t fold = 0u;
+        if (OSD0) {
+          fold = (bp_bits ? (bpword >> bit) & 1u : (uint32_t)(bp[col_off + j] != 0))
+                 << kSynShift;
+        }
+        const uint32_t mark =
+            ((key & 1u) << kSynShift) | (P > 1 ? 1u << (kCodeShift + t) : 0u);
+        for (int i = tid; i < m; i += nthreads) {
+          if (i == k) {
+            state[i] = ((state[i] & ~kPivMask) | (uint32_t)j) ^ fold;
+          } else if ((colw[i] >> bit) & 1u) {
+            state[i] ^= mark;
+            if (P > 1) {
+              colw[i] ^= pw;
+            } else {
+              // no table: the row takes the pivot row itself, in every word
+              // it still needs, now.  A thread reads and writes its own
+              // rows alone, here and in the trip, but for the pivot row,
+              // which no one writes between two trips' barriers
+#pragma unroll 4
+              for (int w = OSD0 ? wd : 0; w < W; ++w) ht[w * mp + i] ^= ht[w * mp + k];
+            }
+          }
+        }
+        // Q_t: the pivot row as it stands now, in the other words
+        if (P > 1 && warp == 0) {
+          for (int w = lane; w < W; w += 32) {
+            uint32_t q = ht[w * mp + k];
+            for (int u = 0; u < t; ++u)
+              if ((code >> u) & 1u) q ^= qs[u * W + w];
+            qs[t * W + w] = q;
+          }
+        }
+        ++rank;
+        ++pivots;
+      } else if (P > 1 && warp == 0) {
+        for (int w = lane; w < W; w += 32) qs[t * W + w] = 0u;
+      }
+    }
+    const long long c1 = LDPC_CLOCK();
+    c_trips += c1 - c0;
+    if (P == 1 || done || pivots == 0) continue;  // nothing to apply
+    ++c_panels;
+    if (warp == 0) {
+      for (int t = made; t < P; ++t)
+        for (int w = lane; w < W; w += 32) qs[t * W + w] = 0u;
+    }
+    __syncthreads();
+
+    // (2) table, (3) apply; the trips brought the panel's own word up to date
+    build_table<P>(qs, table, W);
+    __syncthreads();
+    const long long c2 = LDPC_CLOCK();
+    c_table += c2 - c1;
+    apply_table<false>(ht, state, table, W, m, mp, OSD0 ? wd + 1 : 0, wd, 0);
+    __syncthreads();
+    c_apply += LDPC_CLOCK() - c2;
+  }
+  __syncthreads();
+  write_clocks(c_trips, c_table, c_apply, c_start, c_panels);
+  copy_out<OSD0>(ht, state, bp, ht_out, s_out, piv_out, corr, W, m, mp, n);
+}
+
+struct Plan {
+  int panel;     // 0: the lane does not fit
+  bool pad;      // row stride padded against bank conflicts
+  bool bp_bits;  // OSD-0: bp_err packed into shared memory
+  size_t bytes;
+};
+
+size_t smem_bytes(int W, int m, int P, bool pad, bool bp_bits) {
+  return 4 * (size_t)layout(W, m, row_stride(m, pad), P, block_threads(m) / 32, bp_bits).total;
+}
+
+// The widest panel whose table fits beside the padded lane; without room
+// for that even at P = 1, the bare lane with P = 1.
+Plan plan(int W, int m, bool osd0, int max_panel) {
+  for (int P = max_panel; P >= 1; P >>= 1) {
+    const size_t bytes = smem_bytes(W, m, P, true, osd0);
+    if (bytes <= kMaxSmemBytes) return {P, true, osd0, bytes};
+  }
+  const size_t bytes = smem_bytes(W, m, 1, false, false);
+  return {bytes <= kMaxSmemBytes ? 1 : 0, false, false, bytes};
 }
 
 template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+cudaError_t launch(Kernel kernel, const Plan& p, const void* ht_in, const void* s_in,
+                   const void* bp, void* ht_out, void* s_out, void* piv_out, void* corr, int B, int W, int m, int n, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)p.bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<B, block_threads(m), p.bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(ht_in), static_cast<const uint32_t*>(s_in),
+      static_cast<const int32_t*>(bp), static_cast<uint32_t*>(ht_out),
+      static_cast<uint32_t*>(s_out), static_cast<int32_t*>(piv_out),
+      static_cast<int32_t*>(corr), W, m, row_stride(m, p.pad), n, (int)p.bp_bits);
+  return cudaGetLastError();
+}
+
+template <bool OSD0>
+cudaError_t dispatch(int max_panel, const void* ht_in, const void* s_in, const void* bp,
+                     void* ht_out, void* s_out, void* piv_out, void* corr, int B, int W, int m,
+                     int n, void* stream) {
+  if ((uint32_t)n > kPivMask || m < 1 || W != (n + 31) / 32) return cudaErrorInvalidValue;
+  const Plan p = plan(W, m, OSD0, max_panel);
+  const bool pipelined = is_pipelined(m, p.panel);  // every plan with P > 1 is padded
+#define LDPC_GF2_LAUNCH(KERNEL) \
+  return launch(KERNEL, p, ht_in, s_in, bp, ht_out, s_out, piv_out, corr, B, W, m, n, stream)
+  switch (p.panel) {
+    case 8:
+      if (pipelined) LDPC_GF2_LAUNCH((gf2_pipelined_kernel<8, OSD0>));
+      LDPC_GF2_LAUNCH((gf2_panel_kernel<8, OSD0>));
+    case 4:
+      if (pipelined) LDPC_GF2_LAUNCH((gf2_pipelined_kernel<4, OSD0>));
+      LDPC_GF2_LAUNCH((gf2_panel_kernel<4, OSD0>));
+    case 2:
+      if (pipelined) LDPC_GF2_LAUNCH((gf2_pipelined_kernel<2, OSD0>));
+      LDPC_GF2_LAUNCH((gf2_panel_kernel<2, OSD0>));
+    case 1:
+      LDPC_GF2_LAUNCH((gf2_panel_kernel<1, OSD0>));
+    default:
+      return cudaErrorInvalidValue;  // the lane does not fit a block
+  }
+#undef LDPC_GF2_LAUNCH
 }
 
 }  // namespace
@@ -203,27 +727,39 @@ const char* ldpc_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// max_panel (8, 4, 2 or 1) caps the panel width; the launcher narrows it
+// further where the table does not fit.
 int ldpc_gf2_eliminate(const void* ht_in, const void* s_in, void* ht_out, void* s_out,
-                       void* piv_out, int B, int W, int m, int n, void* stream) {
-  const size_t bytes = 4 * smem_words(W, m, 1);
-  cudaError_t err = set_smem(gf2_elim_kernel, bytes);
-  if (err != cudaSuccess) return err;
-  gf2_elim_kernel<<<B, block_threads(m), bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(ht_in), static_cast<const uint32_t*>(s_in),
-      static_cast<uint32_t*>(ht_out), static_cast<uint32_t*>(s_out),
-      static_cast<int32_t*>(piv_out), W, m, n);
-  return cudaGetLastError();
+                       void* piv_out, int B, int W, int m, int n, int max_panel, void* stream) {
+  return dispatch<false>(max_panel, ht_in, s_in, nullptr, ht_out, s_out, piv_out, nullptr, B, W,
+                         m, n, stream);
 }
 
-int ldpc_gf2_osd0(const void* ht_in, const void* resid, const void* bp, void* corr,
-                  int B, int W, int m, int n, void* stream) {
-  const size_t bytes = 4 * smem_words(W, m, 2);
-  cudaError_t err = set_smem(gf2_osd0_kernel, bytes);
-  if (err != cudaSuccess) return err;
-  gf2_osd0_kernel<<<B, block_threads(m), bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(ht_in), static_cast<const uint32_t*>(resid),
-      static_cast<const int32_t*>(bp), static_cast<int32_t*>(corr), W, m, n);
-  return cudaGetLastError();
+int ldpc_gf2_osd0(const void* ht_in, const void* resid, const void* bp, void* corr, int B,
+                  int W, int m, int n, int max_panel, void* stream) {
+  return dispatch<true>(max_panel, ht_in, resid, bp, nullptr, nullptr, nullptr, corr, B, W, m,
+                        n, stream);
 }
+
+// What the launcher takes for a [W, m] lane: out[0] the panel width (0: the
+// lane fits no block), out[1] the bytes of dynamic shared memory, out[2]
+// whether the row stride is padded, out[3] whether OSD-0's bp_err is packed
+// into shared memory.
+void ldpc_gf2_plan(int W, int m, int osd0, int max_panel, int* out) {
+  const Plan p = plan(W, m, osd0 != 0, max_panel);
+  out[0] = p.panel, out[1] = (int)p.bytes, out[2] = (int)p.pad, out[3] = (int)p.bp_bits;
+}
+
+#ifdef LDPC_GF2_PHASE_CLOCKS
+// Block 0's clocks of the last elimination on the current device, after a
+// synchronization.  Pipelined kernel: warp 0 in its trips, the stretches
+// behind barriers (codes, Q rows, table), the overlapped stretches (trips
+// beside the apply pass), the whole elimination, the panels that had a
+// pivot.  Panel kernel: trips, table, apply pass, whole, panels (P = 1:
+// all is trips).
+int ldpc_gf2_phase_clocks(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(g_phase_clocks));
+}
+#endif
 
 }  // extern "C"

@@ -13,11 +13,25 @@ For tensors on the CPU a wrapper runs its plain torch version
 (:func:`gf2_osd0_ref`, :func:`gf2_eliminate_ref`); for CUDA tensors it
 launches the kernel or raises.  ``<wrapper>.launches`` counts the kernel
 launches of each wrapper.
+
+The kernels eliminate by panels of P columns (one block per lane, the lane
+in shared memory): P column trips on the panel's bits alone, which give
+every row a code; a table of the 2^P XORs of the panel's pivot rows; and
+one full-width pass ``row ^= table[code]``.  For lanes of at most 1024 rows
+one warp makes the trips on bit slices in its registers, a panel ahead of
+the other warps' apply pass; other lanes keep their rows in shared memory
+and meet at a block barrier per trip.  The launcher picks P for a shape: the
+widest panel whose table fits the 232,448 bytes of a block beside the lane.
+:func:`launcher_plan` asks the built library for that choice, and the
+wrappers refuse by it; :func:`launch_plan` is the same sum in Python, for
+where there is no library, and the card's tests hold the two together.
+``ops/gf2.py`` has the same algorithm in plain torch (``gf2_osd0_blocked``,
+``gf2_eliminate_blocked``).
 """
 
 from __future__ import annotations
 
-import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -28,6 +42,9 @@ __all__ = [
     "gf2_eliminate_cuda",
     "gf2_osd0_ref",
     "gf2_eliminate_ref",
+    "launch_plan",
+    "launcher_plan",
+    "row_stride",
     "smem_bytes",
     "MAX_SMEM_BYTES",
 ]
@@ -36,11 +53,85 @@ __all__ = [
 MAX_SMEM_BYTES = 232_448
 
 
+class LaunchPlan(NamedTuple):
+    """What the launcher of ``csrc/gf2_elim.cu`` picks for a lane shape."""
+
+    panel: int  #: columns per panel (8, 4, 2 or 1); 0 where the lane does not fit
+    pad: bool  #: rows stored at a stride of 4 mod 8 words (no bank conflicts)
+    bp_bits: bool  #: OSD-0: ``bp_err`` packed into W words of shared memory
+    bytes: int  #: dynamic shared memory of the block
+
+
+def _round4(x):
+    return (x + 3) & ~3
+
+
+def row_stride(m: int, pad: bool) -> int:
+    """Words between two packed words of a row in shared memory: ``m``
+    rounded up to 4 mod 8 (16-byte accesses down a column of four rows and
+    32 words across a row both meet no bank conflict), or bare ``m``."""
+    if not pad:
+        return m
+    m4 = _round4(m)
+    return m4 if m4 % 8 == 4 else m4 + 4
+
+
+def _smem_words(W, m, panel, pad, bp_bits):
+    nwarps = min(max((m + 31) // 32, 2), 32)
+    words = _round4(m) + W * row_stride(m, pad) + (W if bp_bits else 0)  # state, lane, bp_err
+    if panel > 1:
+        words += _round4(panel * W) + (W << panel)  # pivot rows, table
+    if panel > 1 and m <= 1024:  # the pipelined kernel: loop state, bit slices, table offsets
+        return words + 16 + 32 * (2 * panel + 2) + _round4(m)
+    trip_slots = 2 if panel == 1 else panel  # the panel kernel: two words per warp and slot
+    return words + _round4(2 * trip_slots * nwarps)
+
+
+def launch_plan(W: int, m: int, *, osd0: bool, panel: int = 8) -> LaunchPlan:
+    """The widest panel, at most ``panel``, whose table fits a Hopper block
+    beside the lane (the same choice as ``plan`` in ``csrc/gf2_elim.cu``).
+
+    A block holds, in 32-bit words, each part rounded up to 4: one state
+    word per row (pivot column, panel code, syndrome bit); the packed system
+    at :func:`row_stride`; for OSD-0 ``W`` words of packed ``bp_err``; at
+    P > 1 the panel's pivot rows, ``P * W``, and the table, ``2^P * W``.
+    The pipelined kernel (P > 1, at most 1024 rows) adds 16 words of loop
+    state, ``2 P + 2`` bit slices of 32 words and one table offset per row;
+    the other kernel two words per warp and trip slot (one slot per panel
+    column; two at P = 1).  Where not even P = 1 fits so, the bare lane is
+    tried: stride ``m``, ``bp_err`` read from device memory; every lane of
+    8 or more rows that fitted the column-by-column kernels fits that.  At
+    m=900, n=1000 a block takes 158,688 bytes for OSD-0 and 158,560 for the
+    elimination at P = 8, of the 232,448 it may take.
+    """
+    if panel not in (1, 2, 4, 8):
+        raise ValueError(f"panel must be 1, 2, 4 or 8, got {panel}")
+    P = panel
+    while P >= 1:
+        need = 4 * _smem_words(W, m, P, True, osd0)
+        if need <= MAX_SMEM_BYTES:
+            return LaunchPlan(P, True, osd0, need)
+        P >>= 1
+    need = 4 * _smem_words(W, m, 1, False, False)
+    return LaunchPlan(1 if need <= MAX_SMEM_BYTES else 0, False, False, need)
+
+
+def launcher_plan(W: int, m: int, *, osd0: bool, panel: int = 8, lib=None) -> LaunchPlan:
+    """The plan the launcher of the built library takes for a ``[W, m]``
+    lane (needs nvcc; ``lib``: a library other than the plain build)."""
+    import ctypes
+
+    from .._build import load_library
+
+    out = (ctypes.c_int * 4)()
+    (lib or load_library()).ldpc_gf2_plan(W, m, int(osd0), panel, out)
+    return LaunchPlan(out[0], bool(out[2]), bool(out[3]), out[1])
+
+
 def smem_bytes(W: int, m: int, *, osd0: bool) -> int:
-    """Shared memory a lane's block takes: two pivot slots, the pivot map,
-    the syndrome (double-buffered for OSD-0) and the packed ``[W, m]``
-    system, all in 32-bit words (the same sum as ``csrc/gf2_elim.cu``)."""
-    return 4 * (2 + m * (1 + (2 if osd0 else 1)) + W * m)
+    """Shared memory the block of one ``[W, m]`` lane takes under
+    :func:`launch_plan` (the least it could take where it does not fit)."""
+    return launch_plan(W, m, osd0=osd0).bytes
 
 
 def gf2_osd0_ref(Ht, resid, bp_err, n):
@@ -65,7 +156,7 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _prepare(Ht, n, osd0):
+def _prepare(Ht, n, osd0, panel, lib):
     """Validate the packed system and return ``(lib, B, W, m, stream)``."""
     from .._build import load_library
 
@@ -77,13 +168,19 @@ def _prepare(Ht, n, osd0):
     if W != (n + 31) // 32:
         raise ValueError(f"Ht has {W} words per row; {n} columns need {(n + 31) // 32}")
     _check("Ht", Ht, (B, W, m), Ht.device)
-    need = smem_bytes(W, m, osd0=osd0)
-    if need > MAX_SMEM_BYTES:
+    if m < 1 or n >= 1 << 23:
+        raise ValueError(f"a lane needs at least one row and fewer than 2^23 columns, "
+                         f"got [{m}, {n}]")
+    if panel not in (1, 2, 4, 8):
+        raise ValueError(f"panel must be 1, 2, 4 or 8, got {panel}")
+    lib = lib or load_library()
+    plan = launcher_plan(W, m, osd0=osd0, panel=panel, lib=lib)
+    if plan.panel == 0:
         raise ValueError(
-            f"one lane of a [{m}, {n}] system takes {need} bytes of shared memory; "
+            f"one lane of a [{m}, {n}] system takes {plan.bytes} bytes of shared memory; "
             f"a Hopper block holds at most {MAX_SMEM_BYTES}")
     stream = torch.cuda.current_stream(Ht.device).cuda_stream
-    return load_library(), B, W, m, stream
+    return lib, B, W, m, stream
 
 
 def _raise_on(lib, rc, what):
@@ -91,7 +188,7 @@ def _raise_on(lib, rc, what):
         raise RuntimeError(f"{what} launch failed: {lib.ldpc_cuda_error_string(rc).decode()}")
 
 
-def gf2_osd0_cuda(Ht, resid, bp_err, n):
+def gf2_osd0_cuda(Ht, resid, bp_err, n, *, _max_panel=8, _lib=None):
     """Batched OSD-0 elimination; returns the ``[B, n]`` int32 correction.
 
     Args:
@@ -99,10 +196,14 @@ def gf2_osd0_cuda(Ht, resid, bp_err, n):
       resid: ``[B, m]`` int32 0/1 residual syndrome of ``bp_err``.
       bp_err: ``[B, n]`` int32 0/1 BP hard decisions (sorted order).
       n: column count.
+
+    ``_max_panel`` (8, 4, 2 or 1) caps the launcher's panel width and
+    ``_lib`` names another build of the library: for the tests and timings
+    of every instantiation; the result depends on neither.
     """
     if Ht.device.type == "cpu":
         return gf2_osd0_ref(Ht, resid, bp_err, n)
-    lib, B, W, m, stream = _prepare(Ht, n, osd0=True)
+    lib, B, W, m, stream = _prepare(Ht, n, True, _max_panel, _lib)
     _check("resid", resid, (B, m), Ht.device)
     _check("bp_err", bp_err, (B, n), Ht.device)
     corr = torch.empty((B, n), dtype=torch.int32, device=Ht.device)
@@ -110,13 +211,13 @@ def gf2_osd0_cuda(Ht, resid, bp_err, n):
         return corr
     with torch.cuda.device(Ht.device):  # the launch goes to the current device
         rc = lib.ldpc_gf2_osd0(Ht.data_ptr(), resid.data_ptr(), bp_err.data_ptr(),
-                               corr.data_ptr(), B, W, m, n, stream)
+                               corr.data_ptr(), B, W, m, n, _max_panel, stream)
     _raise_on(lib, rc, "gf2_osd0")
     gf2_osd0_cuda.launches += 1
     return corr
 
 
-def gf2_eliminate_cuda(Ht, s, n):
+def gf2_eliminate_cuda(Ht, s, n, *, _max_panel=8, _lib=None):
     """Batched Gauss–Jordan RREF of packed columns.
 
     Args:
@@ -126,10 +227,11 @@ def gf2_eliminate_cuda(Ht, s, n):
 
     Returns ``(Ht' [B, W, m], s' [B, m], pivcol [B, m])`` (int32) with
     ``pivcol[b, i]`` = row i's pivot column or the sentinel ``n``.
+    ``_max_panel``, ``_lib``: as in :func:`gf2_osd0_cuda`.
     """
     if Ht.device.type == "cpu":
         return gf2_eliminate_ref(Ht, s, n)
-    lib, B, W, m, stream = _prepare(Ht, n, osd0=False)
+    lib, B, W, m, stream = _prepare(Ht, n, False, _max_panel, _lib)
     _check("s", s, (B, m), Ht.device)
     Ht2 = torch.empty_like(Ht)
     s2 = torch.empty_like(s)
@@ -138,7 +240,8 @@ def gf2_eliminate_cuda(Ht, s, n):
         return Ht2, s2, piv
     with torch.cuda.device(Ht.device):
         rc = lib.ldpc_gf2_eliminate(Ht.data_ptr(), s.data_ptr(), Ht2.data_ptr(),
-                                    s2.data_ptr(), piv.data_ptr(), B, W, m, n, stream)
+                                    s2.data_ptr(), piv.data_ptr(), B, W, m, n, _max_panel,
+                                    stream)
     _raise_on(lib, rc, "gf2_eliminate")
     gf2_eliminate_cuda.launches += 1
     return Ht2, s2, piv

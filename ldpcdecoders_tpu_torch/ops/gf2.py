@@ -13,7 +13,9 @@ here is either masked with ``& 1`` afterwards or only its low bits are kept.
 
 These loops are the plain versions of the CUDA kernels in
 ``ops/cuda_gf2.py`` (which the decoders call); they run every column trip
-as a few batched tensor operations.
+as a few batched tensor operations.  ``gf2_osd0_blocked`` and
+``gf2_eliminate_blocked`` compute the same results by panels of columns,
+row codes and an XOR table, the way the kernels do.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ __all__ = [
     "scatter_pivots",
     "gf2_osd0",
     "gf2_eliminate",
+    "gf2_osd0_blocked",
+    "gf2_eliminate_blocked",
     "osdw_sweep",
 ]
 
@@ -182,6 +186,92 @@ def gf2_eliminate(Ht: torch.Tensor, s: torch.Tensor, n: int, return_work: bool =
             row_xors += elim.sum(dim=1)
         r = r + found.to(torch.int32)
     return (Ht, s, piv, r, (trips, row_xors)) if return_work else (Ht, s, piv, r)
+
+
+def _eliminate_blocked(Ht, s, n, panel, bp):
+    """Elimination by panels of ``panel`` columns, as ``csrc/gf2_elim.cu``
+    computes it; ``bp`` is None for the full elimination, else OSD-0's
+    ``bp_err`` (with its early stop and residual fold).
+
+    Per panel: (1) the column trips run on the panel's word and the syndrome
+    only, and every row records a code, bit t set when the pivot of the
+    panel's column t was XORed into it; (2) ``Q_t``, the pivot row as it
+    stood when its column was reached, and the table ``T[c]`` = XOR of the
+    ``Q_t`` with bit t in c, by doubling; (3) every row XORs ``T[code]``
+    into its other words once (OSD-0 skips the words left of the panel:
+    no later column reads them).  Returns ``(Ht, s, pivcol, r)``.
+    """
+    if panel not in (1, 2, 4, 8):  # the table has 2^panel rows
+        raise ValueError(f"panel must be 1, 2, 4 or 8, got {panel}")
+    osd0 = bp is not None
+    B, W, m = Ht.shape
+    device = Ht.device
+    Ht = Ht.to(torch.int32).clone()
+    s = s.to(torch.int32).clone()
+    piv = torch.full((B, m), n, dtype=torch.int32, device=device)
+    rows = torch.arange(m, device=device)
+    words = torch.arange(W, device=device)
+    r = torch.zeros(B, dtype=torch.int32, device=device)
+    active = torch.ones(B, dtype=torch.bool, device=device)
+    for j0 in range(0, n, panel):
+        if not bool(active.any() if osd0 else (r < m).any()):
+            break  # every lane has stopped: the remaining panels are no-ops
+        wd = j0 >> 5
+        word = Ht[:, wd, :].clone()  # updated in full by every trip
+        code = torch.zeros((B, m), dtype=torch.int64, device=device)
+        pivrows = []
+        for t in range(min(panel, n - j0)):
+            j = j0 + t
+            unused = piv == n
+            if osd0:
+                active = active & ((s != 0) & unused).any(dim=1)
+            col = (word >> (j & 31)) & 1
+            k, found = _first_row((col == 1) & unused)
+            do = found & active
+            kc = k.clamp(max=m - 1)
+            pivword = word.gather(1, kc[:, None])
+            pivs = s.gather(1, kc[:, None])
+            is_k = (rows[None, :] == k[:, None]) & do[:, None]
+            elim = (col == 1) & ~is_k & do[:, None]
+            word = torch.where(elim, word ^ pivword, word)
+            s = torch.where(elim, s ^ pivs, s)
+            if osd0:  # bp_err[j] stays on the pivot row alone
+                s = s ^ (is_k & (bp[:, j] == 1)[:, None]).to(torch.int32)
+            code = code | (elim.to(torch.int64) << t)
+            piv = torch.where(is_k, j, piv)
+            pivrows.append(torch.where(do, k, m))
+            r = r + do.to(torch.int32)
+        # T[c] for every code over the trips made, by doubling; the pivot
+        # row of trip t had the pivots of its code's lower bits XORed in
+        T = torch.zeros((B, 1, W), dtype=torch.int32, device=device)
+        for t, k in enumerate(pivrows):
+            kc = k.clamp(max=m - 1)
+            start = Ht.gather(2, kc[:, None, None].expand(B, W, 1))[:, :, 0]  # [B, W]
+            low = code.gather(1, kc[:, None])[:, 0] & ((1 << t) - 1)
+            q = start ^ T.gather(1, low[:, None, None].expand(B, 1, W))[:, 0]
+            q = torch.where((k < m)[:, None], q, 0)
+            T = torch.cat([T, T ^ q[:, None, :]], dim=1)
+        upd = T.gather(1, code[:, :, None].expand(B, m, W)).transpose(1, 2)  # [B, W, m]
+        apply_to = (words > wd) if osd0 else (words != wd)
+        Ht = torch.where(apply_to[None, :, None], Ht ^ upd, Ht)
+        Ht[:, wd, :] = word
+    return Ht, s, piv, r
+
+
+def gf2_osd0_blocked(Ht: torch.Tensor, resid: torch.Tensor, bp_err: torch.Tensor, n: int,
+                     panel: int = 8):
+    """:func:`gf2_osd0` computed by panels of ``panel`` columns (1, 2,
+    4 or 8) with row codes and an XOR table, step for step as the CUDA
+    kernel does; bitwise the same correction."""
+    bp = bp_err.to(torch.int32)
+    _, s, piv, _ = _eliminate_blocked(Ht, resid, n, panel, bp)
+    return scatter_pivots(bp, piv, s, n)
+
+
+def gf2_eliminate_blocked(Ht: torch.Tensor, s: torch.Tensor, n: int, panel: int = 8):
+    """:func:`gf2_eliminate` computed by panels of ``panel`` columns, as the
+    CUDA kernel does; bitwise the same ``(Ht, s, pivcol, r)``."""
+    return _eliminate_blocked(Ht, s, n, panel, None)
 
 
 def _first_min(x: torch.Tensor):

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import ldpcdecoders_tpu_torch as pt
-from ldpcdecoders_tpu_torch.ops import cuda_gf2, cuda_minsum, cuda_qc
+from ldpcdecoders_tpu_torch.ops import cuda_gf2, cuda_minsum, cuda_qc, gf2
 from ldpcdecoders_tpu_torch.ops import minsum as plain_minsum
 from ldpcdecoders_tpu_torch.ops.qc_minsum import QCTerms, qc_minsum_ref
 
@@ -28,30 +28,45 @@ def dev():
     return torch.device("cuda:0")
 
 
-def systems(rng, B, m, n, dens):
-    H = (rng.random((B, m, n)) < dens).astype(np.int64)
+def systems_from(H):
+    """Dense 0/1 ``[B, m, n]`` -> transposed packed ``Ht [B, W, m]`` int32."""
+    B, m, n = H.shape
     W = (n + 31) // 32
     Hpad = np.pad(H, ((0, 0), (0, 0), (0, W * 32 - n))).reshape(B, m, W, 32)
     words = (Hpad << np.arange(32)).sum(axis=3)  # [B, m, W] < 2**32
     Ht = np.ascontiguousarray(words.transpose(0, 2, 1)).astype(np.uint32).view(np.int32)
-    return H, torch.as_tensor(Ht)
+    return torch.as_tensor(Ht)
 
 
-# m > 1024 exercises rows strided over the block; n % 32 != 0 a ragged word
-SHAPES = [(5, 60, 80, 0.3), (4, 31, 33, 0.5), (3, 96, 240, 0.05), (2, 1100, 1300, 0.004)]
+def systems(rng, B, m, n, dens):
+    H = (rng.random((B, m, n)) < dens).astype(np.int64)
+    return H, systems_from(H)
+
+
+# m > 1024 exercises rows strided over the block; n % 32 != 0 a ragged word;
+# the lane of (1400, 1120) leaves room for a table of 16 rows only, so the
+# launcher narrows the panel to 4 columns; (40, 100) at density 0.2 has
+# duplicate and dependent rows and columns without a pivot
+SHAPES = [(5, 60, 80, 0.3), (4, 31, 33, 0.5), (3, 96, 240, 0.05), (2, 1100, 1300, 0.004),
+          (2, 1400, 1120, 0.004), (3, 40, 100, 0.2)]
+
+
+def osd0_inputs(rng, H, B, m, n):
+    bp = (rng.random((B, n)) < 0.2).astype(np.int32)
+    extra = (rng.random((B, n)) < 0.1).astype(np.int64)
+    resid = (np.einsum("bmn,bn->bm", H, extra) % 2).astype(np.int32)
+    resid[0] = rng.random(m) < 0.5  # possibly outside the row space
+    resid[-1] = 0  # nothing to correct
+    return torch.as_tensor(resid), torch.as_tensor(bp)
 
 
 @pytest.mark.parametrize("B,m,n,dens", SHAPES)
 def test_osd0_kernel_matches_plain_version(dev, B, m, n, dens):
     rng = np.random.default_rng(m)
     H, Ht = systems(rng, B, m, n, dens)
-    bp = (rng.random((B, n)) < 0.2).astype(np.int32)
-    extra = (rng.random((B, n)) < 0.1).astype(np.int64)
-    resid = (np.einsum("bmn,bn->bm", H, extra) % 2).astype(np.int32)
-    resid[0] = rng.random(m) < 0.5  # possibly outside the row space
-    resid[-1] = 0  # nothing to correct
-    args = [torch.as_tensor(a) for a in (resid, bp)]
+    args = osd0_inputs(rng, H, B, m, n)
     want = cuda_gf2.gf2_osd0_ref(Ht, *args, n)
+    assert torch.equal(gf2.gf2_osd0_blocked(Ht, *args, n), want)
     before = cuda_gf2.gf2_osd0_cuda.launches
     got = cuda_gf2.gf2_osd0_cuda(Ht.to(dev), *(a.to(dev) for a in args), n)
     torch.cuda.synchronize()
@@ -65,10 +80,95 @@ def test_eliminate_kernel_matches_plain_version(dev, B, m, n, dens):
     _, Ht = systems(rng, B, m, n, dens)
     s = torch.as_tensor((rng.random((B, m)) < 0.5).astype(np.int32))
     want = cuda_gf2.gf2_eliminate_ref(Ht, s, n)
+    for a, b in zip(gf2.gf2_eliminate_blocked(Ht, s, n), want):
+        assert torch.equal(a, b)
     got = cuda_gf2.gf2_eliminate_cuda(Ht.to(dev), s.to(dev), n)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("panel", [1, 2, 4, 8])
+@pytest.mark.parametrize("B,m,n,dens", [(5, 60, 80, 0.3), (3, 40, 100, 0.2),
+                                        (2, 1100, 1300, 0.004)])
+def test_gf2_kernels_at_every_panel_width(dev, panel, B, m, n, dens):
+    """The launcher's narrower panels (and P = 1, which has no table) give
+    the same bits as the widest; the all-zero system and a full-rank lane
+    that ends inside a panel are among the lanes."""
+    rng = np.random.default_rng(m + n)
+    H, Ht = systems(rng, B, m, n, dens)
+    H[-1] = 0
+    H[0] = 0  # identity on columns 3..m+2: full rank reached inside a panel
+    H[0, np.arange(m), np.arange(m) + 3] = 1
+    Ht = systems_from(H)
+    s = torch.as_tensor((rng.random((B, m)) < 0.5).astype(np.int32))
+    resid, bp = osd0_inputs(rng, H, B, m, n)
+    got = cuda_gf2.gf2_eliminate_cuda(Ht.to(dev), s.to(dev), n, _max_panel=panel)
+    torch.cuda.synchronize()
+    for a, b in zip(got, cuda_gf2.gf2_eliminate_ref(Ht, s, n)):
+        assert torch.equal(a.cpu(), b)
+    got = cuda_gf2.gf2_osd0_cuda(Ht.to(dev), resid.to(dev), bp.to(dev), n, _max_panel=panel)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), cuda_gf2.gf2_osd0_ref(Ht, resid, bp, n))
+
+
+def test_osd0_kernel_lanes_stop_inside_a_panel(dev):
+    """Lane b's residual is column b of its system: OSD-0 stops at the entry
+    of column b + 1, at every offset of a panel of 8, and must neither
+    record nor apply the panel's later pivots."""
+    B, m, n = 24, 70, 120
+    rng = np.random.default_rng(3)
+    H, Ht = systems(rng, B, m, n, 0.3)
+    Ht = systems_from(H)
+    resid = torch.as_tensor(np.stack([H[b, :, b] for b in range(B)]).astype(np.int32))
+    bp = torch.as_tensor((rng.random((B, n)) < 0.2).astype(np.int32))
+    want, (trips, _) = gf2.gf2_osd0(Ht, resid, bp, n, return_work=True)
+    assert sorted(set((trips % 8).tolist())) == list(range(8))
+    assert torch.equal(gf2.gf2_osd0_blocked(Ht, resid, bp, n), want)
+    got = cuda_gf2.gf2_osd0_cuda(Ht.to(dev), resid.to(dev), bp.to(dev), n)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_gf2_launcher_plan_is_launch_plan(dev):
+    """The plan the built launcher reports (panel width, padding, packed
+    ``bp_err``, bytes) is the one ``launch_plan`` computes in Python, over
+    shapes on both sides of every limit: 1024 rows, each panel width, the
+    bare lane, no fit."""
+    assert cuda_gf2.launcher_plan(35, 1400, osd0=True).panel == 4
+    seen = set()
+    rows = sorted({*range(1, 70), *range(70, 2400, 37), 1023, 1024, 1025, 1051, 1400, 1600})
+    for m in rows:
+        for W in (*range(1, 36), *range(36, 130, 3), 54, 55, 118, 119):
+            for osd0 in (False, True):
+                for panel in (8, 4, 2, 1):
+                    want = cuda_gf2.launch_plan(W, m, osd0=osd0, panel=panel)
+                    assert cuda_gf2.launcher_plan(W, m, osd0=osd0, panel=panel) == want, (W, m)
+                    seen.add((want.panel, want.pad))
+    assert seen == {(8, True), (4, True), (2, True), (1, True), (1, False), (0, False)}
+
+
+def test_gf2_phase_clocks_build(dev):
+    """The build with ``LDPC_GF2_PHASE_CLOCKS`` gives the same bits and
+    leaves block 0's phase clocks; a panel cap that is no power of two is
+    refused."""
+    import ctypes
+
+    from ldpcdecoders_tpu_torch._build import load_library
+
+    lib = load_library(("LDPC_GF2_PHASE_CLOCKS",))
+    rng = np.random.default_rng(8)
+    H, Ht = systems(rng, 2, 60, 80, 0.3)
+    resid, bp = osd0_inputs(rng, H, 2, 60, 80)
+    got = cuda_gf2.gf2_osd0_cuda(Ht.to(dev), resid.to(dev), bp.to(dev), 80, _lib=lib)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), cuda_gf2.gf2_osd0_ref(Ht, resid, bp, 80))
+    clocks = (ctypes.c_longlong * 5)()
+    assert lib.ldpc_gf2_phase_clocks(clocks) == 0
+    trips, behind, overlapped, whole, panels = clocks
+    assert 0 < trips < whole and 0 < panels <= 10 and behind > 0 and overlapped > 0
+    with pytest.raises(ValueError, match="panel"):
+        cuda_gf2.gf2_osd0_cuda(Ht.to(dev), resid.to(dev), bp.to(dev), 80, _max_panel=3)
 
 
 def test_wrappers_check_inputs(dev):
