@@ -362,11 +362,21 @@ def main() -> int:
         i_ops = qc_int_ops(t)
         size = 4 if dec.dtype == torch.float32 else 2
         threads, smem = qc_launch_shape(t, size, layered, sumprod)
-        # shared-memory bytes per edge position and sweep: layered reads the
-        # total three times and the message twice and writes each once (7
-        # stored values) and passes the new message through the float32 row
-        # buffer; flooding touches 5 stored values and a decision byte
-        traffic = (7 * size + 8 if layered else 5 * size + 1) * t.Eb * t.Z
+        # the layered sweep's rows: one phase where the row's block columns
+        # are distinct, two (through the float32 row buffer) where one repeats
+        two = sum(t.two_phase_rows)
+        phases = (f"{t.mb - two} rows in one phase, {two} in two" if layered
+                  else "flooding: no row phases")
+        # shared-memory bytes per lane and sweep, over the rows' edge
+        # positions: a one-phase row reads the total and the message once,
+        # writes each once, and the syndrome check reads the total again (5
+        # stored values; fewer where a violated check ends the check early);
+        # a two-phase row adds the row buffer's float32 write and read and
+        # reads the total and message again (7 stored values and 8 bytes);
+        # flooding touches 5 stored values and a decision byte
+        traffic = sum(len(r) * t.Z * (5 * size + 1 if not layered else
+                                      7 * size + 8 if rep else 5 * size)
+                      for r, rep in zip(t.row_edges, t.two_phase_rows))
 
         def bounds(got):
             # this batch's work: each lane's own sweeps
@@ -377,7 +387,7 @@ def main() -> int:
                   f"{int(got[2].max())}, converged {got[1].float().mean():.4f}, "
                   f"{f_ops} float32-rate + {i_ops} integer operations per edge position "
                   f"and sweep, {edge_sweeps:.4e} edge-sweeps | one lane per block of "
-                  f"{threads} threads, {smem} B shared memory, "
+                  f"{threads} threads, {smem} B shared memory, {phases}, "
                   f"{traffic} B shared-memory traffic per lane and sweep")
             return out
 

@@ -105,7 +105,7 @@ def load_library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.ldpc_minsum_check.restype = i32
     lib.ldpc_minsum_var.argtypes = [ptr] * 7 + [i32] * 3 + [i64, i32, ptr]
     lib.ldpc_minsum_var.restype = i32
-    lib.ldpc_qc_minsum.argtypes = [ptr] * 7 + [i32] * 12 + [f32] * 3 + [i64, i32, ptr]
+    lib.ldpc_qc_minsum.argtypes = [ptr] * 7 + [i32] * 13 + [f32] * 3 + [i64, i32, ptr]
     lib.ldpc_qc_minsum.restype = i32
     lib.ldpc_cuda_error_string.argtypes = [i32]
     lib.ldpc_cuda_error_string.restype = ctypes.c_char_p

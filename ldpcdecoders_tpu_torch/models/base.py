@@ -57,9 +57,11 @@ class DecodeStats:
 class Decoder(torch.nn.Module):
     """Abstract batched syndrome decoder.
 
-    Concrete decoders implement ``_decode_batch(syndromes, per=None) ->
-    (errors, converged, iters, aux)`` over tensors on ``self.device``; this
-    base class provides the host-facing ``decode`` / ``batch_decode`` API.
+    Concrete decoders implement ``_decode_batch(syndromes, seed=0,
+    per=None) -> (errors, converged, iters, aux)`` over tensors on
+    ``self.device``; this base class provides the host-facing ``decode`` /
+    ``batch_decode`` API.  ``seed`` keys a randomized decoder's draws; the
+    decoders of this package are deterministic and ignore it.
     """
 
     #: number of parity checks (rows of H)
@@ -68,10 +70,10 @@ class Decoder(torch.nn.Module):
     n: int
     device: torch.device
 
-    def _decode_batch(self, syndromes: torch.Tensor, per=None):
+    def _decode_batch(self, syndromes: torch.Tensor, seed: int = 0, per=None):
         raise NotImplementedError
 
-    def _call_decode(self, syndromes, per):
+    def _call_decode(self, syndromes, seed, per):
         syndromes = torch.as_tensor(syndromes, device=self.device)
         if syndromes.ndim != 2 or syndromes.shape[1] != self.m:
             raise ValueError(
@@ -82,17 +84,17 @@ class Decoder(torch.nn.Module):
                 f"per-lane prior batch ({np.shape(per)[0]}) must match the "
                 f"syndrome batch ({syndromes.shape[0]})"
             )
-        return self._decode_batch(syndromes, per=per)
+        return self._decode_batch(syndromes, seed, per=per)
 
     # -- public API -------------------------------------------------------
 
-    def decode(self, syndrome, *, per=None):
+    def decode(self, syndrome, *, seed: int = 0, per=None):
         """Decode one syndrome; returns ``(error[n] int8, converged bool)``."""
         syndrome = np.asarray(syndrome)
-        errors, converged = self.batch_decode(syndrome[None, :], per=per)
+        errors, converged = self.batch_decode(syndrome[None, :], seed=seed, per=per)
         return errors[0], bool(converged[0])
 
-    def batch_decode(self, syndromes, *, per=None):
+    def batch_decode(self, syndromes, *, seed: int = 0, per=None):
         """Decode a batch; ``syndromes`` is ``[B, m]`` (batch-first).
 
         ``per`` optionally overrides the constructor's physical error rate
@@ -100,28 +102,28 @@ class Decoder(torch.nn.Module):
 
         Returns ``(errors [B, n] int8, converged [B] bool)`` as numpy arrays.
         """
-        errors, converged, _, _ = self._call_decode(np.asarray(syndromes), per)
+        errors, converged, _, _ = self._call_decode(np.asarray(syndromes), seed, per)
         return errors.cpu().numpy(), converged.cpu().numpy()
 
-    def batch_decode_async(self, syndromes, *, per=None):
+    def batch_decode_async(self, syndromes, *, seed: int = 0, per=None):
         """Decode a batch and return ``(errors, converged)`` as tensors on
         the decoder's device, without copying them to the host.  A tensor
         input on that device is used as it is.  Decoders with host-side
         orchestration (OSD-0's failing-lane compaction, BP's early exit)
         still synchronize internally."""
-        errors, converged, _, _ = self._call_decode(syndromes, per)
+        errors, converged, _, _ = self._call_decode(syndromes, seed, per)
         return errors, converged
 
-    def batch_decode_detailed_async(self, syndromes, *, per=None):
+    def batch_decode_detailed_async(self, syndromes, *, seed: int = 0, per=None):
         """Like :meth:`batch_decode_detailed` without the copies to the
         host: returns ``(errors, converged, iters, aux)`` as tensors on the
         decoder's device."""
-        return self._call_decode(syndromes, per)
+        return self._call_decode(syndromes, seed, per)
 
-    def batch_decode_detailed(self, syndromes, *, per=None):
+    def batch_decode_detailed(self, syndromes, *, seed: int = 0, per=None):
         """Like :meth:`batch_decode` but also returns iteration counts,
         decoder-specific auxiliary output, and :class:`DecodeStats`."""
-        errors, converged, iters, aux = self._call_decode(np.asarray(syndromes), per)
+        errors, converged, iters, aux = self._call_decode(np.asarray(syndromes), seed, per)
         errors = errors.cpu().numpy()
         converged = converged.cpu().numpy()
         iters = iters.cpu().numpy()
@@ -142,7 +144,7 @@ def batchdecode(decoder: Decoder, syndromes, **kw):
     return decoder.batch_decode(syndromes, **kw)
 
 
-def decode_soft(decoder: Decoder, llrs):
+def decode_soft(decoder: Decoder, llrs, *, seed: int = 0):
     """Codeword-domain soft-input decoding from received channel LLRs.
 
     The classical-FEC entry point (BPSK/AWGN etc.): given per-bit received
@@ -168,5 +170,6 @@ def decode_soft(decoder: Decoder, llrs):
     # probability the hard decision is wrong; floored away from 0 so the
     # prior stays finite for saturated LLRs
     p_wrong = np.clip(1.0 / (1.0 + np.exp(np.abs(llrs))), 1e-12, 0.5)
-    err, converged = decoder.batch_decode(syn.to(torch.int8).cpu().numpy(), per=p_wrong)
+    err, converged = decoder.batch_decode(syn.to(torch.int8).cpu().numpy(), seed=seed,
+                                          per=p_wrong)
     return (hard ^ err.astype(np.int8)).astype(np.int8), converged

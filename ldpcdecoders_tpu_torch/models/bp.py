@@ -144,7 +144,7 @@ class BeliefPropagationDecoder(Decoder):
         self.bp = BPDecode(self.graph, self.per, self.max_iters, device=self.device,
                            dtype=dtype)
 
-    def _decode_batch(self, syndromes, per=None):
+    def _decode_batch(self, syndromes, seed: int = 0, per=None):
         ratio = None if per is None else self.bp.as_prior(per)
         err, converged, iters, logp = self.bp(syndromes, ratio)
         return err, converged, iters, {"log_probabs": logp}

@@ -254,7 +254,7 @@ class BeliefPropagationOSDDecoder(Decoder):
                               self.device)
         self.osd = OSD(self.graph, self.osd_order, device=self.device)
 
-    def _decode_batch(self, syndromes, per=None):
+    def _decode_batch(self, syndromes, seed: int = 0, per=None):
         prior = None if per is None else self.bp.as_prior(per)
         bp_err, converged, iters, logp = self.bp(syndromes, prior)
         aux = {"log_probabs": logp}

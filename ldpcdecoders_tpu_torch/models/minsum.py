@@ -286,7 +286,7 @@ class MinSumDecoder(Decoder):
             self.graph, self.per, self.max_iters, device=self.device, alpha=alpha, beta=beta,
             dtype=dtype, damping=damping, check_every=check_every, layout=layout)
 
-    def _decode_batch(self, syndromes, per=None):
+    def _decode_batch(self, syndromes, seed: int = 0, per=None):
         L0 = None if per is None else self.minsum.as_prior(per)
         err, converged, iters, llrs = self.minsum(syndromes, L0)
         return err, converged, iters, {"llrs": llrs}

@@ -240,7 +240,7 @@ class QCMinSumDecoder(Decoder):
         else:
             raise ValueError(f"unknown backend {backend!r} (want 'cuda' or 'lifted')")
 
-    def _decode_batch(self, syndromes, per=None):
+    def _decode_batch(self, syndromes, seed: int = 0, per=None):
         if self.backend == "lifted":
             prior = None if per is None else self.lifted.as_prior(per)
             err, converged, iters, soft = self.lifted(syndromes, prior)

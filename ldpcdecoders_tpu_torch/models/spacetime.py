@@ -218,7 +218,7 @@ class SpaceTimeDecoder(Decoder):
 
     # -- Decoder contract ---------------------------------------------------
 
-    def _decode_batch(self, detectors, per=None, q=None):
+    def _decode_batch(self, detectors, seed: int = 0, per=None, q=None):
         """Detector records ``[B, R*m]`` -> cumulative data-error estimate
         ``[B, n]``.
 
@@ -230,7 +230,7 @@ class SpaceTimeDecoder(Decoder):
             prior = per  # full inner prior vector, passed through
         else:
             prior = self._prior_vec(per, q)
-        x, conv, iters, aux = self.inner._decode_batch(detectors, per=prior)
+        x, conv, iters, aux = self.inner._decode_batch(detectors, seed, per=prior)
         B = x.shape[0]
         if self.rounds == 1 and self.perfect_last:
             data = x[:, None, :]
@@ -243,17 +243,17 @@ class SpaceTimeDecoder(Decoder):
             cum = (data.to(torch.int32).sum(dim=1) % 2).to(torch.int8)
         return cum, conv, iters, {"data_rounds": data, "meas": meas, "inner": aux}
 
-    def _call_decode(self, detectors, per, q=None):
+    def _call_decode(self, detectors, seed, per, q=None):
         detectors = torch.as_tensor(detectors, device=self.device)
         if detectors.ndim != 2 or detectors.shape[1] != self.m:
             raise ValueError(
                 f"expected detectors of shape [B, {self.m}] "
                 f"(rounds={self.rounds} x m={self.block_m}), got {tuple(detectors.shape)}")
-        return self._decode_batch(detectors, per=per, q=q)
+        return self._decode_batch(detectors, seed, per=per, q=q)
 
     # -- public API (q-aware wrappers over the Decoder surface) -------------
 
-    def batch_decode(self, detectors, *, per=None, q=None):
+    def batch_decode(self, detectors, *, seed: int = 0, per=None, q=None):
         """Decode detector records ``[B, R*m]`` (see ``detectors_of``).
 
         ``per`` / ``q`` optionally override the data / measurement error
@@ -263,16 +263,16 @@ class SpaceTimeDecoder(Decoder):
         ``errors`` is the estimated cumulative data error after the last
         round (XOR of every round's fresh-error estimate).
         """
-        err, conv, _, _ = self._call_decode(np.asarray(detectors), per, q)
+        err, conv, _, _ = self._call_decode(np.asarray(detectors), seed, per, q)
         return err.cpu().numpy(), conv.cpu().numpy()
 
-    def batch_decode_detailed(self, detectors, *, per=None, q=None):
+    def batch_decode_detailed(self, detectors, *, seed: int = 0, per=None, q=None):
         """Like :meth:`batch_decode`, also returning iteration counts,
         the per-round split (``aux["data_rounds"]`` ``[B, R, n]``,
         ``aux["meas"]`` ``[B, R_noisy, m]``, ``aux["inner"]`` the inner
         decoder's soft output) and :class:`~.base.DecodeStats`, all as
         numpy arrays."""
-        err, conv, iters, aux = self._call_decode(np.asarray(detectors), per, q)
+        err, conv, iters, aux = self._call_decode(np.asarray(detectors), seed, per, q)
         err, conv, iters = (t.cpu().numpy() for t in (err, conv, iters))
 
         def host(v):
@@ -283,12 +283,12 @@ class SpaceTimeDecoder(Decoder):
 
         return err, conv, iters, host(aux), DecodeStats.from_arrays(conv, iters)
 
-    def decode_history(self, syndromes, *, per=None, q=None):
+    def decode_history(self, syndromes, *, seed: int = 0, per=None, q=None):
         """Decode raw measured syndrome histories ``[B, R, m]`` (or a
         single ``[R, m]`` shot): forms the XOR-difference detector record
         and calls :meth:`batch_decode`."""
         s = np.asarray(syndromes)
         single = s.ndim == 2
         d = detectors_of(s)
-        err, conv = self.batch_decode(d[None] if single else d, per=per, q=q)
+        err, conv = self.batch_decode(d[None] if single else d, seed=seed, per=per, q=q)
         return (err[0], bool(conv[0])) if single else (err, conv)

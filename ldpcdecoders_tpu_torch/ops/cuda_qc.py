@@ -85,7 +85,7 @@ def qc_minsum_cuda(syndromes, terms: QCTerms, table, L0: float, max_iters: int, 
             syn.data_ptr(), None if priors is None else priors.data_ptr(), table.data_ptr(),
             err.data_ptr(), llrs.data_ptr(), conv.data_ptr(), iters.data_ptr(),
             B, terms.l, terms.m, terms.mb, terms.nb, terms.Eb, terms.max_row_weight,
-            int(max_iters), threads, int(layered), int(sumprod),
+            terms.buffered_row_weight, int(max_iters), threads, int(layered), int(sumprod),
             int(dtype == torch.bfloat16), float(alpha), float(beta), float(L0),
             0 if priors is None or priors.ndim == 1 else n, smem, stream)
     if rc != 0:

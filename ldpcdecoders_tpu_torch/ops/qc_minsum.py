@@ -52,12 +52,17 @@ __all__ = [
     "qc_minsum_ref",
     "qc_modes",
     "SMEM_LIMIT",
+    "HELD_EDGES",
 ]
 
 #: dynamic shared memory one block can be given on an H100 (227 KB)
 SMEM_LIMIT = 232_448
 #: most threads of one block
 MAX_THREADS = 1024
+#: edges of a base row whose positions and values the kernel keeps in
+#: registers (csrc/qc_minsum.cu kHeld); sum-product keeps the suffix
+#: products of a heavier row's later edges in shared memory
+HELD_EDGES = 8
 
 
 def qc_term_adjacency(terms, mb: int, nb: int):
@@ -122,6 +127,21 @@ class QCTerms:
     def max_row_weight(self) -> int:
         return max(len(r) for r in self.row_edges)
 
+    @property
+    def two_phase_rows(self) -> tuple:
+        """Per base row: whether two of its terms share a block column.  The
+        kernel's layered sweep updates such a row in two phases through a
+        row buffer in shared memory, any other row in one (it works the
+        same flags out of the table)."""
+        return tuple(len({self.edges[e][1] for e in r}) < len(r) for r in self.row_edges)
+
+    @property
+    def buffered_row_weight(self) -> int:
+        """The row buffer's rows: the largest weight of a two-phase row, 0
+        when there is none."""
+        return max((len(r) for r, two in zip(self.row_edges, self.two_phase_rows) if two),
+                   default=0)
+
     def table(self) -> np.ndarray:
         """The int32 table the kernel reads: per edge its block column and
         its two shifts (``Eb`` each), the row pointer (``mb+1``: a row's
@@ -137,15 +157,19 @@ class QCTerms:
 def qc_smem_bytes(terms: QCTerms, threads: int, itemsize: int, layered: bool,
                   sumproduct: bool) -> int:
     """Dynamic shared memory (bytes) of one block of the kernel, which holds
-    one lane on ``threads`` threads: the term table and the lane's flag; two
-    message arrays in the storage type (layered: edge messages and totals;
-    flooding: both directions' edge messages), the syndrome bytes, and for
-    layered one row's new messages in float32, for flooding the decisions;
-    for sum-product one float32 per thread and row slot (the suffix
-    products)."""
+    one lane on ``threads`` threads: the term table in the kernel's form
+    (four words per edge, the row and column pointers, the column edge
+    list, a flag per base row); two message arrays in the storage type
+    (layered: edge messages and totals; flooding: both directions' edge
+    messages), the syndrome bytes, and for layered the new messages of one
+    two-phase row in float32 (none when every row is one-phase), for
+    flooding the decisions; for sum-product one float32 per thread and row
+    slot past :data:`HELD_EDGES` (the suffix products of a heavy row)."""
     Eb, mb, nb, Z, rw = terms.Eb, terms.mb, terms.nb, terms.Z, terms.max_row_weight
-    ints = 4 * Eb + mb + nb + 2 + 1
-    floats = (rw * Z if layered else 0) + (rw * threads if sumproduct else 0)
+    ints = 5 * Eb + 2 * mb + nb + 4
+    tail = max(rw - HELD_EDGES, 0)
+    floats = (terms.buffered_row_weight * Z if layered else 0) + (
+        tail * threads if sumproduct else 0)
     stored = (Eb + (nb if layered else Eb)) * Z
     flags = (mb + (0 if layered else nb)) * Z
     return 4 * ints + 4 * floats + itemsize * stored + flags
@@ -153,8 +177,10 @@ def qc_smem_bytes(terms: QCTerms, threads: int, itemsize: int, layered: bool,
 
 def qc_launch_shape(terms: QCTerms, itemsize: int, layered: bool, sumproduct: bool):
     """``(threads per block, shared-memory bytes)`` of the kernel's launch:
-    one lane per block on ``min(Z, 1024)`` threads.  Raises when the lane
-    does not fit a block's shared memory.
+    one lane per block on ``min(Z, 1024)`` threads (the launcher takes fewer
+    where the kernel's registers do not allow that many, and strides the
+    positions over them).  Raises when the lane does not fit a block's
+    shared memory.
     """
     threads = min(terms.Z, MAX_THREADS)
     need = qc_smem_bytes(terms, threads, itemsize, layered, sumproduct)

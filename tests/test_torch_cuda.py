@@ -394,6 +394,71 @@ def test_qc_kernel_matches_plain_version(dev, dtype, schedule, B, mb, nb, l, m, 
         assert torch.equal(bits(got[3].cpu()), bits(want[3]))  # min-sum: bitwise
 
 
+def sweep_codes(name):
+    """Codes for the layered sweep's two kinds of base row: one phase where
+    the row's block columns are distinct, two where one repeats."""
+    if name == "distinct":  # path (j)'s base graph at Z=32
+        base = pt.random_qc_base_matrix(24, 6, 3, 32, rng=7)
+        bi, bj = np.nonzero(base >= 0)
+        return QCTerms.build([(int(i), int(j), int(base[i, j]), 0) for i, j in zip(bi, bj)],
+                             12, 24, (32, 1))
+    if name == "bb72":  # three terms in each block column of the one row
+        return pt.QCMinSumDecoder.for_bicycle("bb72", "x", 0.01, 4, device="cpu").qc_terms
+    if name == "odd_Z":  # distinct columns on a 9 x 5 lift: Z = 45
+        rng = np.random.default_rng(45)
+        return QCTerms.build([(i, j, int(rng.integers(9)), int(rng.integers(5)))
+                              for i in range(4) for j in rng.choice(10, 4, replace=False)]
+                             + [(4, j, 0, j % 5) for j in range(10)], 5, 10, (9, 5))
+    # mixed: distinct rows, a row repeating a column, rows past the 8 edges
+    # held in registers (weight 11 distinct; weight 40 with repeats, signs
+    # past 32)
+    terms = [(0, 0, 1, 2), (0, 1, 3, 0), (0, 2, 4, 4), (1, 2, 0, 1), (1, 2, 5, 3), (1, 3, 2, 2)]
+    terms += [(2, j, (3 * j) % 9, (2 * j + 1) % 5) for j in range(11)]
+    terms += [(3, j % 30, (j * 7) % 9, (j * 3) % 5) for j in range(40)]
+    return QCTerms.build(terms, 4, 30, (9, 5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("code", ["distinct", "bb72", "odd_Z", "mixed"])
+def test_qc_sweep_one_and_two_phase_rows(dev, code, dtype):
+    """The layered sweep bitwise against the plain version on rows of either
+    kind; lane 0 (syndrome 0) stops after one sweep, lane 1 (half its
+    checks violated) runs all ``max_iters``, in the same launch; priors
+    that decide some bits 1 before the first sweep."""
+    terms = sweep_codes(code)
+    two = sum(terms.two_phase_rows)
+    assert {"distinct": two == 0, "bb72": two == terms.mb, "odd_Z": two == 0,
+            "mixed": 0 < two < terms.mb}[code]
+    rng = np.random.default_rng(terms.Z + terms.Eb)
+    table = torch.as_tensor(terms.table(), device=dev)
+    syn, pri = qc_inputs(rng, terms, 12, 0.02)
+    syn[0] = 0
+    syn[1] = torch.as_tensor(rng.random(syn.shape[1]) < 0.5)
+    neg = pri.clone()
+    neg[2:, 1::13] *= -1.0  # decisions of 1 before the first sweep
+    for priors in (None, pri, pri[0].contiguous(), neg):
+        kw = dict(alpha=0.8125, beta=0.15625, schedule="layered", dtype=dtype)
+        want = qc_minsum_ref(syn, terms, 3.0, 14, priors=priors, **kw)
+        got = cuda_qc.qc_minsum_cuda(syn.to(dev), terms, table, 3.0, 14,
+                                     priors=None if priors is None else priors.to(dev), **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got[:3], want[:3]):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+        assert torch.equal(bits(got[3].cpu()), bits(want[3]))
+        assert want[2][0] == 1 and want[1][0] and want[2][1] == 14 and not want[1][1]
+    # flooding and sum-product take the same row update
+    for kw in (dict(alpha=0.75, beta=0.0), dict(algorithm="sumproduct"),
+               dict(algorithm="sumproduct", schedule="layered")):
+        want = qc_minsum_ref(syn.to(dev), terms, 3.0, 14, **kw)
+        got = cuda_qc.qc_minsum_cuda(syn.to(dev), terms, table, 3.0, 14, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got[:3], want[:3]):
+            assert torch.equal(a, b)
+        if "algorithm" in kw:
+            torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=0.024)
+        else:
+            assert torch.equal(bits(got[3]), bits(want[3]))
+
 @pytest.mark.parametrize("schedule", ["flooding", "layered"])
 def test_qc_kernel_sumproduct(dev, schedule):
     rng = np.random.default_rng(5)

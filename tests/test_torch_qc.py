@@ -55,6 +55,7 @@ from ldpcdecoders_tpu_torch.models.qc_minsum import qc_terms_from_reference
 from ldpcdecoders_tpu_torch.ops import cuda_qc
 from ldpcdecoders_tpu_torch.ops.clamps import TANH_CLAMP
 from ldpcdecoders_tpu_torch.ops.qc_minsum import (
+    HELD_EDGES,
     SMEM_LIMIT,
     QCTerms,
     qc_launch_shape,
@@ -183,13 +184,28 @@ def test_shared_memory_estimate_and_refusal():
     bench = _terms_of(qc.random_qc_base_matrix(24, 6, 3, 128, rng=7), 128)
     assert (bench.mb, bench.nb, bench.Eb, bench.max_row_weight) == (12, 24, 72, 6)
     # messages + totals 49,152 B; both message directions 73,728 B; the rest
-    # is the table, the flag, the row buffer, syndromes and decisions
-    assert qc_smem_bytes(bench, 128, 4, True, False) == 49_152 + 1_308 + 3_072 + 1_536
-    assert qc_smem_bytes(bench, 128, 4, False, False) == 73_728 + 1_308 + 1_536 + 3_072
-    assert qc_smem_bytes(bench, 128, 2, True, False) == 24_576 + 1_308 + 3_072 + 1_536
-    assert qc_smem_bytes(bench, 128, 4, True, True) - qc_smem_bytes(
-        bench, 128, 4, True, False) == 6 * 128 * 4
-    assert qc_launch_shape(bench, 4, True, False) == (128, 55_068)
+    # is the table in the kernel's form (1,648 B: four words an edge, the
+    # pointers, the column edge list, a flag a row, two sweep flags),
+    # syndromes and
+    # decisions.  Every row has distinct block columns: no row buffer, and
+    # rows of weight 6 <= HELD_EDGES need no sum-product slots
+    assert not any(bench.two_phase_rows) and bench.buffered_row_weight == 0
+    assert qc_smem_bytes(bench, 128, 4, True, False) == 49_152 + 1_648 + 1_536
+    assert qc_smem_bytes(bench, 128, 4, False, False) == 73_728 + 1_648 + 1_536 + 3_072
+    assert qc_smem_bytes(bench, 128, 2, True, False) == 24_576 + 1_648 + 1_536
+    assert qc_smem_bytes(bench, 128, 4, True, True) == qc_smem_bytes(bench, 128, 4, True, False)
+    assert qc_launch_shape(bench, 4, True, False) == (128, 52_336)
+    # bb72: one row of weight 6 with three terms in each block column: a row
+    # buffer of 6 x 36 float32 beside messages + totals, table and syndromes
+    _, _, info = bicycle.named_bicycle_code("bb72")
+    bb = QCTerms.build([(0, 0, a, b) for a, b in info["a_terms"]]
+                       + [(0, 1, a, b) for a, b in info["b_terms"]], 1, 2, (6, 6))
+    assert bb.two_phase_rows == (True,) and bb.buffered_row_weight == 6
+    assert qc_smem_bytes(bb, 36, 4, True, False) == (6 + 2) * 36 * 4 + 152 + 6 * 36 * 4 + 36
+    # a row of weight 11 keeps 3 suffix products a thread in sum-product
+    heavy = QCTerms.build([(0, j, 0, 0) for j in range(11)], 1, 11, (5, 1))
+    assert qc_smem_bytes(heavy, 5, 4, True, True) - qc_smem_bytes(
+        heavy, 5, 4, True, False) == (11 - HELD_EDGES) * 5 * 4
     # one lane per block, a thread per position of the lift, however small
     small = _terms_of(qc.random_qc_base_matrix(6, 3, 2, 16, rng=5), 16)
     assert qc_launch_shape(small, 4, False, False)[0] == 16
@@ -206,6 +222,41 @@ def test_shared_memory_estimate_and_refusal():
     pt.QCMinSumDecoder(qc.random_qc_base_matrix(24, 6, 3, 512, rng=7), 512, 0.04, 2,
                        device="cpu")
 
+
+
+def _two_phase_cases():
+    """(QCTerms, the lifted matrix the repo builds for it) of the repo's QC
+    codes: the reference benchmark's QC extra, both blocks of bb72 and bb144,
+    and space-time lifts."""
+    base = qc.random_qc_base_matrix(24, 6, 3, 128, rng=7)
+    yield "qc_bench", _terms_of(base, 128), qc.qc_lift(base, 128)
+    for code in ("bb72", "bb144"):
+        Hx, Hz, _ = bicycle.named_bicycle_code(code)
+        for block, H in (("x", Hx), ("z", Hz)):
+            dec = pt.QCMinSumDecoder.for_bicycle(code, block, 0.01, 4, device="cpu")
+            yield f"{code}_{block}", dec.qc_terms, H
+    for code, rounds, perfect in (("bb72", 3, True), ("bb144", 6, True), ("bb72", 2, False)):
+        st = pt.SpaceTimeDecoder.for_bicycle(code, "x", rounds, 0.01, 4, perfect_last=perfect,
+                                             device="cpu")
+        yield f"{code}_R{rounds}", st.inner.qc_terms, st.A.toarray()
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_two_phase_rows_match_a_numpy_recount(case):
+    """The rows the kernel's layered sweep updates in two phases (some block
+    column holds two of the row's terms) and the row buffer's size, against
+    the weights of each row block of the lifted matrix (distinct shifts
+    never meet, so a block's row weight is its number of terms)."""
+    name, terms, H = list(_two_phase_cases())[case]
+    Z, nb = terms.Z, terms.nb
+    assert H.shape == (terms.mb * Z, nb * Z), name
+    weights = [np.asarray(H[i * Z]).reshape(nb, Z).sum(axis=1) for i in range(terms.mb)]
+    assert [int(w.sum()) for w in weights] == [len(r) for r in terms.row_edges], name
+    assert terms.two_phase_rows == tuple(bool(w.max() >= 2) for w in weights), name
+    assert terms.buffered_row_weight == max(
+        (int(w.sum()) for w in weights if w.max() >= 2), default=0), name
+    want_two = {"qc_bench": 0}.get(name, terms.mb)  # every bicycle row repeats a column
+    assert sum(terms.two_phase_rows) == want_two, name
 
 # ---- the decoder against the reference's fused kernel ------------------------
 
