@@ -16,7 +16,8 @@ public decoder API on ``cuda:0`` and prints, in order:
      the card could take (bytes over 3.35 TB/s, or the operations these
      inputs need over 67 TFLOP/s in float32 and a quarter of that for
      32-bit integer work, whichever is larger); the two eliminations also
-     against their plain blocked forms, with the panel width and shared
+     against their plain blocked forms; K3/K4 also at the bb144 R=6 DEM's
+     shape in the check layout; the eliminations with the panel width and shared
      memory the launcher reports (``ldpc_gf2_plan`` of the built library,
      which must equal ``cuda_gf2.launch_plan``), and their times at 128
      lanes and with the panel capped at 4, 2 and 1 columns;
@@ -31,14 +32,25 @@ public decoder API on ``cuda:0`` and prints, in order:
      sweeps; (k) ``SpaceTimeDecoder.for_bicycle("bb144", "x", 6, 0.003, 60)``
      on 2048 detector records: one launch of the whole-decode kernel per
      call, converged lanes reproduce their input; (l) both against the CPU
-     on 64 lanes, bitwise;
+     on 64 lanes, bitwise; (m) BP+OSD-CS (osd_order 10, damped min-sum
+     inner) at per 0.2 through K2 and the combination sweep, 64 lanes
+     bitwise against the CPU; (n) the same through the native host OSD-CS;
+     (o) ``DetectorGraphDecoder.from_dem(surface_d5_r5_p002.dem)`` (BP+OSD-0,
+     min-sum inner, K1; 64 records bitwise against the CPU); the peak memory of a staged
+     decode against utils/hbm.py's model; (p) the staged decoder's fast tier
+     and (q) its flagship on the bb144 R=6 p=0.003 circuit-level DEM through
+     ``run_eval`` (4096 and 2048 shots): every OSD output consistent, (p)'s
+     Wilson interval overlapping the reference's 149/16,384, (q) at most 8
+     failures, with the wall split between stage 0, deep, relay and the
+     host OSD;
   5. steady-state rates;
   6. a JSON line with each kernel's numbers, the card line again, and last
      ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a ``torch.profiler`` summary of one steady call of each
 configuration (launches, device-busy share, largest kernels; the OSD paths
-(b), (c), (g), (h) among them) before 6, and a second build of the kernels
+(b), (c), (g), (h), (m), a bb144 stage-0 batch and a flagship deep bucket
+among them) before 6, and a second build of the kernels
 with ``-DLDPC_GF2_PHASE_CLOCKS``: block 0's SM clocks in the phases of the
 two eliminations, and that build's times beside the plain build's.
 
@@ -54,10 +66,16 @@ import subprocess
 import sys
 import time
 
+from pathlib import Path
+
 import numpy as np
 
+ROOT = Path(__file__).resolve().parent
 B = 1024
 BK = 2048  # detector records of the space-time path
+BDEM = 2048  # stage-0 batch of the staged decoder on the bb144 DEM
+P_SHOTS, Q_SHOTS = 4096, 2048  # shots of the fast tier (p) and the flagship (q)
+DEEP_BUCKET = 256  # straggler records a flagship deep decode takes (x 6 members)
 MAX_ITERS = 100
 DEVICE = "cuda:0"
 # published peaks of one H100 SXM: device memory rate, and the float32 rate
@@ -75,6 +93,16 @@ def card_line() -> str:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def load_bb144_dem():
+    """The bb144 [[144,12,12]] memory-z circuit-level DEM at R=6, p=0.003
+    (864 detectors, 31,648 mechanisms, 12 observables), as committed."""
+    import scipy.sparse as sp
+
+    z = np.load(ROOT / "benchmarks/results/bb144_r6_p0.003.npz")
+    A = sp.csr_matrix((z["data"], z["indices"], z["indptr"]), shape=tuple(z["shape"]))
+    return A, z["priors"], z["obs"]
 
 
 def syndromes(H, per, rng):
@@ -408,12 +436,67 @@ def main() -> int:
                 f"B={BK} mb=6 nb=17 Eb=46 Z=72 (12x6) sweeps<=60"),
     ]
 
+    # K3/K4 at the bb144 R=6 circuit-level DEM's shape (864 checks x 31,648
+    # mechanisms, check degree up to 294, variable degree up to 12) in the
+    # check layout of the staged decoder: K3 reads its check-slot state
+    # directly, K4 returns the totals only.  Inputs: the messages entering
+    # the second iteration of a stage-0 batch (path (p), float32, 2048
+    # records) and of a flagship deep bucket (path (q), bfloat16, 6 members
+    # x 256 records)
+    dem_A, dem_pr, dem_O = load_bb144_dem()
+    dem_graph = pt.TannerGraph.from_pcm(np.asarray(dem_A.todense()))
+    dem_x = (np.random.default_rng(21).random((max(BDEM, 6 * DEEP_BUCKET), dem_graph.n))
+             < dem_pr).astype(np.float32)
+    dem_det = torch.as_tensor((dem_x @ dem_A.T.toarray().astype(np.float32)) % 2 == 1,
+                              device=dev)
+    for tag, dtype, lanes in (("f32 stage-0 batch", torch.float32, BDEM),
+                              ("bf16 deep bucket", torch.bfloat16, 6 * DEEP_BUCKET)):
+        ms = pt.MinSumDecode(dem_graph, float(dem_pr.mean()), 2, device=dev, dtype=dtype,
+                             layout="check")
+        flip = dem_det[:lanes].contiguous()
+        L0 = torch.as_tensor(np.log((1 - dem_pr) / dem_pr), device=dev).to(dtype)
+        L0 = torch.broadcast_to(L0, (lanes, dem_graph.n)).contiguous()
+        dc_d, m_d, dv_d, n_d = dem_graph.max_dc, dem_graph.m, dem_graph.max_dv, dem_graph.n
+        x1 = L0.index_select(1, ms.chk_varidx).reshape(lanes, dc_d, m_d)
+        mu1 = cuda_minsum.minsum_check_cuda(x1, None, flip, ms.chk_mask, ms.alpha, 0.0)
+        _, tot1 = cuda_minsum.minsum_var_cuda(mu1.reshape(lanes, -1), ms.v2c, ms.var_mask, L0,
+                                              want_nu=False)
+        x2 = (tot1.index_select(1, ms.chk_varidx).reshape(lanes, dc_d, m_d) - mu1).contiguous()
+        mu2 = cuda_minsum.minsum_check_cuda(x2, None, flip, ms.chk_mask, ms.alpha, 0.0)
+        mu2 = mu2.reshape(lanes, -1)
+        shape_d = f"B={lanes} dc={dc_d} m={m_d} dv={dv_d} n={n_d} (bb144 R=6 DEM, check layout)"
+        # both kernels skip a padded slot without loading its message: the
+        # bounds read the messages of the DEM's edges only (K3 still writes
+        # every padded output slot)
+        edge_bytes = lanes * int(ms.chk_mask.sum()) * x2.element_size()
+        v2c_bytes = int(ms.var_mask.sum()) * ms.v2c.element_size()
+        cases += [
+            (f"minsum_check bb144 {tag}", minsum_src,
+             "ldpcdecoders_tpu/ops/pallas_minsum.py:53", shape_d,
+             lambda x2=x2, flip=flip, ms=ms: (cuda_minsum.minsum_check_cuda(
+                 x2, None, flip, ms.chk_mask, ms.alpha, 0.0),),
+             lambda x2=x2, flip=flip, ms=ms: (plain_minsum.check_core_ref(
+                 x2, flip, ms.chk_mask, ms.alpha, 0.0),),
+             bound(edge_bytes + nbytes(flip, ms.chk_mask) + nbytes(x2),
+                   14 * lanes * dc_d * m_d, PEAK_F32_OPS_PER_S), (3, 1)),
+            # totals only: a masked gather and an add per slot
+            (f"minsum_var bb144 {tag}", minsum_src,
+             "ldpcdecoders_tpu/ops/pallas_minsum.py:91", shape_d,
+             lambda mu2=mu2, ms=ms, L0=L0: cuda_minsum.minsum_var_cuda(
+                 mu2, ms.v2c, ms.var_mask, L0, want_nu=False)[1:],
+             lambda mu2=mu2, ms=ms, L0=L0: plain_minsum.var_update_ref(
+                 mu2, ms.v2c, ms.var_mask, L0, want_nu=False)[1:],
+             bound(edge_bytes + v2c_bytes + nbytes(ms.var_mask, L0) + nbytes(L0),
+                   2 * lanes * dv_d * n_d, PEAK_F32_OPS_PER_S), (3, 1)),
+        ]
+        del x1, mu1, tot1
+
     # one entry per kernel in the summary: the first case of each name is
     # the main path's (float32; gathered; layered with the baked prior); the
     # others add their times
     kernels = {}
     for name, source, replaces, shape, kern, plain, bounds, *rest in cases:
-        (reps_k, reps_p), loose = rest if rest else ((10, 2), False)
+        (reps_k, reps_p), loose = (rest + [False])[:2] if rest else ((10, 2), False)
         got = kern()
         torch.cuda.synchronize()
         want = plain()
@@ -631,15 +714,6 @@ def main() -> int:
         raise AssertionError(f"(k): {path_launches['k']['qc_minsum']} launches, "
                              f"converged {c_k.mean():.4f}")
 
-    # in the summary, ``launches`` is the count of the first path that must
-    # launch the kernel; ``launches_by_path`` has every path's own count
-    own_path = {"gf2_osd0": "b", "gf2_eliminate": "c", "minsum_check": "e", "minsum_var": "e",
-                "qc_minsum": "j"}
-    for k, path in own_path.items():
-        kernels[k]["launches"] = path_launches[path][k]
-        kernels[k]["launches_path"] = path
-        kernels[k]["launches_by_path"] = {p: c[k] for p, c in path_launches.items()}
-
     # (i) the card's min-sum against the CPU's on the same 64 lanes, float32:
     # err, converged, iters and LLRs must agree bitwise
     ms_cpu = pt.MinSumDecoder(graph, 0.01, MAX_ITERS, device="cpu")
@@ -665,6 +739,157 @@ def main() -> int:
         print(f"main (l) {what} cuda vs cpu, 64 lanes: err/converged/iters/llrs bitwise {same}")
         if not all(same):
             raise AssertionError(f"{what} on the card disagrees with the CPU")
+
+    # (m) BP+OSD-CS (pairs within the first 10 non-pivot columns) at per
+    # 0.2, every lane through K2 and the combination sweep.  The inner is the
+    # damped min-sum of (g): its LLRs are bitwise on the card and the CPU (path
+    # (i)), where BP's logp differs by an ulp (path (d)) and may reorder OSD
+    # columns
+    cs_kw = dict(inner="minsum", damping=0.4, osd_method="combination_sweep", osd_order=10)
+    dec_cs = pt.BeliefPropagationOSDDecoder(graph, 0.2, MAX_ITERS, device=dev, **cs_kw)
+    g_m, c_m = drive("m", minsum_kernels + ["gf2_eliminate"],
+                     lambda: dec_cs.batch_decode(syn20))
+    assert_consistent(H, g_m, syn20, "(m) BP+OSD-CS per 0.2")
+    cs_cpu = pt.BeliefPropagationOSDDecoder(graph, 0.2, MAX_ITERS, device="cpu", **cs_kw)
+    g_mc, c_mc = cs_cpu.batch_decode(syn20[:64])
+    same = (np.array_equal(g_mc, g_m[:64]), np.array_equal(c_mc, c_m[:64]))
+    print(f"main (m) BP+OSD-CS (osd_order 10), inner min-sum damping 0.4, per 0.2: converged "
+          f"{c_m.mean():.4f}, exact recovery "
+          f"{(g_m.astype(bool) == errs20).all(axis=1).mean():.4f}, "
+          f"all syndrome-consistent, OSD on the card (K2); cuda vs cpu on 64 lanes: "
+          f"err/converged bitwise {same}")
+    if not all(same):
+        raise AssertionError("(m): BP+OSD-CS on the card disagrees with the CPU")
+
+    # (n) the same through the native host OSD-CS
+    dec_host = pt.BeliefPropagationOSDDecoder(graph, 0.2, MAX_ITERS, device=dev,
+                                              osd_impl="host", **cs_kw)
+    g_n, c_n = drive("n", minsum_kernels, lambda: dec_host.batch_decode(syn20))
+    assert_consistent(H, g_n, syn20, "(n) BP+host OSD-CS per 0.2")
+    if path_launches["n"]["gf2_eliminate"] or path_launches["n"]["gf2_osd0"]:
+        raise AssertionError("(n): the host OSD launched an elimination kernel")
+    print(f"main (n) BP+OSD-CS on the host (osd_impl='host'), per 0.2: converged "
+          f"{c_n.mean():.4f}, all syndrome-consistent, lanes equal to (m) "
+          f"{(g_n == g_m).all(axis=1).mean():.4f}, OSD on the host")
+
+    # (o) a circuit-level DEM through DetectorGraphDecoder: BP+OSD-0 with
+    # the min-sum inner on surface_d5_r5_p002.dem (120 detectors, 1,589
+    # mechanisms), records drawn at 3x the DEM's priors so that lanes fail;
+    # its lane fits a block of K1 (the device OSD).  The first 64 records
+    # are held bitwise against the same decoder on the CPU
+    d5_path = str(ROOT / "tests/fixtures/surface_d5_r5_p002.dem")
+    d5_A, d5_pr, d5_O = pt.load_dem(d5_path)
+    rng_d5 = np.random.default_rng(13)
+    d5_x = (rng_d5.random((BK, d5_A.shape[1])) < 3 * d5_pr).astype(np.uint8)
+    d5_det = ((d5_A @ d5_x.T).T % 2).astype(np.uint8)
+    d5_dec = pt.DetectorGraphDecoder.from_dem(d5_path, 50, inner="minsum", device=dev)
+    g_o, c_o = drive("o", minsum_kernels + ["gf2_osd0"], lambda: d5_dec.batch_decode(d5_det))
+    assert_consistent(d5_A.toarray(), g_o, d5_det, "(o) DetectorGraphDecoder d5")
+    f_o, _ = d5_dec.predict_observables(d5_det)
+    d5_cpu = pt.DetectorGraphDecoder.from_dem(d5_path, 50, inner="minsum", device="cpu")
+    g_oc, c_oc = d5_cpu.batch_decode(d5_det[:64])
+    same = (np.array_equal(g_oc, g_o[:64]), np.array_equal(c_oc, c_o[:64]))
+    print(f"main (o) DetectorGraphDecoder surface_d5_r5_p002.dem, {BK} records at 3x the priors: "
+          f"OSD on the card (K1; a lane takes "
+          f"{cuda_gf2.smem_bytes((d5_A.shape[1] + 31) // 32, d5_A.shape[0], osd0=True)} B of "
+          f"shared memory), converged {c_o.mean():.4f}, all syndrome-consistent, observables "
+          f"right {(f_o == (d5_x @ d5_O.T) % 2).all(axis=1).mean():.4f}; cuda vs cpu on 64 "
+          f"records: err/converged bitwise {same}, {int((~c_oc).sum())} of them through OSD")
+    if not all(same):
+        raise AssertionError("(o): DetectorGraphDecoder on the card disagrees with the CPU")
+    if c_oc.all():
+        raise AssertionError("(o): none of the 64 records compared reached the OSD")
+
+    # (p), (q): the staged production decoder on the bb144 R=6 p=0.003
+    # circuit-level DEM, through run_eval (device sampling, deep ensemble,
+    # host OSD-CS on a worker thread).  (p) the fast tier, (q) the flagship
+    # (benchmarks/circuit_level_bb144_r5.py; circuit_level_bb144_r5.json)
+    from ldpcdecoders_tpu_torch.utils import hbm
+    from ldpcdecoders_tpu_torch.utils.hbm import minsum_bytes_per_lane
+    from ldpcdecoders_tpu_torch.utils.metrics import wilson_interval
+
+    fast = pt.StagedDemDecoder(dem_A, dem_pr, observables=dem_O, gammas=(0.4,),
+                               stage0_iters=96, deep_iters=1000, lam=40, check_every=8,
+                               layout="check", device=dev)
+    flagship = pt.StagedDemDecoder(
+        dem_A, dem_pr, observables=dem_O, gammas=(0.4,) + ((-0.24, 0.66),) * 5,
+        stage0_iters=96, deep_iters=500, deep_dtype=torch.bfloat16, relay_legs=8, lam=60,
+        lam3=40, layout="check", check_every=8, device=dev)
+
+    # the memory model (utils/hbm.py) against the peak a decode allocates
+    def peak_bytes(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    L0_dem = fast.L0_default
+    memory = {}
+    for what, dec, lanes, fn in (
+            ("stage-0 batch, float32, check layout", fast, BDEM,
+             lambda: fast.stage0(dem_det[:BDEM], L0_dem)),
+            (f"flagship deep bucket, 6 members x {DEEP_BUCKET}, bfloat16, check layout", flagship,
+             6 * DEEP_BUCKET, lambda: flagship._deep_step(dem_det[:DEEP_BUCKET], L0_dem, L0_dem,
+                                                           flagship.gamma_arg))):
+        dtype_bytes = 2 if "bfloat16" in what else 4
+        modeled = minsum_bytes_per_lane(dec.graph, dtype_bytes) * lanes
+        measured = peak_bytes(fn)
+        memory[what] = {"measured_bytes": measured, "modeled_bytes": modeled,
+                        "ratio": measured / modeled}
+        print(f"memory {what}: {lanes} lanes, peak allocated {measured / 1e9:.3f} GB, model "
+              f"{modeled / 1e9:.3f} GB (utils/hbm.py, headroom {hbm._HEADROOM}), measured/model "
+              f"{measured / modeled:.3f} | {card}")
+
+    dem_lane = cuda_gf2.smem_bytes((dem_graph.n + 31) // 32, dem_graph.m, osd0=False)
+    print(f"main (p), (q) OSD route: host (the native OSD-CS, on a worker thread): one lane of the "
+          f"bb144 DEM takes {dem_lane} B of shared memory in the elimination kernel, a block "
+          f"holds {cuda_gf2.MAX_SMEM_BYTES}")
+    if dem_lane <= cuda_gf2.MAX_SMEM_BYTES:
+        raise AssertionError("(p): the DEM's lane fits a block; the host route is not the rule")
+    ref_lo, ref_hi = wilson_interval(149, 16384)
+    staged = {}
+    for path, what, dec, shots, kw in (
+            ("p", "fast tier", fast, P_SHOTS, dict(batch=BDEM)),
+            ("q", "flagship", flagship, Q_SHOTS, dict(batch=BDEM // 2, deep_bucket=DEEP_BUCKET))):
+        ev = drive(path, minsum_kernels,
+                   lambda dec=dec, shots=shots, kw=kw: dec.run_eval(shots, seed=11, **kw))
+        prof = ev["profile"]
+        lo, hi = ev["logical_ci95"]
+        staged[path] = ev
+        print(f"main ({path}) StagedDemDecoder bb144 R=6 p=0.003 {what}: {ev['shots']} shots, "
+              f"{ev['fails']} fails, LER {ev['logical_rate']:.4e} (Wilson 95% {lo:.4e}-{hi:.4e}), "
+              f"stage0_conv {prof['stage0_conv']:.4f}, deep shots {prof['deep_shots']} (solved "
+              f"{prof['deep_solved']}), relay shots {prof['relay_shots']} (solved "
+              f"{prof['relay_solved']}), OSD shots {prof['osd_shots']} (consistent "
+              f"{prof['osd_consistent']}), fails by stage {prof['fails_by_stage']}, "
+              f"{ev['throughput_shots_per_s']:.2f} shots/s | {card}")
+        print(f"split ({path}): wall {prof['wall_s']:.3f} s; stage 0 "
+              f"{prof['stage0_wall_s']:.3f} s, "
+              f"deep drains {prof['deep_drain_wall_s']:.3f} s, relay drains "
+              f"{prof['relay_drain_wall_s']:.3f} s, host OSD thread {prof['osd_thread_s']:.3f} s "
+              f"(overlapped) | {card}")
+        if prof["osd_consistent"] != prof["osd_shots"]:
+            raise AssertionError(f"({path}): {prof['osd_shots'] - prof['osd_consistent']} OSD "
+                                 "outputs miss their detector record")
+    lo, hi = staged["p"]["logical_ci95"]
+    print(f"main (p) against the reference's fast tier, 149/16,384 = 9.09e-3 (Wilson 95% "
+          f"{ref_lo:.4e}-{ref_hi:.4e}): intervals overlap {lo <= ref_hi and ref_lo <= hi}")
+    if not (lo <= ref_hi and ref_lo <= hi):
+        raise AssertionError("(p): the fast tier's LER interval misses the reference's")
+    if staged["q"]["fails"] > 8:
+        raise AssertionError(f"(q): {staged['q']['fails']} failures in 2048 shots (the "
+                             "reference's 3.76e-4 predicts 0.8)")
+
+    # in the summary, ``launches`` is the count of the first path that must
+    # launch the kernel; ``launches_by_path`` has every path's own count
+    own_path = {"gf2_osd0": "b", "gf2_eliminate": "c", "minsum_check": "e", "minsum_var": "e",
+                "qc_minsum": "j"}
+    for k, path in own_path.items():
+        kernels[k]["launches"] = path_launches[path][k]
+        kernels[k]["launches_path"] = path
+        kernels[k]["launches_by_path"] = {p: c[k] for p, c in path_launches.items()}
 
     # 5. steady-state rates (host clock around calls that end in a sync)
     tag = f"| B={B} | {card}"
@@ -743,6 +968,14 @@ def main() -> int:
             ("(c) BP+OSD-2 per 0.01", lambda: dec2.batch_decode_async(d01), MAX_ITERS),
             ("(h) BP+OSD-2 on failing lanes, inner min-sum, per 0.2, 128 lanes",
              lambda: osd2_ms.batch_decode_async(d20[:128]), MAX_ITERS),
+            ("(m) BP+OSD-CS, inner min-sum, per 0.2", lambda: dec_cs.batch_decode_async(d20),
+             MAX_ITERS),
+            (f"(p) bb144 stage-0 batch of {BDEM}, float32, check layout",
+             lambda: fast.stage0(dem_det[:BDEM], L0_dem), fast.stage0_iters),
+            (f"(q) bb144 flagship deep bucket, 6 x {DEEP_BUCKET}, bfloat16, check layout",
+             lambda: flagship._deep_step(dem_det[:DEEP_BUCKET], L0_dem, L0_dem,
+                                         flagship.gamma_arg),
+             flagship.deep_iters),
         ):
             profile_call(torch, name, fn, its)
 

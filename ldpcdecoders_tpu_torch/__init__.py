@@ -2,13 +2,15 @@
 
 A port of ``ldpcdecoders_tpu`` (JAX on a TPU), which stays the reference it
 is tested against.  This package imports torch and numpy, never jax.  It
-carries the sum-product BP, min-sum, BP+OSD, quasi-cyclic and space-time
-decode paths: Gallager, quasi-cyclic and bivariate bicycle codes,
-Tanner-graph compilation, batched BP in plain torch, and the min-sum
-message updates, the OSD eliminations and the whole decode of a
-group-circulant code as hand-written CUDA kernels (``csrc/``, built with
-nvcc at first use on a CUDA device).  Decoders run on the current CUDA card
-unless built with ``device="cpu"``.
+carries the sum-product BP, min-sum, BP+OSD (OSD-0, OSD-w, OSD-CS, and the
+native host OSD of ``native/``), quasi-cyclic, space-time and circuit-level
+decode paths (detector error models, the ensemble and the staged
+production decoder), with ``DecoderConfig``: Gallager, quasi-cyclic and
+bivariate bicycle codes, Tanner-graph compilation, batched BP in plain
+torch, and the min-sum message updates, the OSD eliminations and the whole
+decode of a group-circulant code as hand-written CUDA kernels (``csrc/``,
+built with nvcc at first use on a CUDA device).  Decoders run on the
+current CUDA card unless built with ``device="cpu"``.
 """
 
 from .codes import (
@@ -26,18 +28,23 @@ from .codes import (
     spacetime_pcm,
     spacetime_prior,
 )
+from .config import DecoderConfig
 from .models import (
     BeliefPropagationDecoder,
     BeliefPropagationOSDDecoder,
     DecodeStats,
     Decoder,
+    DetectorGraphDecoder,
+    EnsembleDecoder,
     MinSumDecode,
     MinSumDecoder,
     QCMinSumDecoder,
     SpaceTimeDecoder,
+    StagedDemDecoder,
     batchdecode,
     decode,
     decode_soft,
+    load_dem,
 )
 
 __all__ = [
@@ -65,6 +72,11 @@ __all__ = [
     "MinSumDecode",
     "QCMinSumDecoder",
     "SpaceTimeDecoder",
+    "DetectorGraphDecoder",
+    "load_dem",
+    "EnsembleDecoder",
+    "StagedDemDecoder",
+    "DecoderConfig",
 ]
 
 __version__ = "0.1.0"

@@ -24,8 +24,9 @@
 // sign parity) and the first 64 sign bits in registers; a second loop
 // writes the dc outputs (slots past 64 read their sign again).  Variable
 // update: one loop sums the dv masked (optionally weighted) messages in
-// slot order, a second loop reads them again (from cache) for the
-// leave-one-out differences.
+// the reference's order (slot order up to 32 slots, by windows of 32 past
+// that: ops/minsum.py slot_sum), a second loop reads them again (from
+// cache) for the leave-one-out differences.
 //
 // What bounds them on the H100: bytes.  Each kernel reads and writes the
 // [B, E] message array once (36.9 MB each way at B=1024, float32) and does
@@ -130,8 +131,23 @@ __global__ void minsum_var_kernel(const T* __restrict__ mu, const int32_t* __res
     return v;
   };
 
-  float acc = 0.f;
-  for (int k = 0; k < dv; ++k) acc = __fadd_rn(acc, slot(k));
+  // windows of 32 slots, the padding to a multiple of 32 split before and
+  // after; each window summed from 0 into `part`, which is added to `acc` at
+  // the window's last slot (at most 32 windows: the launcher refuses
+  // dv > 1024).  dv <= 32 is one window, the plain sum.  One loop with the
+  // window edge as a counter: a loop per window ran K4 6-11% slower
+  // (tools/minsum_kernel_compare.py)
+  float acc = 0.f, part = 0.f;
+  const int low = (((dv + 31) / 32) * 32 - dv) / 2;
+  for (int k = 0, edge = 32 - low; k < dv; ++k) {
+    part = __fadd_rn(part, slot(k));
+    if (k + 1 == edge) {
+      acc = __fadd_rn(acc, part);
+      part = 0.f;
+      edge += 32;
+    }
+  }
+  acc = __fadd_rn(acc, part);
   const float tot = round_to<T>(__fadd_rn(load_f(L0, t), round_to<T>(acc)));
   store_f(total, t, tot);
   if (nu) {
@@ -171,6 +187,7 @@ int ldpc_minsum_check(const void* x, const void* idx, const void* syn, const voi
 int ldpc_minsum_var(const void* mu, const void* v2c, const void* mask, const void* L0,
                     const void* W, void* nu, void* total, int B, int n, int dv,
                     long long mu_stride, int is_bf16, void* stream) {
+  if (dv > 1024) return cudaErrorInvalidValue;
   const long long threads = (long long)B * n;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {

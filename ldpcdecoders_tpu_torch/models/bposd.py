@@ -14,15 +14,21 @@ Counterpart of ``ldpcdecoders_tpu/models/bposd.py``:
     scattered back;
   * OSD-w (w > 0) runs on every lane, or with ``osd_scope="failed"`` on
     the failing lanes only: the Gauss–Jordan kernel
-    (``gf2_eliminate_cuda``) reduces each system and the 2^w sweep
-    (ops/gf2.py ``osdw_sweep``) picks the lightest completion.
+    (``gf2_eliminate_cuda``) reduces each system and a sweep over its
+    completions picks the lightest: the exhaustive 2^w sweep (ops/gf2.py
+    ``osdw_sweep``) or, with ``osd_method="combination_sweep"``, OSD-CS
+    (``osd_cs_sweep``: every single flip and the pairs within the first
+    ``osd_order`` columns);
+  * the native host OSD (native/gf2_osd.cpp) takes the OSD where
+    ``osd_impl="host"``.  A device OSD whose lane does not fit one block
+    of the elimination kernels raises at construction: the caller chooses
+    the host OSD for such a code.
 
 ``converged`` reports BP convergence; the returned error estimate is
 always syndrome-consistent for OSD-0, and for OSD-w whenever H's rows span
 the syndrome.
 
-Not carried over yet: ``fused``, ``osd_method="combination_sweep"`` and
-``osd_impl="host"``; they raise ``NotImplementedError``.
+Not carried over yet: ``fused=True`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,8 +38,8 @@ import warnings
 import numpy as np
 import torch
 
-from ..ops.cuda_gf2 import gf2_eliminate_cuda, gf2_osd0_cuda
-from ..ops.gf2 import osdw_sweep, wrap_int32
+from ..ops.cuda_gf2 import gf2_eliminate_cuda, gf2_osd0_cuda, launch_plan
+from ..ops.gf2 import osd_cs_sweep, osdw_sweep, wrap_int32
 from .base import Decoder, resolve_device
 from .bp import BPDecode, as_graph
 from .minsum import MinSumDecode, MinSumDecoder
@@ -108,10 +114,11 @@ class OSD(torch.nn.Module):
     ``[B, n]`` int32 0/1 corrected error.
     """
 
-    def __init__(self, graph, osd_order: int, *, device):
+    def __init__(self, graph, osd_order: int, *, device, osd_method: str = "exhaustive"):
         super().__init__()
         H = graph.require_H()
         self.m, self.n, self.osd_order = graph.m, graph.n, int(osd_order)
+        self.sweep = osd_cs_sweep if osd_method == "combination_sweep" else osdw_sweep
         self.W = (self.n + 31) // 32
         # H's columns as rows, with a zero row at index n that padded
         # permutation slots gather
@@ -165,14 +172,14 @@ class OSD(torch.nn.Module):
         s = syndromes.to(torch.int32).contiguous()
         Ht2, s2, piv = gf2_eliminate_cuda(Ht, s, self.n)
         r = (piv != self.n).sum(dim=1)
-        corr = osdw_sweep(Ht2, s2, piv, r, bp_sorted, self.osd_order, self.n)
+        corr = self.sweep(Ht2, s2, piv, r, bp_sorted, self.osd_order, self.n)
         return self.unsort(perm, corr)
 
 
-def make_osd_fns(graph, osd_order: int, *, device):
+def make_osd_fns(graph, osd_order: int, *, device, osd_method: str = "exhaustive"):
     """``(osd0_batch, osdw_batch)`` for ``graph`` (counterpart of the
     reference's ``make_osd_fns``)."""
-    osd = OSD(graph, osd_order, device=device)
+    osd = OSD(graph, osd_order, device=device, osd_method=osd_method)
     return osd.osd0_batch, osd.osdw_batch
 
 
@@ -183,13 +190,26 @@ class BeliefPropagationOSDDecoder(Decoder):
       H: ``[m, n]`` parity-check matrix, or a compiled TannerGraph.
       per: physical error rate.
       max_iters: maximum BP iterations.
-      osd_order: OSD order w (default 0); the sweep scales as 2^w.
-      osd_method: only ``"exhaustive"`` (the reference's 2^w sweep).
+      osd_order: OSD order w (default 0); the exhaustive sweep scales as
+        2^w, OSD-CS as ``1 + (n-r) + w*(w-1)/2`` candidates.
+      osd_method: ``"exhaustive"`` (the reference's 2^w sweep) or
+        ``"combination_sweep"`` (OSD-CS: the base completion, every single
+        non-pivot flip and every pair within the first ``osd_order``
+        most-reliable non-pivot columns; no rank clamp applies).
       osd_scope: ``"all"`` (default): with osd_order > 0 the sweep runs on
         every lane, and may return a lower-weight solution even where the
         inner decoder converged.  ``"failed"``: OSD-w goes through the same
         failing-lane compaction as OSD-0 and converged lanes keep the
         inner decoder's output.
+      osd_impl: ``"device"`` (default: the elimination kernels on the
+        card, the plain versions on the CPU) or ``"host"`` (the threaded
+        C++ eliminator of native/, for OSD-0 or OSD-CS).  A device OSD
+        whose lane does not fit one block of the elimination kernels
+        raises ``NotImplementedError`` (ROADMAP.md queue 2): pass
+        ``osd_impl="host"`` for such a code.
+      osd_triples: with ``osd_impl="host"`` and OSD-CS, the triple-sweep
+        depth (order-3 combinations; 0 disables).
+      fused: not ported (raises ``NotImplementedError``).
       inner: the soft-output decoder whose LLRs rank the OSD column
         reliabilities: ``"sumproduct"`` (default), ``"minsum"``, or a
         constructed :class:`MinSumDecoder` on the same code and device.
@@ -212,6 +232,7 @@ class BeliefPropagationOSDDecoder(Decoder):
         fused: bool = False,
         inner=None,
         damping: float = 0.0,
+        osd_triples: int = 0,
         device=None,
     ):
         super().__init__()
@@ -222,15 +243,10 @@ class BeliefPropagationOSDDecoder(Decoder):
                 f"osd_method must be 'exhaustive' or 'combination_sweep', got {osd_method!r}")
         if osd_impl not in ("device", "host"):
             raise ValueError("osd_impl must be 'device' or 'host'")
-        unported = {
-            "fused=True": fused,
-            "osd_method='combination_sweep'": osd_method != "exhaustive",
-            "osd_impl='host'": osd_impl != "device",
-        }
-        missing = [k for k, v in unported.items() if v]
-        if missing:
+        if fused:
             raise NotImplementedError(
-                f"{', '.join(missing)}: not ported to ldpcdecoders_tpu_torch yet")
+                "fused=True: not ported to ldpcdecoders_tpu_torch yet (it waits for the "
+                "fused min-sum iteration; ROADMAP.md)")
         if osd_order < 0:
             raise ValueError("osd_order must be >= 0")
         self.device = resolve_device(device)
@@ -239,7 +255,11 @@ class BeliefPropagationOSDDecoder(Decoder):
         self.per = float(per)
         self.max_iters = int(max_iters)
         H_dense = self.graph.require_H()  # OSD always needs dense rows
-        if osd_order > 0:
+        if osd_order > 0 and osd_method == "combination_sweep":
+            # pair indices past the information set are masked inside the
+            # sweep, so lam needs no rank clamp, only a bound on n
+            osd_order = min(osd_order, self.n)
+        elif osd_order > 0:
             max_order = self.n - _gf2_rank(H_dense)
             if osd_order > max_order:
                 # the reference warns and clamps (information-set size)
@@ -249,25 +269,94 @@ class BeliefPropagationOSDDecoder(Decoder):
                 osd_order = int(max_order)
         self.osd_order = int(osd_order)
         self.osd_scope = osd_scope
+        self.osd_method = osd_method
+        self.osd_impl = osd_impl
         self.damping = float(damping)
+        if osd_triples and not (osd_impl == "host" and osd_method == "combination_sweep"):
+            raise ValueError(
+                "osd_triples (order-3 combination sweep) is a host "
+                "combination_sweep extension: set osd_impl='host', "
+                "osd_method='combination_sweep'")
+        self.osd_triples = int(osd_triples)
+        if osd_impl == "device":
+            # OSD-0 runs the OSD-0 kernel, OSD-w the elimination kernel; a
+            # lane must fit one block of it (the same rule on the CPU)
+            W = (self.n + 31) // 32
+            if launch_plan(W, self.m, osd0=self.osd_order == 0).panel == 0:
+                raise NotImplementedError(
+                    f"one lane of the [{self.m}, {self.n}] code does not fit a block of "
+                    "the elimination kernels (ROADMAP.md queue 2); pass osd_impl='host' "
+                    "for the native host OSD (OSD-0, or OSD-CS with "
+                    "osd_method='combination_sweep')")
+        self._Hcols = None
+        if osd_impl == "host":
+            from ..native import gf2_pack_cols, native_available
+
+            if self.osd_order != 0 and osd_method != "combination_sweep":
+                raise ValueError(
+                    "osd_impl='host' supports osd_order=0 (exhaustive) or "
+                    "any order with osd_method='combination_sweep'")
+            if not native_available():
+                raise RuntimeError(
+                    "the host OSD needs the native library (g++); "
+                    "build failed or unavailable on this system")
+            self._Hcols = gf2_pack_cols(H_dense)
         self.bp = _make_inner(self.graph, self.per, self.max_iters, inner, self.damping,
                               self.device)
-        self.osd = OSD(self.graph, self.osd_order, device=self.device)
+        # the device OSD's tables: the host route packs its own columns
+        self.osd = (None if osd_impl == "host" else
+                    OSD(self.graph, self.osd_order, device=self.device, osd_method=osd_method))
+
+    def _host_osd0(self, syn_np, bp_np, logp_np):
+        """Native OSD on a compacted lane subset (original-order I/O):
+        OSD-0 column reduction, or the OSD-CS combination sweep when
+        ``osd_method='combination_sweep'`` with ``osd_order`` as the pair
+        depth.  The per-lane column order is sort_and_pack's: float32
+        reliability max(p, 1-p), stable descending argsort."""
+        from ..native import gf2_osd0_host, gf2_osd_cs_host
+
+        with np.errstate(over="ignore"):
+            # large LLRs overflow exp to inf exactly as the device path's
+            # float32 exp does; inf reliabilities tie and break by index
+            probs = np.exp(logp_np.astype(np.float32))
+            rel = np.maximum(probs, 1.0 - probs)
+        order = np.argsort(-rel, axis=1, kind="stable").astype(np.int32)
+        if self.osd_method == "combination_sweep":
+            out, _ = gf2_osd_cs_host(self._Hcols, self.m, self.osd_order, order,
+                                     bp_np.astype(np.uint8), syn_np.astype(np.uint8),
+                                     lam3=self.osd_triples)
+        else:
+            out, _ = gf2_osd0_host(self._Hcols, self.m, order, bp_np.astype(np.uint8),
+                                   syn_np.astype(np.uint8))
+        return out.astype(np.int8)
 
     def _decode_batch(self, syndromes, seed: int = 0, per=None):
         prior = None if per is None else self.bp.as_prior(per)
         bp_err, converged, iters, logp = self.bp(syndromes, prior)
         aux = {"log_probabs": logp}
-        if self.osd_order > 0 and self.osd_scope == "all":
+        host = self.osd_impl == "host"
+        if self.osd_order > 0 and self.osd_scope == "all" and not host:
             corr = self.osd.osdw_batch(syndromes, bp_err, logp)
             return corr.to(torch.int8), converged, iters, aux
 
         # OSD-0 (and OSD-w under osd_scope="failed"): only lanes whose inner
         # output misses the syndrome need work; the converged flag is
         # exactly that test
-        need = np.flatnonzero(~converged.cpu().numpy())
+        if host and self.osd_order > 0 and self.osd_scope == "all":
+            need = np.arange(syndromes.shape[0])
+        else:
+            need = np.flatnonzero(~converged.cpu().numpy())
         if need.size == 0:
             return bp_err, converged, iters, aux
+        if host:
+            # OSD-0 leaves a lane with nothing to correct as it is, so the
+            # converged lanes need no host round trip
+            idx = torch.as_tensor(need, device=self.device)
+            corr = self._host_osd0(syndromes[idx].cpu().numpy(), bp_err[idx].cpu().numpy(),
+                                   logp[idx].float().cpu().numpy())
+            out = bp_err.clone()
+            out[idx] = torch.as_tensor(corr, device=self.device)
+            return out, converged, iters, aux
         # pad to a power-of-two bucket (repeats of the first failing lane)
         # so the OSD sees few distinct batch sizes
         bucket = next_pow2(need.size)

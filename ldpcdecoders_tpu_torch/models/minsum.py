@@ -12,8 +12,9 @@ ops/cuda_minsum.py on a card (their plain versions on the CPU), each doing
 its own cross-layout gather; damping, the check-layout reconstruction, the
 output freeze, the syndrome check and ``track_best`` are plain torch around
 them.  The reference's ``while_loop`` becomes a Python loop that stops once
-every lane has converged; reading that flag costs one host
-synchronization per iteration on a card.
+every lane has converged.  Convergence can change only where the syndrome
+check ran, so the host reads that flag (one synchronization on a card) on
+those iterations alone: every ``check_every``-th and the last.
 """
 
 from __future__ import annotations
@@ -195,7 +196,7 @@ class MinSumDecode(torch.nn.Module):
             bllr = L0.to(torch.float32)
 
         it = 0
-        while it < self.max_iters and not bool(done.all()):
+        while it < self.max_iters and B:
             alpha, beta = ((self.alpha[it], self.beta[it]) if self.per_iter_ab
                            else (self.alpha, self.beta))
             if check_layout:
@@ -217,7 +218,8 @@ class MinSumDecode(torch.nn.Module):
             # state of done lanes no longer reaches any output
             err = torch.where(active[:, None], errn, err)
             llrs = torch.where(active[:, None], total, llrs)
-            if (it + 1) % self.check_every == 0 or it + 1 >= self.max_iters:
+            checked = (it + 1) % self.check_every == 0 or it + 1 >= self.max_iters
+            if checked:
                 mis = (self.syndrome_from(err) != syn_f).sum(dim=-1).to(torch.int32)
             else:
                 mis = torch.full((B,), _BIG_MISMATCH, dtype=torch.int32, device=device)
@@ -231,6 +233,9 @@ class MinSumDecode(torch.nn.Module):
                 berr = torch.where(better[:, None], err, berr)
                 bllr = torch.where(better[:, None], llrs.to(torch.float32), bllr)
             it += 1
+            # ``done`` changes only where the check ran: read it there alone
+            if checked and bool(done.all()):
+                break
         iters = torch.where(done, iters, it).to(torch.int32)
         if self.track_best:
             # converged lanes froze at mismatch 0 (their best); the rest
@@ -282,6 +287,12 @@ class MinSumDecoder(Decoder):
         self.m, self.n = self.graph.m, self.graph.n
         self.per = per if np.ndim(per) else float(per)
         self.max_iters = int(max_iters)
+        self.alpha = alpha if np.ndim(alpha) else float(alpha)
+        self.beta = beta if np.ndim(beta) else float(beta)
+        self.dtype = dtype
+        self.damping = float(damping)
+        self.check_every = int(check_every)
+        self.layout = str(layout)
         self.minsum = MinSumDecode(
             self.graph, self.per, self.max_iters, device=self.device, alpha=alpha, beta=beta,
             dtype=dtype, damping=damping, check_every=check_every, layout=layout)

@@ -24,39 +24,20 @@ import torch
 from ..codes.qc import qc_group_lift_edges
 from ..codes.spacetime import detectors_of, spacetime_pcm, spacetime_prior
 from .base import Decoder, DecodeStats, resolve_device
-from .bp import BeliefPropagationDecoder
-from .bposd import BeliefPropagationOSDDecoder
-from .minsum import MinSumDecoder
 from .qc_minsum import QCMinSumDecoder, bicycle_blocks
 
 __all__ = ["SpaceTimeDecoder"]
 
-# knobs each generic inner kind takes (the reference's DecoderConfig fields)
-_INNER_KNOBS = {
-    "bp": (),
-    "bposd": ("osd_order", "fused", "osd_scope", "osd_method", "osd_impl", "inner", "damping"),
-    "minsum": ("damping", "alpha", "beta"),
-}
-
-
 def _build_inner(kind, H, per, max_iters, device, knobs):
-    if kind not in _INNER_KNOBS:
-        raise NotImplementedError(
-            f"inner decoder kind '{kind}' is not ported to ldpcdecoders_tpu_torch yet "
-            "(ROADMAP.md queue 1: config.py and the remaining decoder families); "
-            f"use one of {sorted(_INNER_KNOBS)}")
-    known = {k for ks in _INNER_KNOBS.values() for k in ks}
-    unknown = sorted(set(knobs) - known)
+    """The inner decoder, built through :class:`~..config.DecoderConfig`
+    (which raises ``NotImplementedError`` for a kind not ported yet)."""
+    from ..config import _INNER_KNOBS, DecoderConfig
+
+    unknown = sorted(set(knobs) - set(_INNER_KNOBS))
     if unknown:
         raise TypeError(f"unknown decoder knobs {unknown}")
-    kw = {k: knobs[k] for k in _INNER_KNOBS[kind] if k in knobs}
-    if kind == "bp":
-        return BeliefPropagationDecoder(H, per, max_iters, device=device)
-    if kind == "bposd":
-        return BeliefPropagationOSDDecoder(H, per, max_iters, device=device, **kw)
-    if kw.get("alpha") is None:
-        kw["alpha"] = 1.0
-    return MinSumDecoder(H, per, max_iters, device=device, **kw)
+    return DecoderConfig(kind=kind, per=per, max_iters=max_iters, **knobs).build(
+        H, device=device)
 
 
 class SpaceTimeDecoder(Decoder):
@@ -73,8 +54,8 @@ class SpaceTimeDecoder(Decoder):
       meas_error_rate: readout-flip probability per syndrome bit and
         round (scalar or ``[m]``); defaults to ``per``, the usual
         ``p == q`` phenomenological convention.
-      decoder: inner decoder kind: "bp", "bposd" (default, for
-        syndrome-consistent output) or "minsum".
+      decoder: inner decoder kind, a ported ``DecoderConfig`` kind: "bp",
+        "bposd" (default, for syndrome-consistent output), "minsum", ...
       perfect_last: see above; ``False`` leaves the final round noisy
         (open boundary for sliding-window use).
       device: where decoding runs; None is the current CUDA card.

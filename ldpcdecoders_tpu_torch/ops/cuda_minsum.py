@@ -118,6 +118,8 @@ def minsum_var_cuda(mu_flat, v2c, var_mask, L0, W=None, want_nu=True):
     if on_cpu:
         return var_update_ref(mu_flat, v2c, var_mask, L0, W, want_nu)
     B, dtype, device = mu_flat.shape[0], mu_flat.dtype, mu_flat.device
+    if dv > 1024:  # the kernel sums at most 32 windows of 32 slots
+        raise ValueError(f"minsum_var_cuda takes at most 1024 slots a variable, got {dv}")
     if L0.shape != (B, n) or not L0.is_contiguous():
         L0 = torch.broadcast_to(L0, (B, n)).contiguous()
     _check("mu_flat", mu_flat, mu_flat.shape, dtype, device)

@@ -15,7 +15,10 @@ These loops are the plain versions of the CUDA kernels in
 ``ops/cuda_gf2.py`` (which the decoders call); they run every column trip
 as a few batched tensor operations.  ``gf2_osd0_blocked`` and
 ``gf2_eliminate_blocked`` compute the same results by panels of columns,
-row codes and an XOR table, the way the kernels do.
+row codes and an XOR table, the way the kernels do.  ``osdw_sweep`` and
+``osd_cs_sweep`` search the completions of an eliminated system (the
+reference computes them in jnp, not Pallas; the decoders run them in
+torch on the card, on the elimination kernel's output).
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ __all__ = [
     "gf2_osd0_blocked",
     "gf2_eliminate_blocked",
     "osdw_sweep",
+    "osd_cs_sweep",
+    "gf2_osd_cs",
 ]
 
 
@@ -359,3 +364,96 @@ def osdw_sweep(Ht, s, pivcol, r, bp_err, osd_order: int, n: int):
     bits_s = bits_s[:, 0, :]
     err = err0.scatter(1, mr_cols, bits_s)  # pivot writes below override
     return scatter_pivots(err, pivcol, base_vals ^ flip_s, n)
+
+
+def osd_cs_sweep(Ht, s, pivcol, r, bp_err, lam: int, n: int):
+    """Combination-sweep OSD ("OSD-CS") over RREF systems (batched).
+
+    Semantics of the reference package's ``osd_cs_sweep``: the candidates
+    are the base completion (BP's decisions on every non-pivot column),
+    every single flip of a non-pivot column, and every pair flip within the
+    first ``lam`` most-reliable non-pivot columns (Roffe et al. 2020).
+    Flipping non-pivot column c changes the pivot completion by the RREF
+    column C_c, so a single flip's weight change is ``(1 - 2 err[c]) +
+    t_c`` with ``t_c = sum_i v_i C_c[i]`` (``v_i = +1`` where pivot row i's
+    base assignment is 0, -1 where it is 1), and a pair's is the two
+    singles' minus twice their ``v``-weighted overlap.  Ties: the base wins
+    over singles, singles (most reliable first) over pairs, pairs in
+    lexicographic (i, j) order; flips past the information set are masked.
+
+    Args:
+      Ht, s, pivcol, r: outputs of :func:`gf2_eliminate`.
+      bp_err: ``[B, n]`` 0/1 BP hard decisions (sorted order).
+      lam: pair-sweep depth.
+      n: column count.
+
+    Returns the ``[B, n]`` int32 0/1 solution in sorted column order.
+    """
+    B, W, m = Ht.shape
+    device = Ht.device
+    lam = int(min(lam, n))
+    is_piv = scatter_pivots(torch.zeros((B, n), dtype=torch.int32, device=device),
+                            pivcol, torch.ones_like(pivcol), n).bool()
+    mr_order = torch.argsort(is_piv.to(torch.int8), dim=1, stable=True)  # non-pivots first
+    n_mr = (n - r.to(torch.int64))[:, None]  # [B, 1]
+    err0 = bp_err.to(torch.int32)
+    err_mr0 = pack_bits(err0) & pack_bits(~is_piv)  # [B, W]
+    folded = torch.zeros((B, m), dtype=torch.int32, device=device)
+    for w in range(W):
+        folded = folded ^ (Ht[:, w, :] & err_mr0[:, w, None])
+    base_vals = s.to(torch.int32) ^ parity32(folded)  # [B, m] pivot assignments
+    v = (1 - 2 * base_vals) * (pivcol < n).to(torch.int32)  # [B, m]
+
+    # t_c for every column, one packed word of 32 columns at a time
+    shifts = torch.arange(32, dtype=torch.int32, device=device)
+    t = torch.cat([(v[:, :, None] * ((Ht[:, w, :, None] >> shifts) & 1)).sum(dim=1)
+                   for w in range(W)], dim=1)[:, :n]  # [B, n]
+    big = 1 << 30
+    delta1_nat = (1 - 2 * err0) + t.to(torch.int32)  # [B, n] sorted-column order
+    delta1 = delta1_nat.gather(1, mr_order)  # enumeration order
+    j_idx = torch.arange(n, device=device)
+    delta1 = torch.where(j_idx[None, :] < n_mr, delta1, big)
+    best1, j1 = _first_min(delta1)
+
+    if lam >= 2:
+        mr_lam = mr_order[:, :lam]  # [B, lam]
+        words = Ht.gather(1, (mr_lam >> 5)[:, :, None].expand(B, lam, m))  # [B, lam, m]
+        Cf = ((words >> (mr_lam & 31).to(torch.int32)[:, :, None]) & 1).to(torch.float32)
+        # overlap(i, j) = sum_k v_k C_i[k] C_j[k]: exact in float32, |sums| <= m
+        G = ((Cf * v[:, None, :].to(torch.float32)) @ Cf.transpose(1, 2)).to(torch.int32)
+        d1l = delta1_nat.gather(1, mr_lam)  # [B, lam]
+        pair = d1l[:, :, None] + d1l[:, None, :] - 2 * G  # [B, lam, lam]
+        li = torch.arange(lam, device=device)
+        valid = (li[:, None] < li[None, :])[None] & (li[None, None, :] < n_mr[:, :, None])
+        pair = torch.where(valid, pair, big)
+        best2, flat = _first_min(pair.reshape(B, lam * lam))  # row-major: lexicographic
+        p_i, p_j = flat // lam, flat % lam
+    else:
+        best2 = torch.full((B,), big, dtype=torch.int32, device=device)
+        p_i = p_j = torch.zeros((B,), dtype=torch.int64, device=device)
+
+    # precedence: base (delta 0), then singles, then pairs; strict wins
+    use1 = best1 < 0
+    use2 = (best2 < 0) & (best2 < best1)
+    col = lambda idx: mr_order.gather(1, idx[:, None])[:, 0]  # noqa: E731
+    c1 = torch.where(use2, col(p_i), torch.where(use1, col(j1), n))
+    c2 = torch.where(use2, col(p_j), n)
+
+    def bits_of(c):
+        cc = c.clamp(max=n - 1)
+        word = Ht.gather(1, (cc >> 5)[:, None, None].expand(B, 1, m))[:, 0, :]
+        return torch.where((c < n)[:, None], (word >> (cc & 31).to(torch.int32)[:, None]) & 1, 0)
+
+    flip = bits_of(c1) ^ bits_of(c2)  # [B, m] pivot-assignment flips
+    err = torch.cat([err0, torch.zeros((B, 1), dtype=torch.int32, device=device)], dim=1)
+    for c in (c1, c2):  # the sentinel n lands in the dropped column
+        err = err.scatter(1, c[:, None], 1 - err0.gather(1, c.clamp(max=n - 1)[:, None]))
+    return scatter_pivots(err[:, :n], pivcol, base_vals ^ flip, n)
+
+
+def gf2_osd_cs(Ht, bp_err, s, lam: int, n: int):
+    """OSD-CS: Gauss–Jordan RREF + combination sweep (batched plain form of
+    the reference's ``gf2_osd_cs``); ``Ht [B, W, m]`` int32, ``s [B, m]``.
+    The decoders run the same sweep on the elimination kernel's output."""
+    Ht2, s2, piv, r = gf2_eliminate(Ht, s, n)
+    return osd_cs_sweep(Ht2, s2, piv, r, bp_err, lam, n)

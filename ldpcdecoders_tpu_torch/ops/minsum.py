@@ -12,10 +12,12 @@ bit:
     the two-minimum sweep with first-minimum ties); signs combine by XOR
     parity with the syndrome; ``alpha * excl`` and ``- beta`` round
     separately (no fused multiply-add);
-  * variable update: masked messages (optionally weighted) are summed
-    slot by slot in float32 starting from 0, the sum is rounded to the
-    message dtype once, then ``total = L0 + sum`` and ``nu = total - msg``
-    each round to the message dtype.  The sum takes the float32 products
+  * variable update: masked messages (optionally weighted) are summed in
+    float32 starting from 0 in the reference's order (:func:`slot_sum`:
+    slot by slot up to 32 slots; past that by windows of 32 slots, as XLA
+    on the CPU reduces them), the sum is rounded to the message dtype
+    once, then ``total = L0 + sum`` and ``nu = total - msg`` each round to
+    the message dtype.  The sum takes the float32 products
     ``msg * W`` (exact for bfloat16 factors), as the reference's compiled
     program does; ``nu`` subtracts the product rounded to the message
     dtype.
@@ -35,10 +37,34 @@ __all__ = [
     "var_core_ref",
     "check_update_ref",
     "var_update_ref",
+    "slot_sum",
 ]
 
 #: magnitude a padded check slot reads as (positive, so inert in the parity)
 BIG = 1e30
+#: slots summed one by one before the sum goes by windows
+SLOT_WINDOW = 32
+
+
+def slot_sum(prod: torch.Tensor) -> torch.Tensor:
+    """``prod [B, dv, n]`` float32 summed over the slot axis in the order of
+    the reference's ``jnp.sum`` (XLA on the CPU, op by op).  Up to
+    :data:`SLOT_WINDOW` slots: one by one from 0.  Past that: padded to a
+    multiple of 32 slots, half of the padding (rounded down) before slot 0
+    and the rest after the last, each window of 32 summed one by one from
+    0, then the window sums summed the same way (recursively)."""
+    dv = prod.shape[1]
+    if dv <= SLOT_WINDOW:
+        acc = torch.zeros((prod.shape[0], prod.shape[2]), dtype=prod.dtype,
+                          device=prod.device)
+        for k in range(dv):
+            acc = acc + prod[:, k]
+        return acc
+    p = -(-dv // SLOT_WINDOW)
+    low = (p * SLOT_WINDOW - dv) // 2
+    parts = [slot_sum(prod[:, max(0, w * SLOT_WINDOW - low):(w + 1) * SLOT_WINDOW - low])
+             for w in range(p)]
+    return slot_sum(torch.stack(parts, dim=1))
 
 
 def check_core_ref(Ng, syn_flip, chk_mask, alpha, beta):
@@ -79,10 +105,7 @@ def var_core_ref(Mg, var_mask, L0, W=None, want_nu=True):
     if W is not None:
         prod = prod * W.to(dtype).to(torch.float32)
         Mg = prod.to(dtype)
-    acc = torch.zeros((Mg.shape[0], Mg.shape[2]), dtype=torch.float32, device=Mg.device)
-    for k in range(Mg.shape[1]):  # slot order, so every backend adds alike
-        acc = acc + prod[:, k]
-    total = L0 + acc.to(dtype)
+    total = L0 + slot_sum(prod).to(dtype)
     nu = total[:, None, :] - Mg if want_nu else None
     return nu, total
 

@@ -1,0 +1,77 @@
+"""Device-memory budgets for batch and bucket sizing.
+
+Counterpart of ``ldpcdecoders_tpu/utils/hbm.py``.  The staged decoder
+(models/staged.py) derives its stage-0 batch and straggler-bucket ceilings
+from the card's memory instead of fixed constants:
+
+  * :func:`device_hbm_bytes`: the card's memory, from
+    ``torch.cuda.mem_get_info``; half of host RAM for the CPU.
+    ``hbm_bytes=`` forces the answer.
+  * :func:`minsum_bytes_per_lane`: the peak-memory model of one batch lane
+    of a min-sum decode: the variable-side messages ``[max_dv, n]`` and the
+    check-side ``[max_dc, m]`` in the message dtype, times a headroom
+    factor for what else is alive (the other side's copy, temporaries),
+    measured on the card (4.0; the reference's is 1.25).
+  * :func:`max_lanes_for`: the largest power-of-two lane count a budget
+    fraction admits.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+__all__ = [
+    "device_hbm_bytes",
+    "minsum_bytes_per_lane",
+    "max_lanes_for",
+]
+
+#: live memory of a min-sum decode over the model's two message arrays.
+#: The reference's 1.25 (its compiler fuses the damping mix and the
+#: check-layout rebuild) underestimates the port's eager decode: on an
+#: NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md) the bb144 R=6
+#: DEM peaked at 2.66x the message bytes for a float32 stage-0 batch of
+#: 2048 lanes and 3.86x for a bfloat16 deep bucket of 6 x 256 lanes (check
+#: layout: the state, the messages, the rebuilt totals, the damping
+#: products and the per-variable gammas expanded to the check slots)
+_HEADROOM = 4.0
+
+
+def device_hbm_bytes(device=None, *, hbm_bytes: int | None = None) -> int:
+    """Memory in bytes of ``device`` (None: the current CUDA card).
+    ``hbm_bytes`` forces the answer."""
+    if hbm_bytes is not None:
+        return int(hbm_bytes)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        _, total = torch.cuda.mem_get_info(device)
+        return int(total)
+    # half of host RAM: the CPU's memory is shared with everything else
+    return int(0.5 * os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE"))
+
+
+def minsum_bytes_per_lane(graph, dtype_bytes: int = 4) -> float:
+    """Peak-memory estimate of ONE batch lane of a min-sum decode over
+    ``graph`` (see the module docstring)."""
+    return _HEADROOM * dtype_bytes * (graph.max_dv * graph.n + graph.max_dc * graph.m)
+
+
+def max_lanes_for(graph, *, dtype_bytes: int = 4, fraction: float = 0.85,
+                  device=None, hbm_bytes: int | None = None,
+                  lo: int = 32, hi: int = 16384) -> int:
+    """Largest power-of-two lane count whose modeled peak fits within
+    ``fraction`` of the device budget, clamped to ``[lo, hi]``.
+
+    ``fraction`` < 1 leaves room for the decode's other residents.
+    Returns at least ``lo`` even when the model says otherwise (a too-small
+    cap deadlocks batching; a too-big ``lo`` runs out of memory loudly).
+    """
+    budget = device_hbm_bytes(device, hbm_bytes=hbm_bytes) * float(fraction)
+    per = minsum_bytes_per_lane(graph, dtype_bytes)
+    lanes = int(budget / per) if per > 0 else hi
+    p = lo
+    while p * 2 <= min(lanes, hi):
+        p *= 2
+    return p

@@ -1,15 +1,35 @@
 """Decoding-quality metrics (counterpart of ``ldpcdecoders_tpu/utils/metrics.py``).
 
-Only the GF(2) null-space basis is carried so far (``codes/bicycle.py``
-counts logical qubits with it); the rest of the reference module belongs
-to the evaluation harness.
+Carried so far: the GF(2) null-space basis (``codes/bicycle.py`` counts
+logical qubits with it) and the Wilson interval (``models/staged.py``
+``run_eval``); the rest of the reference module belongs to the evaluation
+harness.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
-__all__ = ["gf2_kernel_basis"]
+__all__ = ["gf2_kernel_basis", "wilson_interval"]
+
+
+def wilson_interval(failures: int, trials: int, z: float = 1.96) -> tuple[float, float]:
+    """Wilson score interval for a failure-rate estimate.
+
+    Example:
+      >>> lo, hi = wilson_interval(5, 100)
+      >>> bool(lo < 0.05 < hi)
+      True
+    """
+    if trials == 0:
+        return (0.0, 1.0)
+    p = failures / trials
+    denom = 1.0 + z * z / trials
+    center = (p + z * z / (2 * trials)) / denom
+    half = z * math.sqrt(p * (1 - p) / trials + z * z / (4 * trials * trials)) / denom
+    return (max(0.0, center - half), min(1.0, center + half))
 
 
 def gf2_kernel_basis(H) -> np.ndarray:

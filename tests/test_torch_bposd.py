@@ -330,9 +330,15 @@ def test_bposd_damped_minsum_inner_small_case():
 def test_bposd_options_and_validation():
     H = lt.parity_check_matrix(60, 6, 3, rng=19)
     make = lambda *a, **kw: pt.BeliefPropagationOSDDecoder(*a, device="cpu", **kw)  # noqa: E731
-    for kw in (dict(fused=True), dict(osd_method="combination_sweep"), dict(osd_impl="host")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            make(H, 0.1, 10, **kw)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        make(H, 0.1, 10, fused=True)
+    cs = make(H, 0.1, 10, osd_method="combination_sweep", osd_order=500)
+    assert cs.osd_order == H.shape[1] and cs.osd is not None  # no rank clamp
+    assert make(H, 0.1, 10, osd_impl="host").osd is None  # the host OSD packs its own
+    with pytest.raises(ValueError, match="osd_order=0"):
+        make(H, 0.1, 10, osd_impl="host", osd_order=2)
+    with pytest.raises(ValueError, match="osd_triples"):
+        make(H, 0.1, 10, osd_triples=3)
     with pytest.raises(ValueError, match="min-sum knob"):
         make(H, 0.1, 10, damping=0.3)
     with pytest.raises(TypeError, match="inner must be"):
@@ -396,3 +402,88 @@ def test_kernel_wrappers_refuse_other_devices_and_oversized_lanes():
     # circuit-level DEM (864 x 31,648) does not
     assert cuda_gf2.smem_bytes(32, 900, osd0=True) <= cuda_gf2.MAX_SMEM_BYTES
     assert cuda_gf2.smem_bytes((31648 + 31) // 32, 864, osd0=False) > cuda_gf2.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("lam", [0, 1, 2, 7, 80])
+def test_osd_cs_sweep_matches_reference(lam):
+    """OSD-CS over the same RREF systems: ``osd_cs_sweep`` and the whole
+    ``gf2_osd_cs`` bitwise against the reference's (``lam`` past the
+    information set is masked)."""
+    rng = np.random.default_rng(40 + lam)
+    B, m, n = 5, 40, 70
+    _, Hp, Ht = packed_systems(rng, B, m, n, 0.12)
+    s = (rng.random((B, m)) < 0.5).astype(np.uint32)
+    bp = (rng.random((B, n)) < 0.2).astype(np.uint32)
+    Ht2, s2, piv, r = jax.vmap(lambda ht, sv: ref_gf2.gf2_eliminate(ht, sv, n))(
+        Ht, jnp.asarray(s))
+    want = jax.vmap(lambda a, b, c, d, e: ref_gf2.osd_cs_sweep(a, b, c, d, e, lam, n))(
+        Ht2, s2, piv, r, jnp.asarray(bp))
+    got = port_gf2.osd_cs_sweep(i32(Ht2), i32(s2), torch.as_tensor(np.array(piv)),
+                                torch.as_tensor(np.array(r)), i32(bp), lam, n)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    whole = jax.vmap(lambda h, b, sy: ref_gf2.gf2_osd_cs(h, b, sy, lam, n))(
+        Hp, jnp.asarray(bp), jnp.asarray(s))
+    assert np.array_equal(port_gf2.gf2_osd_cs(i32(Ht), i32(bp), i32(s), lam, n).numpy(),
+                          np.asarray(whole))
+
+
+CS_VARIANTS = {
+    "device": dict(osd_method="combination_sweep", osd_order=10),
+    "device_failed_scope": dict(osd_method="combination_sweep", osd_order=10,
+                                osd_scope="failed", inner="minsum"),
+    "host_osd0": dict(osd_impl="host"),
+    "host_osd0_failed_scope": dict(osd_impl="host", osd_scope="failed", inner="minsum"),
+    "host_cs": dict(osd_impl="host", osd_method="combination_sweep", osd_order=10),
+    "host_cs_triples": dict(osd_impl="host", osd_method="combination_sweep", osd_order=10,
+                            osd_triples=6, inner="minsum"),
+}
+
+
+@pytest.mark.parametrize("variant", list(CS_VARIANTS))
+def test_bposd_cs_and_host_match_reference(variant):
+    """BP+OSD-CS on the device and the host OSD (OSD-0, OSD-CS, with
+    triples), end to end with lanes that fail the inner decoder: bitwise
+    but for reliability ties (shown per lane)."""
+    n, wr, wc, seed = 240, 8, 4, 17
+    per, iters, B = 0.055, 20, 16
+    H = lt.parity_check_matrix(n, wr, wc, rng=seed)
+    rng = np.random.default_rng(seed + 1)
+    syns = (((rng.random((B, n)) < per) @ H.T) % 2).astype(np.uint8)
+    kw = CS_VARIANTS[variant]
+    ref = lt.BeliefPropagationOSDDecoder(H, per, iters, **kw)
+    port = pt.BeliefPropagationOSDDecoder(H, per, iters, device="cpu", **kw)
+    assert (port.osd is None) == variant.startswith("host")
+    g_ref, c_ref, i_ref, a_ref, _ = ref.batch_decode_detailed(syns)
+    g, c, i, a, _ = port.batch_decode_detailed(syns)
+    assert g.dtype == np.int8
+    assert np.array_equal(c, c_ref) and np.array_equal(i, i_ref)
+    assert c.any() and not c.all(), "the case needs lanes that fail and that converge"
+    ties = tie_lanes(np.asarray(a_ref["log_probabs"]), a["log_probabs"])
+    assert_lanes_equal(g_ref, g, H, syns, ties, f"BP+OSD {variant}")
+
+
+def test_lanes_past_shared_memory_take_the_host_osd():
+    """A lane too large for one block of the elimination kernels takes the
+    host OSD where the caller asks for it (OSD-0 and OSD-CS), equal to the
+    reference's ``osd_impl="host"``; the device OSD raises at construction
+    there (OSD-0, OSD-CS and the exhaustive OSD-w), on the CPU as on the
+    card."""
+    H = lt.parity_check_matrix(2000, 10, 5, rng=3)  # m=1000: W*m*4 > 232,448 B
+    W, m = (H.shape[1] + 31) // 32, H.shape[0]
+    assert cuda_gf2.launch_plan(W, m, osd0=True).panel == 0
+    assert cuda_gf2.launch_plan(W, m, osd0=False).panel == 0
+    for kw in (dict(), dict(osd_order=2), dict(osd_method="combination_sweep", osd_order=8)):
+        with pytest.raises(NotImplementedError, match="pass osd_impl='host'"):
+            pt.BeliefPropagationOSDDecoder(H, 0.03, 10, device="cpu", **kw)
+    rng = np.random.default_rng(4)
+    syns = (((rng.random((6, H.shape[1])) < 0.07) @ H.T) % 2).astype(np.uint8)
+    for kw in (dict(), dict(osd_method="combination_sweep", osd_order=8)):
+        port = pt.BeliefPropagationOSDDecoder(H, 0.03, 10, device="cpu", osd_impl="host", **kw)
+        ref = lt.BeliefPropagationOSDDecoder(H, 0.03, 10, osd_impl="host", **kw)
+        g_ref, c_ref = ref.batch_decode(syns)
+        g, c = port.batch_decode(syns)
+        assert np.array_equal(c, c_ref) and not c.all()
+        ties = tie_lanes(np.asarray(lt.BeliefPropagationDecoder(H, 0.03, 10).batch_decode_detailed(
+            syns)[3]["log_probabs"]), pt.BeliefPropagationDecoder(
+                H, 0.03, 10, device="cpu").batch_decode_detailed(syns)[3]["log_probabs"])
+        assert_lanes_equal(g_ref, g, H, syns, ties, f"routed host OSD {kw}")

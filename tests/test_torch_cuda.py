@@ -8,6 +8,8 @@ imports no JAX, so it also runs on a machine without it:
 (``--noconftest`` skips tests/conftest.py, which configures JAX.)
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from ldpcdecoders_tpu_torch.ops import minsum as plain_minsum
 from ldpcdecoders_tpu_torch.ops.qc_minsum import QCTerms, qc_minsum_ref
 
 pytestmark = pytest.mark.cuda
+REPO = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(scope="module")
@@ -557,3 +560,125 @@ def test_spacetime_for_bicycle_on_card_matches_cpu(dev):
     assert np.array_equal(got[3]["inner"]["llrs"].view(np.uint32),
                           want[3]["inner"]["llrs"].view(np.uint32))
     assert got[1].mean() > 0.9
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dv", [33, 40, 64, 65, 100])
+def test_minsum_var_kernel_sums_heavy_columns_as_the_plain_version(dev, dtype, dv):
+    """Past 32 slots a variable's messages are summed by windows of 32
+    (ops/minsum.py slot_sum, the reference's order): the kernel and the
+    plain version bitwise."""
+    rng = np.random.default_rng(dv)
+    m, n = dv + 3, 70
+    H = (rng.random((m, n)) < 0.1).astype(np.uint8)
+    H[:dv, 0] = 1  # variable 0 has degree dv
+    H[:, 0][dv:] = 0
+    H[rng.integers(m), H.sum(axis=0) == 0] = 1
+    g = pt.TannerGraph.from_pcm(H)
+    assert g.max_dv == dv
+    _, v2c, _, var_mask = (torch.as_tensor(a) for a in g.slot_major())
+    v2c = v2c.to(torch.int32)
+    # magnitudes over six decades: a reordered sum rounds differently
+    mu_flat = torch.as_tensor(rng.normal(size=(6, g.max_dc * m))
+                              * 10.0 ** rng.integers(-3, 4, (6, g.max_dc * m))).to(dtype)
+    L0 = torch.as_tensor(rng.normal(size=(6, n))).to(dtype)
+    want = cuda_minsum.minsum_var_cuda(mu_flat, v2c, var_mask, L0)
+    got = cuda_minsum.minsum_var_cuda(*(t.to(dev) for t in (mu_flat, v2c, var_mask, L0)))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(bits(a.cpu()), bits(b))
+
+
+def bb144_dem():
+    import scipy.sparse as sp
+
+    z = np.load(REPO / "benchmarks/results/bb144_r6_p0.003.npz")
+    A = sp.csr_matrix((z["data"], z["indices"], z["indptr"]), shape=tuple(z["shape"]))
+    return A, z["priors"], z["obs"]
+
+
+@pytest.mark.parametrize("layout", ["check", "var"])
+def test_minsum_kernels_at_the_bb144_dem_shape(dev, layout):
+    """K3/K4 on the 864 x 31,648 circuit-level graph (check degree up to
+    294, past the 64 signs K3 keeps in registers): bitwise against their
+    plain versions, float32 and bfloat16."""
+    A, pr, _ = bb144_dem()
+    g = pt.TannerGraph.from_pcm(np.asarray(A.todense()))
+    assert (g.max_dc, g.max_dv) == (294, 12)
+    rng = np.random.default_rng(1)
+    x = (rng.random((8, g.n)) < pr * 3).astype(np.float32)
+    syn = torch.as_tensor((x @ A.T.toarray()) % 2 == 1)
+    for dtype in (torch.float32, torch.bfloat16):
+        ms = pt.MinSumDecode(g, float(pr.mean()), 4, dtype=dtype, layout=layout, device="cpu")
+        L0 = torch.as_tensor(np.log((1 - pr) / pr)).to(dtype).expand(8, -1).contiguous()
+        if layout == "check":
+            x_in = L0.index_select(1, ms.chk_varidx).reshape(8, g.max_dc, g.m)
+            idx = None
+        else:
+            x_in = L0[:, None, :].expand(8, g.max_dv, g.n).reshape(8, -1).contiguous()
+            idx = ms.c2v
+        mu = cuda_minsum.minsum_check_cuda(x_in, idx, syn, ms.chk_mask, 1.0, 0.0)
+        got_mu = cuda_minsum.minsum_check_cuda(
+            x_in.to(dev), None if idx is None else idx.to(dev), syn.to(dev),
+            ms.chk_mask.to(dev), 1.0, 0.0)
+        assert torch.equal(bits(got_mu.cpu()), bits(mu))
+        want = cuda_minsum.minsum_var_cuda(mu.reshape(8, -1), ms.v2c, ms.var_mask, L0)
+        got = cuda_minsum.minsum_var_cuda(*(t.to(dev) for t in (
+            mu.reshape(8, -1), ms.v2c, ms.var_mask, L0)))
+        for a, b in zip(got, want):
+            assert torch.equal(bits(a.cpu()), bits(b))
+
+
+def surface_d5_records(B, seed, scale):
+    A, pr, O = pt.load_dem(str(REPO / "tests/fixtures/surface_d5_r5_p002.dem"))
+    rng = np.random.default_rng(seed)
+    x = (rng.random((B, A.shape[1])) < pr * scale).astype(np.uint8)
+    return A, pr, O, ((A @ x.T).T % 2).astype(np.uint8)
+
+
+STAGED_TIERS = {
+    "fast": dict(gammas=(0.4,), stage0_iters=96, deep_iters=1000, lam=40, check_every=8,
+                 layout="check"),
+    "flagship": dict(gammas=(0.4,) + ((-0.24, 0.66),) * 5, stage0_iters=96, deep_iters=500,
+                     deep_dtype=torch.bfloat16, relay_legs=8, lam=60, lam3=40,
+                     layout="check", check_every=8),
+}
+
+
+@pytest.mark.parametrize("tier", list(STAGED_TIERS))
+def test_staged_on_card_matches_cpu(dev, tier):
+    """The staged decoder on surface_d5_r5_p002.dem, 64 records (noise
+    scaled x4 so that lanes reach the deep ensemble, the relay legs and the
+    host OSD): the card against the CPU, bitwise in out, solved and
+    iters, with the min-sum kernels launched."""
+    A, pr, O, det = surface_d5_records(64, 2, 4.0)
+    cpu = pt.StagedDemDecoder(A, pr, observables=O, device="cpu", **STAGED_TIERS[tier])
+    gpu = pt.StagedDemDecoder(A, pr, observables=O, device=dev, **STAGED_TIERS[tier])
+    want = cpu.batch_decode_detailed(det)
+    before = cuda_minsum.minsum_check_cuda.launches
+    got = gpu.batch_decode_detailed(det)
+    assert cuda_minsum.minsum_check_cuda.launches > before
+    for a, b in zip(got[:3], want[:3]):
+        assert np.array_equal(a, b)
+    assert (got[2] > gpu.stage0_iters).any() and (~got[1]).any()
+    assert np.array_equal((got[0].astype(np.int64) @ A.T.toarray()) % 2, det)
+
+
+def test_detector_decoder_routes_and_launches_on_card(dev):
+    """The d5 DEM's OSD lane fits a block: the device route, OSD-0 in K1,
+    OSD-CS on K2's output; the card equals the CPU but for reliability
+    ties of the sum-product inner (checked: the min-sum inner is
+    bitwise)."""
+    A, pr, O, det = surface_d5_records(64, 3, 4.0)
+    for kw, kernel in ((dict(inner="minsum", damping=0.5), cuda_gf2.gf2_osd0_cuda),
+                       (dict(inner="minsum", osd_method="combination_sweep", osd_order=10),
+                        cuda_gf2.gf2_eliminate_cuda)):
+        gpu = pt.DetectorGraphDecoder(A, pr, 50, observables=O, device=dev, **kw)
+        cpu = pt.DetectorGraphDecoder(A, pr, 50, observables=O, device="cpu", **kw)
+        assert gpu.inner.osd_impl == "device" and gpu.inner.osd is not None
+        before = kernel.launches
+        got = gpu.batch_decode(det)
+        assert kernel.launches > before
+        want = cpu.batch_decode(det)
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+        assert np.array_equal((got[0].astype(np.int64) @ A.T.toarray()) % 2, det)

@@ -136,6 +136,10 @@ def test_port_imports_without_jax():
         "import ldpcdecoders_tpu_torch.ops.cuda_gf2, ldpcdecoders_tpu_torch._build\n"
         "import ldpcdecoders_tpu_torch.ops.cuda_qc, ldpcdecoders_tpu_torch.models.spacetime\n"
         "import ldpcdecoders_tpu_torch.codes.bicycle, ldpcdecoders_tpu_torch.utils.metrics\n"
+        "import ldpcdecoders_tpu_torch.native, ldpcdecoders_tpu_torch.utils.hbm\n"
+        "import ldpcdecoders_tpu_torch.config, ldpcdecoders_tpu_torch.models.staged\n"
+        "import ldpcdecoders_tpu_torch.models.detector, ldpcdecoders_tpu_torch.models.ensemble\n"
+        "assert ldpcdecoders_tpu_torch.native.native_available()\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'ldpcdecoders_tpu.'))"
         " or k == 'ldpcdecoders_tpu']\n"
         "print(','.join(bad))\n"

@@ -16,7 +16,10 @@ import torch
 
 import ldpcdecoders_tpu as lt
 import ldpcdecoders_tpu_torch as pt
+from ldpcdecoders_tpu.models.detector import DetectorGraphDecoder as RefDetectorGraphDecoder
+from ldpcdecoders_tpu.models.ensemble import EnsembleDecoder as RefEnsembleDecoder
 from ldpcdecoders_tpu.models.spacetime import SpaceTimeDecoder as RefSpaceTimeDecoder
+from ldpcdecoders_tpu.models.staged import StagedDemDecoder as RefStagedDemDecoder
 
 torch.set_num_threads(1)
 
@@ -46,6 +49,16 @@ DECODERS = {
                                              device="cpu"),
     "qc_lifted": lambda: pt.QCMinSumDecoder(QC_BASE, 6, 0.05, 10, backend="lifted",
                                             device="cpu"),
+    "bposd_cs": lambda: pt.BeliefPropagationOSDDecoder(
+        H, 0.05, 10, osd_order=6, osd_method="combination_sweep", device="cpu"),
+    "bposd_host": lambda: pt.BeliefPropagationOSDDecoder(H, 0.05, 10, osd_impl="host",
+                                                         device="cpu"),
+    "ensemble": lambda: pt.EnsembleDecoder([pt.MinSumDecoder(H, 0.05, 10, damping=d,
+                                                             device="cpu") for d in (0, 0.5)]),
+    "detector": lambda: pt.DetectorGraphDecoder(H, np.full(60, 0.05), 10, device="cpu"),
+    "staged": lambda: pt.StagedDemDecoder(H, np.full(60, 0.05), gammas=(0.3, (0.0, 0.5)),
+                                          stage0_iters=8, deep_iters=16, lam=6, relay_legs=1,
+                                          device="cpu"),
     "spacetime_bposd": lambda: pt.SpaceTimeDecoder(H, 2, 0.03, 10, device="cpu"),
     "spacetime_bb72": lambda: pt.SpaceTimeDecoder.for_bicycle("bb72", "x", 2, 0.01, 10,
                                                               device="cpu"),
@@ -118,6 +131,9 @@ PUBLIC = ("decode", "batch_decode", "batch_decode_async", "batch_decode_detailed
     (pt.MinSumDecoder, lt.MinSumDecoder),
     (pt.BeliefPropagationOSDDecoder, lt.BeliefPropagationOSDDecoder),
     (pt.QCMinSumDecoder, lt.QCMinSumDecoder),
+    (pt.DetectorGraphDecoder, RefDetectorGraphDecoder),
+    (pt.EnsembleDecoder, RefEnsembleDecoder),
+    (pt.StagedDemDecoder, RefStagedDemDecoder),
 ])
 def test_no_seedless_signature_the_reference_has(port_cls, ref_cls):
     """Every public decode method and ``_decode_batch`` of the reference that
