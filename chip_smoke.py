@@ -16,8 +16,12 @@ public decoder API on ``cuda:0`` and prints, in order:
      the card could take (bytes over 3.35 TB/s, or the operations these
      inputs need over 67 TFLOP/s in float32 and a quarter of that for
      32-bit integer work, whichever is larger); the two eliminations also
-     against their plain blocked forms; K3/K4 also at the bb144 R=6 DEM's
-     shape in the check layout; the eliminations with the panel width and shared
+     against their plain blocked forms; K4 also in its iteration form (the
+     damped messages in place) and against ``torch.sparse.mm`` of the slot
+     incidence (its ``library_ms``); K3/K4 also at the bb144 R=6 DEM's shape
+     in the forms the staged decoder's iteration launches (K3 rebuilding,
+     damping and updating in place, staged and flat; K4 with the freeze), on
+     the real slots; the eliminations with the panel width and shared
      memory the launcher reports (``ldpc_gf2_plan`` of the built library,
      which must equal ``cuda_gf2.launch_plan``), and their times at 128
      lanes and with the panel capped at 4, 2 and 1 columns;
@@ -42,15 +46,16 @@ public decoder API on ``cuda:0`` and prints, in order:
      ``run_eval`` (4096 and 2048 shots): every OSD output consistent, (p)'s
      Wilson interval overlapping the reference's 149/16,384, (q) at most 8
      failures, with the wall split between stage 0, deep, relay and the
-     host OSD;
+     host OSD, and a stage-0 batch's and a flagship deep bucket's device
+     time and launches per min-sum iteration (``torch.profiler``) beside
+     their peak memory;
   5. steady-state rates;
   6. a JSON line with each kernel's numbers, the card line again, and last
      ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds a ``torch.profiler`` summary of one steady call of each
 configuration (launches, device-busy share, largest kernels; the OSD paths
-(b), (c), (g), (h), (m), a bb144 stage-0 batch and a flagship deep bucket
-among them) before 6, and a second build of the kernels
+(b), (c), (g), (h), (m) among them) before 6, and a second build of the kernels
 with ``-DLDPC_GF2_PHASE_CLOCKS``: block 0's SM clocks in the phases of the
 two eliminations, and that build's times beside the plain build's.
 
@@ -62,6 +67,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import warnings
 import subprocess
 import sys
 import time
@@ -159,6 +165,22 @@ def max_abs_err(torch, got, want):
                for g, w in zip(got, want))
 
 
+def slot_incidence(torch, ms):
+    """The ``[n, dc*m]`` float32 CSR matrix whose row j has a 1 at each of
+    variable j's check slots: ``S @ mu^T`` is K4's sum by one library call
+    (another summation order), the yardstick of its ``library_ms``."""
+    deg = ms.var_deg.cpu()
+    n = deg.shape[0]
+    v2c = ms.v2c.cpu().reshape(-1, n)  # [dv, n]
+    take = torch.arange(v2c.shape[0])[:, None] < deg[None, :]  # real slots first
+    cols = v2c.t()[take.t()]  # row-major over variables, then slots
+    crow = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(deg, 0)])
+    with warnings.catch_warnings():  # sparse CSR is "beta" in torch
+        warnings.simplefilter("ignore")
+        return torch.sparse_csr_tensor(crow, cols.to(torch.int64), torch.ones(cols.numel()),
+                                       size=(n, ms.chk_mask.numel())).to(ms.var_deg.device)
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -199,6 +221,7 @@ def profile_call(torch, name, fn, iterations, calls=1):
           f"({launches / iterations:.1f} per iteration over {iterations})")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:6]:
         print(f"    {ms:9.3f} ms x {count:5d}  {key[:110]}")
+    return wall_ms, busy, launches, iterations
 
 
 def main() -> int:
@@ -287,27 +310,45 @@ def main() -> int:
 
     # min-sum kernels: the messages entering the second iteration of a
     # per-0.05 batch (mixed magnitudes and signs), float32 and bfloat16, read
-    # through the index table (the main path) and directly
+    # through the index table (the main path) and directly; K4 also in its
+    # iteration form (the damped leave-one-out messages in place, as the
+    # damped inner of (g), (h), (m) launches it)
     s05 = torch.as_tensor(syn05, device=dev)
     flip05 = s05.to(torch.bool)
     minsum_src = "ldpcdecoders_tpu_torch/csrc/minsum.cu"
     dc, dv = graph.max_dc, graph.max_dv
+    library = {}  # library_ms of a kernel's first case: torch.sparse.mm for K4's totals
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         ms = pt.MinSumDecode(graph, 0.05, MAX_ITERS, device=dev, dtype=dtype, alpha=0.8)
+        deg = dict(chk_deg=ms.chk_deg)
+        vdeg = dict(var_deg=ms.var_deg)
         L0 = torch.broadcast_to(ms.default_L0, (B, n)).contiguous()
         nu0 = torch.broadcast_to(L0[:, None, :], (B, dv, n)).reshape(B, dv * n).contiguous()
-        mu1 = cuda_minsum.minsum_check_cuda(nu0, ms.c2v, flip05, ms.chk_mask, ms.alpha, 0.0)
-        nu1, _ = cuda_minsum.minsum_var_cuda(mu1.reshape(B, dc * m), ms.v2c, ms.var_mask, L0)
+        mu1 = cuda_minsum.minsum_check_cuda(nu0, ms.c2v, flip05, ms.chk_mask, ms.alpha, 0.0,
+                                            **deg)
+        nu1, _ = cuda_minsum.minsum_var_cuda(mu1.reshape(B, dc * m), ms.v2c, ms.var_mask, L0,
+                                             **vdeg)
         nu1 = nu1.reshape(B, dv * n)
         Ng1 = nu1.index_select(1, ms.c2v).reshape(B, dc, m).contiguous()
-        mu2 = cuda_minsum.minsum_check_cuda(nu1, ms.c2v, flip05, ms.chk_mask, ms.alpha, 0.0)
+        mu2 = cuda_minsum.minsum_check_cuda(nu1, ms.c2v, flip05, ms.chk_mask, ms.alpha, 0.0,
+                                            **deg)
         mu2 = mu2.reshape(B, dc * m)
         chk_ops, var_ops = 14 * B * dc * m, 4 * B * dv * n
         out_chk, out_var = nbytes(mu2), nbytes(nu1, L0)
+        if dtype == torch.float32:
+            S = slot_incidence(torch, ms)
+            library["minsum_var"] = event_ms(torch, lambda S=S, mu2=mu2: torch.sparse.mm(
+                S, mu2.t()), 10)
+        # the in-place forms: kernel and plain version each on its own copy
+        # of the previous messages (this code has no padded slot)
+        gam = torch.tensor(0.4).to(dtype).to(dev)
+        nu_k, nu_p = nu1.reshape(B, dv, n).clone(), nu1.reshape(B, dv, n).clone()
+        nu_k0, nu_p0 = nu1.reshape(B, dv, n).clone(), nu1.reshape(B, dv, n).clone()
+        tot_k, tot_p = torch.empty_like(L0), torch.empty_like(L0)
 
-        def chk(x, idx, ms=ms):
+        def chk(x, idx, ms=ms, deg=deg):
             return lambda: (cuda_minsum.minsum_check_cuda(x, idx, flip05, ms.chk_mask,
-                                                          ms.alpha, 0.0),)
+                                                          ms.alpha, 0.0, **deg),)
 
         def chk_plain(x, idx, ms=ms):
             if idx is None:
@@ -327,10 +368,33 @@ def main() -> int:
              chk(Ng1, None), chk_plain(Ng1, None),
              bound(nbytes(Ng1, flip05, ms.chk_mask) + out_chk, chk_ops,
                    PEAK_F32_OPS_PER_S)),
-            (f"minsum_var {tag}", minsum_src,
+            # the main path's form first: path (e)'s undamped update in place
+            (f"minsum_var {tag} iteration form", minsum_src,
              "ldpcdecoders_tpu/ops/pallas_minsum.py:91", f"B={B} dv={dv} n={n}",
-             lambda mu2=mu2, ms=ms, L0=L0: cuda_minsum.minsum_var_cuda(
-                 mu2, ms.v2c, ms.var_mask, L0),
+             lambda mu2=mu2, ms=ms, L0=L0, vdeg=vdeg, nu=nu_k0, tot=tot_k: (
+                 nu, cuda_minsum.minsum_var_iter_cuda(mu2, ms.v2c, ms.var_mask, L0, nu=nu,
+                                                      total=tot, **vdeg)),
+             lambda mu2=mu2, ms=ms, L0=L0, nu=nu_p0, tot=tot_p: (
+                 nu, plain_minsum.var_iter_ref(mu2, ms.v2c, ms.var_mask, L0, nu=nu,
+                                               total=tot)),
+             bound(nbytes(mu2, ms.v2c, ms.var_mask, L0) + out_var + nbytes(nu1), var_ops,
+                   PEAK_F32_OPS_PER_S)),
+            # 4 operations a slot more for the mix
+            (f"minsum_var {tag} iteration form, damped in place", minsum_src,
+             "ldpcdecoders_tpu/ops/pallas_minsum.py:91", f"B={B} dv={dv} n={n} gamma 0.4",
+             lambda mu2=mu2, ms=ms, L0=L0, vdeg=vdeg, gam=gam, nu=nu_k, tot=tot_k: (
+                 nu, cuda_minsum.minsum_var_iter_cuda(mu2, ms.v2c, ms.var_mask, L0, nu=nu,
+                                                      gamma=gam, total=tot, **vdeg)),
+             lambda mu2=mu2, ms=ms, L0=L0, gam=gam, nu=nu_p, tot=tot_p: (
+                 nu, plain_minsum.var_iter_ref(mu2, ms.v2c, ms.var_mask, L0, nu=nu, gamma=gam,
+                                               total=tot)),
+             bound(nbytes(mu2, ms.v2c, ms.var_mask, L0) + out_var + nbytes(nu1), var_ops * 2,
+                   PEAK_F32_OPS_PER_S), (10, 2)),
+            # the TPU kernel's interface: fresh leave-one-out messages
+            (f"minsum_var {tag} fresh", minsum_src,
+             "ldpcdecoders_tpu/ops/pallas_minsum.py:91", f"B={B} dv={dv} n={n}",
+             lambda mu2=mu2, ms=ms, L0=L0, vdeg=vdeg: cuda_minsum.minsum_var_cuda(
+                 mu2, ms.v2c, ms.var_mask, L0, **vdeg),
              lambda mu2=mu2, ms=ms, L0=L0: plain_minsum.var_update_ref(
                  mu2, ms.v2c, ms.var_mask, L0),
              bound(nbytes(mu2, ms.v2c, ms.var_mask, L0) + out_var, var_ops,
@@ -436,60 +500,15 @@ def main() -> int:
                 f"B={BK} mb=6 nb=17 Eb=46 Z=72 (12x6) sweeps<=60"),
     ]
 
-    # K3/K4 at the bb144 R=6 circuit-level DEM's shape (864 checks x 31,648
-    # mechanisms, check degree up to 294, variable degree up to 12) in the
-    # check layout of the staged decoder: K3 reads its check-slot state
-    # directly, K4 returns the totals only.  Inputs: the messages entering
-    # the second iteration of a stage-0 batch (path (p), float32, 2048
-    # records) and of a flagship deep bucket (path (q), bfloat16, 6 members
-    # x 256 records)
+    # the bb144 R=6 circuit-level DEM (864 checks x 31,648 mechanisms, check
+    # degree up to 294, variable degree up to 12): K3/K4 at its shape below
     dem_A, dem_pr, dem_O = load_bb144_dem()
     dem_graph = pt.TannerGraph.from_pcm(np.asarray(dem_A.todense()))
     dem_x = (np.random.default_rng(21).random((max(BDEM, 6 * DEEP_BUCKET), dem_graph.n))
              < dem_pr).astype(np.float32)
     dem_det = torch.as_tensor((dem_x @ dem_A.T.toarray().astype(np.float32)) % 2 == 1,
                               device=dev)
-    for tag, dtype, lanes in (("f32 stage-0 batch", torch.float32, BDEM),
-                              ("bf16 deep bucket", torch.bfloat16, 6 * DEEP_BUCKET)):
-        ms = pt.MinSumDecode(dem_graph, float(dem_pr.mean()), 2, device=dev, dtype=dtype,
-                             layout="check")
-        flip = dem_det[:lanes].contiguous()
-        L0 = torch.as_tensor(np.log((1 - dem_pr) / dem_pr), device=dev).to(dtype)
-        L0 = torch.broadcast_to(L0, (lanes, dem_graph.n)).contiguous()
-        dc_d, m_d, dv_d, n_d = dem_graph.max_dc, dem_graph.m, dem_graph.max_dv, dem_graph.n
-        x1 = L0.index_select(1, ms.chk_varidx).reshape(lanes, dc_d, m_d)
-        mu1 = cuda_minsum.minsum_check_cuda(x1, None, flip, ms.chk_mask, ms.alpha, 0.0)
-        _, tot1 = cuda_minsum.minsum_var_cuda(mu1.reshape(lanes, -1), ms.v2c, ms.var_mask, L0,
-                                              want_nu=False)
-        x2 = (tot1.index_select(1, ms.chk_varidx).reshape(lanes, dc_d, m_d) - mu1).contiguous()
-        mu2 = cuda_minsum.minsum_check_cuda(x2, None, flip, ms.chk_mask, ms.alpha, 0.0)
-        mu2 = mu2.reshape(lanes, -1)
-        shape_d = f"B={lanes} dc={dc_d} m={m_d} dv={dv_d} n={n_d} (bb144 R=6 DEM, check layout)"
-        # both kernels skip a padded slot without loading its message: the
-        # bounds read the messages of the DEM's edges only (K3 still writes
-        # every padded output slot)
-        edge_bytes = lanes * int(ms.chk_mask.sum()) * x2.element_size()
-        v2c_bytes = int(ms.var_mask.sum()) * ms.v2c.element_size()
-        cases += [
-            (f"minsum_check bb144 {tag}", minsum_src,
-             "ldpcdecoders_tpu/ops/pallas_minsum.py:53", shape_d,
-             lambda x2=x2, flip=flip, ms=ms: (cuda_minsum.minsum_check_cuda(
-                 x2, None, flip, ms.chk_mask, ms.alpha, 0.0),),
-             lambda x2=x2, flip=flip, ms=ms: (plain_minsum.check_core_ref(
-                 x2, flip, ms.chk_mask, ms.alpha, 0.0),),
-             bound(edge_bytes + nbytes(flip, ms.chk_mask) + nbytes(x2),
-                   14 * lanes * dc_d * m_d, PEAK_F32_OPS_PER_S), (3, 1)),
-            # totals only: a masked gather and an add per slot
-            (f"minsum_var bb144 {tag}", minsum_src,
-             "ldpcdecoders_tpu/ops/pallas_minsum.py:91", shape_d,
-             lambda mu2=mu2, ms=ms, L0=L0: cuda_minsum.minsum_var_cuda(
-                 mu2, ms.v2c, ms.var_mask, L0, want_nu=False)[1:],
-             lambda mu2=mu2, ms=ms, L0=L0: plain_minsum.var_update_ref(
-                 mu2, ms.v2c, ms.var_mask, L0, want_nu=False)[1:],
-             bound(edge_bytes + v2c_bytes + nbytes(ms.var_mask, L0) + nbytes(L0),
-                   2 * lanes * dv_d * n_d, PEAK_F32_OPS_PER_S), (3, 1)),
-        ]
-        del x1, mu1, tot1
+    dem_llr = torch.as_tensor(np.log((1 - dem_pr) / dem_pr), device=dev)
 
     # one entry per kernel in the summary: the first case of each name is
     # the main path's (float32; gathered; layered with the baked prior); the
@@ -519,24 +538,150 @@ def main() -> int:
                 raise AssertionError(f"{name}: LLRs {spacings} float32 spacings apart")
         ms_k = event_ms(torch, kern, reps_k)
         plain_ms = event_ms(torch, plain, reps_p)
+        key, _, variant = name.partition(" ")
+        lib_ms = library.get(key) if key not in kernels else None
         print(f"kernel {name}: max_abs_err {err} ({need}) | kernel {ms_k:.3f} ms | "
               f"plain torch {plain_ms:.3f} ms | bound {bound_ms:.4f} ms by {bound_by} "
-              f"(bytes {by_bytes:.4f}, operations {by_ops:.4f}) | "
-              f"library call: none | {shape} | {card}")
+              f"(bytes {by_bytes:.4f}, operations {by_ops:.4f}) | library call: "
+              + ("none" if lib_ms is None else f"torch.sparse.mm {lib_ms:.3f} ms")
+              + f" | {shape} | {card}")
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from its plain version")
-        key, _, variant = name.partition(" ")
         if key not in kernels:
             kernels[key] = {"name": key, "route": "cuda", "source": source,
                             "replaces": replaces, "max_abs_err": err, "ms": ms_k,
                             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                            "library_ms": None, "variants": {}}
+                            "library_ms": lib_ms, "variants": {}}
         else:
             kernels[key]["max_abs_err"] = max(kernels[key]["max_abs_err"], err)
             kernels[key]["variants"][variant] = {"ms": ms_k, "plain_ms": plain_ms,
                                                  "bound_ms": bound_ms}
             if loose:
                 kernels[key]["variants"][variant]["llr_spacings"] = spacings
+
+    # K3/K4 at the bb144 DEM's shape in the forms the staged decoder's
+    # iteration launches (check layout): K3's iteration form (the rebuild
+    # total[var] - mu, the damping mix and the check update, in place over mu
+    # and nu; staged and flat) and K4's totals with the freeze of err / llrs
+    # (on the check iterations; the totals alone on the others).  Inputs: the
+    # state after the first iteration of a stage-0 batch (path (p): float32,
+    # 2048 records, damping 0.4) and of a flagship deep bucket (path (q):
+    # bfloat16, 6 members x 256 records, per-variable gammas in
+    # [-0.24, 0.66)), every second lane done.  Kernel and plain version each
+    # update their own copy of the state; the kernels leave a padded slot
+    # alone, so the real slots are compared.  The bounds count the work of
+    # the DEM's 203,444 edges: K3 reads and writes each edge's mu and nu and
+    # reads the totals (and per-variable gammas) once, 19 float32 operations
+    # an edge (the check update's 14, the rebuild's subtraction, the mix's
+    # two products, its sum and 1 - g; one more per edge for per-variable
+    # gammas); K4 reads mu once and writes the totals (and the active lanes'
+    # err / llrs), an add per edge
+    for tag, dtype, lanes, per_var in (("(p) stage-0 batch f32", torch.float32, BDEM, False),
+                                       ("(q) deep bucket bf16", torch.bfloat16,
+                                        6 * DEEP_BUCKET, True)):
+        ms = pt.MinSumDecode(dem_graph, float(dem_pr.mean()), 2, device=dev, dtype=dtype,
+                             layout="check")
+        dc_d, m_d, dv_d, n_d = dem_graph.max_dc, dem_graph.m, dem_graph.max_dv, dem_graph.n
+        flip = (dem_det[:DEEP_BUCKET].repeat(6, 1) if per_var else dem_det[:lanes]).contiguous()
+        L0 = torch.broadcast_to(dem_llr.to(dtype), (lanes, n_d)).contiguous()
+        gam = (torch.as_tensor(np.random.default_rng(3).uniform(-0.24, 0.66, (lanes, n_d)),
+                               device=dev).to(dtype) if per_var
+               else torch.tensor(0.4, device=dev).to(dtype))
+        cvi, kw3, kw4 = ms.chk_varidx, dict(chk_deg=ms.chk_deg), dict(var_deg=ms.var_deg)
+        mu0 = cuda_minsum.minsum_check_cuda(L0, cvi, flip, ms.chk_mask, ms.alpha, 0.0, **kw3)
+        total0 = cuda_minsum.minsum_var_iter_cuda(mu0.reshape(lanes, -1), ms.v2c, ms.var_mask,
+                                                  L0, total=torch.empty_like(L0), **kw4)
+        nu0 = L0.index_select(1, cvi).reshape(lanes, dc_d, m_d)
+        real = ms.chk_mask.reshape(-1)
+        E, size = int(real.sum()), L0.element_size()
+        shape_d = (f"B={lanes} dc={dc_d} m={m_d} dv={dv_d} n={n_d} (bb144 R=6 DEM, check "
+                   f"layout, {'[B, n] gammas' if per_var else 'gamma 0.4'})")
+
+        def k3(state, stage=None, ms=ms, flip=flip, gam=gam, total0=total0, kw3=kw3):
+            return cuda_minsum.minsum_check_iter_cuda(
+                state[0], total0, ms.chk_varidx, flip, ms.chk_mask, ms.alpha, 0.0, gamma=gam,
+                nu=state[1], _stage=stage, **kw3)
+
+        plain_state = [mu0.clone(), nu0.clone()]
+        plain_minsum.check_iter_ref(plain_state[0], total0, cvi, flip, ms.chk_mask, ms.alpha, 0.0,
+                                    gam, plain_state[1])
+        want = [t.reshape(lanes, -1)[:, real] for t in plain_state]
+        times, errs3 = {}, []
+        for stage in (None, True, False):
+            state = [mu0.clone(), nu0.clone()]
+            k3(state, stage)
+            torch.cuda.synchronize()
+            errs3.append(max_abs_err(torch, [t.reshape(lanes, -1)[:, real] for t in state], want))
+            times[stage] = event_ms(torch, lambda state=state, stage=stage: k3(state, stage), 5)
+            del state
+        plain_ms = event_ms(torch, lambda: plain_minsum.check_iter_ref(
+            plain_state[0], total0, cvi, flip, ms.chk_mask, ms.alpha, 0.0, gam, plain_state[1]), 1)
+        del plain_state, want
+        threads, smem = cuda_minsum.stage_plan(n_d * size, m_d, dc_d)
+        choice = "staged" if cuda_minsum.stages_by_default(n_d * size, m_d, dc_d) else "flat"
+        b3 = bound(4 * lanes * E * size + nbytes(total0, flip, ms.chk_deg)
+                   + (nbytes(gam) if per_var else 0) + E * 4,
+                   (20 if per_var else 19) * lanes * E, PEAK_F32_OPS_PER_S)
+        err3 = max(errs3)
+        print(f"kernel minsum_check bb144 {tag} iteration form: max_abs_err {err3} on the real "
+              f"slots of mu and nu (bitwise required; launcher's choice, staged, flat: "
+              f"{errs3}) | kernel {times[None]:.3f} ms, the launcher's choice: {choice} (staged: "
+              f"{threads} threads, {smem} B "
+              f"shared memory, {times[True]:.3f} ms; flat {times[False]:.3f} ms) | plain torch "
+              f"{plain_ms:.3f} ms | bound {b3[0]:.4f} ms by {b3[1]} (bytes {b3[2]:.4f}, "
+              f"operations {b3[3]:.4f}) | library call: none | {shape_d} | {card}")
+        if err3 != 0:
+            raise AssertionError(f"minsum_check bb144 {tag}: kernel differs from its plain version")
+        kernels["minsum_check"]["max_abs_err"] = max(kernels["minsum_check"]["max_abs_err"], err3)
+        kernels["minsum_check"]["variants"][f"bb144 {tag} iteration form"] = {
+            "ms": times[None], "form": choice, "staged_ms": times[True], "flat_ms": times[False],
+            "plain_ms": plain_ms, "bound_ms": b3[0], "bound_by": b3[1]}
+
+        # K4: totals and the freeze, every second lane done
+        done = torch.arange(lanes, device=dev) % 2 == 1
+        outs = {}
+        for where in ("kernel", "plain"):
+            tot, llrs = torch.empty_like(L0), L0.clone()
+            err_t = torch.zeros((lanes, n_d), device=dev)
+            fn = (cuda_minsum.minsum_var_iter_cuda if where == "kernel"
+                  else plain_minsum.var_iter_ref)
+            call = (lambda fn=fn, tot=tot, err_t=err_t, llrs=llrs, ms=ms, L0=L0, done=done,
+                    mu0=mu0, lanes=lanes, kw=(kw4 if where == "kernel" else {}): fn(
+                        mu0.reshape(lanes, -1), ms.v2c, ms.var_mask, L0, total=tot, done=done,
+                        err=err_t, llrs=llrs, **kw))
+            call()
+            torch.cuda.synchronize()
+            outs[where] = ((tot.clone(), err_t.clone(), llrs.clone()), call)
+        err4 = max_abs_err(torch, outs["kernel"][0], outs["plain"][0])
+        ms4 = event_ms(torch, outs["kernel"][1], 10)
+        plain4 = event_ms(torch, outs["plain"][1], 2)
+        ms4_totals = event_ms(torch, lambda ms=ms, L0=L0, mu0=mu0, lanes=lanes, kw4=kw4, tot=total0:
+                              cuda_minsum.minsum_var_iter_cuda(mu0.reshape(lanes, -1), ms.v2c,
+                                                               ms.var_mask, L0, total=tot, **kw4),
+                              10)
+        lib4 = None
+        if dtype == torch.float32:
+            S = slot_incidence(torch, ms)
+            lib4 = event_ms(torch, lambda S=S, mu0=mu0, lanes=lanes: torch.sparse.mm(
+                S, mu0.reshape(lanes, -1).t()), 3)
+            del S
+        active = int((~done).sum())
+        b4 = bound(lanes * E * size + E * 4 + nbytes(L0, done, ms.var_deg) + lanes * n_d * size
+                   + active * n_d * (4 + size), lanes * E + active * n_d, PEAK_F32_OPS_PER_S)
+        print(f"kernel minsum_var bb144 {tag} totals and freeze: max_abs_err {err4} on the totals, "
+              f"err and llrs (bitwise required) | kernel {ms4:.3f} ms (the totals alone "
+              f"{ms4_totals:.3f} ms) | plain torch {plain4:.3f} ms | bound {b4[0]:.4f} ms by "
+              f"{b4[1]} (bytes {b4[2]:.4f}, operations {b4[3]:.4f}) | library call: "
+              + ("none" if lib4 is None else f"torch.sparse.mm {lib4:.3f} ms")
+              + f" | {shape_d} | {card}")
+        if err4 != 0:
+            raise AssertionError(f"minsum_var bb144 {tag}: kernel differs from its plain version")
+        kernels["minsum_var"]["max_abs_err"] = max(kernels["minsum_var"]["max_abs_err"], err4)
+        kernels["minsum_var"]["variants"][f"bb144 {tag} totals and freeze"] = {
+            "ms": ms4, "totals_only_ms": ms4_totals, "plain_ms": plain4, "bound_ms": b4[0],
+            "bound_by": b4[1], "library_ms": lib4}
+        del outs, mu0, total0, nu0
+        torch.cuda.empty_cache()
 
     # the two eliminations once more: against the plain BLOCKED forms (the
     # kernel's own algorithm in torch), with the launcher's plan, at the 128
@@ -597,20 +742,24 @@ def main() -> int:
         kernels[key]["variants"]["B=128"] = {"ms": ms128}
         kernels[key]["variants"]["by_panel_ms"] = by_panel
 
-    wrappers = {"gf2_osd0": cuda_gf2.gf2_osd0_cuda, "gf2_eliminate": cuda_gf2.gf2_eliminate_cuda,
-                "minsum_check": cuda_minsum.minsum_check_cuda,
-                "minsum_var": cuda_minsum.minsum_var_cuda,
-                "qc_minsum": cuda_qc.qc_minsum_cuda}
+    # each kernel's wrappers (K3 and K4 have two forms each)
+    wrappers = {"gf2_osd0": [cuda_gf2.gf2_osd0_cuda],
+                "gf2_eliminate": [cuda_gf2.gf2_eliminate_cuda],
+                "minsum_check": [cuda_minsum.minsum_check_cuda,
+                                 cuda_minsum.minsum_check_iter_cuda],
+                "minsum_var": [cuda_minsum.minsum_var_cuda, cuda_minsum.minsum_var_iter_cuda],
+                "qc_minsum": [cuda_qc.qc_minsum_cuda]}
 
     path_launches = {}
 
     def drive(path, expect, fn):
         """Run one main path with every count set to 0 just before it and
         read just after it; a kernel of ``expect`` never launched fails."""
-        for w in wrappers.values():
-            w.launches = 0
+        for ws in wrappers.values():
+            for w in ws:
+                w.launches = 0
         out = fn()
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
         for k in expect:
             if counts[k] == 0:
                 raise AssertionError(f"main ({path}) never launched {k}")
@@ -800,6 +949,37 @@ def main() -> int:
     if c_oc.all():
         raise AssertionError("(o): none of the 64 records compared reached the OSD")
 
+    # (r), (s): MinSumDecode on the bb144 DEM in the staged decoder's two inner
+    # configurations (check layout, checked every 8 iterations): stage 0
+    # (float32, damping 0.4) and deep (bfloat16, per-variable gammas in
+    # [-0.24, 0.66), track_best), 64 records with the DEM's priors as L0, at
+    # 24 iterations (the CPU's plain versions set the depth): err, converged,
+    # iters and LLRs bitwise on the card and the CPU
+    dem_cpu = pt.TannerGraph.from_pcm(np.asarray(dem_A.todense()))
+    rec = dem_det[:64].to(torch.uint8)
+    gam64 = np.random.default_rng(5).uniform(-0.24, 0.66, (rec.shape[0], dem_graph.n))
+    gam64 = gam64.astype(np.float32)
+    for path, what, kw, gamma in (
+            ("r", "stage-0 configuration (float32, damping 0.4)",
+             dict(damping=0.4), None),
+            ("s", "deep configuration (bfloat16, [B, n] gammas, track_best)",
+             dict(dtype=torch.bfloat16, lane_damping=True, track_best=True), gam64)):
+        kw = dict(kw, layout="check", check_every=8)
+        gpu = pt.MinSumDecode(dem_graph, float(dem_pr.mean()), 24, device=dev, **kw)
+        cpu = pt.MinSumDecode(dem_cpu, float(dem_pr.mean()), 24, device="cpu", **kw)
+        g_arg = None if gamma is None else torch.as_tensor(gamma)
+        got = drive(path, minsum_kernels, lambda gpu=gpu, g_arg=g_arg: gpu(
+            rec, dem_llr.to(torch.float32), None if g_arg is None else g_arg.to(dev)))
+        want = cpu(rec.cpu(), dem_llr.cpu().to(torch.float32), g_arg)
+        same = [max_abs_err(torch, [a.cpu()], [b]) == 0 for a, b in zip(got, want)]
+        print(f"main ({path}) MinSumDecode bb144 R=6 DEM {what}, check layout, check_every 8, 24 "
+              f"iterations, 64 records: cuda vs cpu err/converged/iters/llrs bitwise {same}, "
+              f"converged {want[1].float().mean():.4f}, iterations mean "
+              f"{want[2].float().mean():.2f} | {card}")
+        if not all(same):
+            raise AssertionError(f"({path}) {what}: MinSumDecode on the card disagrees with "
+                                 "the CPU")
+
     # (p), (q): the staged production decoder on the bb144 R=6 p=0.003
     # circuit-level DEM, through run_eval (device sampling, deep ensemble,
     # host OSD-CS on a worker thread).  (p) the fast tier, (q) the flagship
@@ -881,6 +1061,26 @@ def main() -> int:
     if staged["q"]["fails"] > 8:
         raise AssertionError(f"(q): {staged['q']['fails']} failures in 2048 shots (the "
                              "reference's 3.76e-4 predicts 0.8)")
+
+    # (p), (q) per iteration: a stage-0 batch and a flagship deep bucket (the
+    # calls whose peak memory is above) under torch.profiler: device time and
+    # launches per min-sum iteration, the iterations counted by K4's launches
+    # (one an iteration; the profiler runs the call twice)
+    mem_keys = list(memory)
+    for path, name, fn, mem_key in (
+            ("p", f"bb144 stage-0 batch of {BDEM}, float32, check layout, damping 0.4",
+             lambda: fast.stage0(dem_det[:BDEM], L0_dem), mem_keys[0]),
+            ("q", f"bb144 flagship deep bucket, 6 x {DEEP_BUCKET}, bfloat16, check layout",
+             lambda: flagship._deep_step(dem_det[:DEEP_BUCKET], L0_dem, L0_dem,
+                                         flagship.gamma_arg), mem_keys[1])):
+        before = cuda_minsum.minsum_var_iter_cuda.launches
+        wall_ms, busy, launches, _ = profile_call(torch, f"({path}) {name}", fn, 1)
+        its = (cuda_minsum.minsum_var_iter_cuda.launches - before) // 2
+        print(f"iteration ({path}) {name}: device {busy / its:.3f} ms per min-sum iteration, "
+              f"{launches / its:.2f} launches per iteration over {its} iterations (profiled "
+              f"wall {wall_ms:.2f} ms, device busy {100 * busy / wall_ms:.1f}%), peak memory "
+              f"{memory[mem_key]['measured_bytes'] / 1e9:.3f} GB | {card}")
+        memory[mem_key].update(iteration_ms=busy / its, launches_per_iteration=launches / its)
 
     # in the summary, ``launches`` is the count of the first path that must
     # launch the kernel; ``launches_by_path`` has every path's own count
@@ -970,12 +1170,6 @@ def main() -> int:
              lambda: osd2_ms.batch_decode_async(d20[:128]), MAX_ITERS),
             ("(m) BP+OSD-CS, inner min-sum, per 0.2", lambda: dec_cs.batch_decode_async(d20),
              MAX_ITERS),
-            (f"(p) bb144 stage-0 batch of {BDEM}, float32, check layout",
-             lambda: fast.stage0(dem_det[:BDEM], L0_dem), fast.stage0_iters),
-            (f"(q) bb144 flagship deep bucket, 6 x {DEEP_BUCKET}, bfloat16, check layout",
-             lambda: flagship._deep_step(dem_det[:DEEP_BUCKET], L0_dem, L0_dem,
-                                         flagship.gamma_arg),
-             flagship.deep_iters),
         ):
             profile_call(torch, name, fn, its)
 

@@ -3,34 +3,58 @@
 // Replaces the two Pallas TPU kernels of ldpcdecoders_tpu/ops/pallas_minsum.py:
 //   minsum_check_kernel <- pallas_minsum.py:_check_kernel (wrapper check_update_pallas)
 //   minsum_var_kernel   <- pallas_minsum.py:_var_kernel   (wrapper var_update_pallas)
-// with the cross-layout gathers, which ran as separate device-memory passes
-// between the TPU kernels, folded in: each kernel reads the other side's
-// messages through the static index table itself.
+// and, beyond the TPU kernels, the plain passes of the min-sum iteration
+// around them (ldpcdecoders_tpu/models/minsum.py decode / decode_check): the
+// cross-layout gathers, the check-layout rebuild ``total[var] - mu``, the
+// damping mix and the freeze of the [B, n] outputs.  One iteration is one
+// launch of each kernel.
 //
-// Numerics follow the reference package's default path (models/minsum.py
-// check_core / var_update) and equal the plain torch versions in
-// ops/minsum.py bit for bit.  All arithmetic is float32; for bfloat16
-// messages every result the plain version rounds is rounded here too
-// (round_to<T>), and products, sums and differences use the _rn
-// intrinsics so that nvcc contracts none of them into a fused multiply-add.
+// Numerics follow the reference package's default path and equal the plain
+// torch versions in ops/minsum.py bit for bit on the real edges.  All
+// arithmetic is float32; for bfloat16 messages every result the plain
+// version rounds is rounded here too (round_to<T>), and products, sums and
+// differences use the _rn intrinsics so that nvcc contracts none of them
+// into a fused multiply-add.  The damping mix is, as torch evaluates
+// ``g * nu + (1 - g) * new``: round(round(g*nu) + round(round(1-g) * new)).
 //
-// Layout.  Messages are slot-major [B, slot, node].  One thread per
-// (lane, node); neighbouring threads hold neighbouring nodes of one lane, so
-// the direct loads, the table loads and all stores are coalesced across a
-// warp.  Only the gathered message loads are scattered, inside one lane's
-// row (36 KB at the (1000, 10, 9) code), which the L1/L2 caches hold.
+// Layout.  Messages are slot-major [B, slot, node]; a node's real slots come
+// first (codes/graph.py), so each node's loops run to its own degree
+// (``deg``) and a padded slot is neither loaded nor, in the forms that update
+// in place, written.
 //
-// Check update: one sweep over the degree axis keeps (min1, argmin, min2,
-// sign parity) and the first 64 sign bits in registers; a second loop
-// writes the dc outputs (slots past 64 read their sign again).  Variable
-// update: one loop sums the dv masked (optionally weighted) messages in
-// the reference's order (slot order up to 32 slots, by windows of 32 past
-// that: ops/minsum.py slot_sum), a second loop reads them again (from
-// cache) for the leave-one-out differences.
+// Check update (minsum_check_kernel), one thread per (lane, check), three
+// forms of its input message:
+//   * DIRECT   the check-slot messages x [B, dc, m] (the TPU kernel's input);
+//   * GATHER   x [B, stride] read through idx (the variable layout's nu
+//              through c2v; the check layout's first iteration, L0 through
+//              the check slots' variables);
+//   * ITER     the check layout's iteration: the message is rebuilt from
+//              the previous iteration as total[var] - mu_prev and, with
+//              damping, mixed with the previous message nu_prev (written
+//              back in place); the new mu is written in place over mu_prev.
+// One sweep over the check's slots keeps (min1, argmin, min2, sign parity)
+// in registers and every sign bit in shared memory (a word per 32 slots,
+// the thread's own column), so no slot is read twice; the loads of U slots
+// are issued before the first is used.  The gathered row of a lane (the
+// totals, or x) is either read from L2 or, where it fits, staged in shared
+// memory by a block that takes one lane (STAGE): the gathers then cost no
+// 32-byte sector of L2 traffic for 2 or 4 bytes used.
 //
-// What bounds them on the H100: bytes.  Each kernel reads and writes the
-// [B, E] message array once (36.9 MB each way at B=1024, float32) and does
-// a few operations per message.
+// Variable update (minsum_var_kernel), one thread per (lane, variable): the
+// node's messages are gathered through v2c into registers (all loads in
+// flight at once up to 16 slots), summed in the reference's order (slot
+// order up to 32 slots, by windows of 32 past that: ops/minsum.py slot_sum;
+// a padded slot adds +0 and is skipped), then ``total`` is written, or the
+// leave-one-out messages total - msg (a fresh [B, dv, n], or in place over
+// nu_prev with the damping mix), and, given the done flags, the frozen
+// outputs err = total < 0 and llrs = total of the lanes still active.
+//
+// What bounds them on the H100: bytes.  At the bb144 R=6 DEM's shape
+// (203,444 edges) an iteration must move each edge's messages once each way
+// (mu, and with damping nu) and the totals; the check kernel's gathers of
+// the totals and the variable kernel's gathers of mu cost L2 sector traffic
+// on top (8x the bytes used in float32), which staging removes for the
+// first and registers-in-flight hide for the second.
 //
 // Plain C interface (pointers, sizes, stream), loaded with ctypes.  Each
 // launcher returns the cudaError_t of its launch; 0 is success.
@@ -39,9 +63,47 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+// Slots of a check whose loads go out together (the flat form by message
+// type, the staged form), and the variable degree up to which K4 keeps a
+// node's messages in registers.  Measured on an H100 80GB HBM3 at 700 W
+// (tools/minsum_kernel_compare.py, each against the others in one run):
+// the flat form at 8 took 0.78-0.81x its time at 4 at the bb144 DEM's shape
+// in float32 but 1.26x in bfloat16 (1.24x at the Gallager code's); the
+// staged form at 8 1.26-1.70x its time at 4 (its 1024-thread blocks cap a
+// thread at 64 registers); K4 with 12 in registers 0.76-0.82x its time with
+// 16 (56-61 registers a thread against 78-80).
+#ifndef LDPC_MINSUM_FLAT_UNROLL_F32
+#define LDPC_MINSUM_FLAT_UNROLL_F32 8
+#endif
+#ifndef LDPC_MINSUM_FLAT_UNROLL_BF16
+#define LDPC_MINSUM_FLAT_UNROLL_BF16 4
+#endif
+#ifndef LDPC_MINSUM_STAGED_UNROLL
+#define LDPC_MINSUM_STAGED_UNROLL 4
+#endif
+#ifndef LDPC_MINSUM_VAR_CAP
+#define LDPC_MINSUM_VAR_CAP 12
+#endif
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
+
+template <typename T>
+constexpr int kFlatUnroll = sizeof(T) == 4 ? LDPC_MINSUM_FLAT_UNROLL_F32
+                                           : LDPC_MINSUM_FLAT_UNROLL_BF16;
+constexpr int kStagedUnroll = LDPC_MINSUM_STAGED_UNROLL;
+constexpr int kVarCap = LDPC_MINSUM_VAR_CAP;
+constexpr int kThreads = 256;
+constexpr int kMaxStageThreads = 1024;
+constexpr long long kDefaultSmem = 48 * 1024;
+constexpr long long kMaxSmem = 232448;  // what one block may take on the H100
+constexpr long long kSmemPerSm = 233472;  // an SM's, each block reserving 1 KB of it
+constexpr long long kStageMinRow = 48 * 1024;  // rows below this stay flat
+
+enum Form { DIRECT = 0, GATHER = 1, ITER = 2 };
+enum Gamma { GAMMA_NONE = 0, GAMMA_LANE = 1, GAMMA_VAR = 2 };
+enum NuOut { NU_NONE = 0, NU_FRESH = 1, NU_INPLACE = 2 };
 
 __device__ inline float load_f(const float* p, long long i) { return p[i]; }
 __device__ inline float load_f(const bf16* p, long long i) { return __bfloat162float(p[i]); }
@@ -58,152 +120,487 @@ __device__ inline float round_to<bf16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// x: [B, x_stride] messages; with idx (a [dc, m] table into a lane's row)
-// slot (k, i) reads x[lane, idx[k, i]], without it x[lane, k, i].
+// g * old + (1 - g) * new, each operation rounded to T; g1 = round(1 - g)
 template <typename T>
-__global__ void minsum_check_kernel(const T* __restrict__ x, const int32_t* __restrict__ idx,
-                                    const uint8_t* __restrict__ syn,
-                                    const uint8_t* __restrict__ mask, T* __restrict__ mu,
-                                    long long threads, int m, int dc, long long x_stride,
-                                    float alpha, float beta, float big) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= threads) return;
-  const long long lane = t / m;
-  const int i = (int)(t - lane * m);
-  const T* xl = x + lane * x_stride;
+__device__ inline float damp(float g, float g1, float old, float fresh) {
+  return round_to<T>(__fadd_rn(round_to<T>(__fmul_rn(g, old)), round_to<T>(__fmul_rn(g1, fresh))));
+}
 
-  // a padded slot reads as +big: never the sign, the minimum only if alone
-  auto slot = [&](int k) -> float {
-    const int e = k * m + i;
-    if (!mask[e]) return big;
-    return load_f(xl, idx ? idx[e] : e);
-  };
+// |alpha * excl - beta| clamped at 0, rounded as the plain version rounds
+template <typename T>
+__device__ inline float out_mag(float excl, float alpha, float beta) {
+  float r = round_to<T>(__fmul_rn(alpha, excl));
+  r = round_to<T>(__fsub_rn(r, beta));
+  return r > 0.f ? r : 0.f;
+}
 
-  const float v0 = slot(0);
-  float min1 = fabsf(v0), min2 = big;
+template <typename T>
+struct CheckArgs {
+  const T* x;            // DIRECT [B, dc, m]; GATHER [B, x_stride]; ITER the totals [B, n]
+  const int32_t* idx;    // [dc * m] index into a lane's row of x (GATHER, ITER)
+  const uint8_t* syn;    // [B, m] syndrome bits
+  const int32_t* deg;    // [m] real slots of each check (they come first)
+  T* mu;                 // [B, dc, m] out; ITER: mu_prev in, mu out
+  T* nu;                 // ITER with damping: nu_prev in, the mixed messages out
+  const T* gamma;        // GAMMA_LANE: gamma[lane * gamma_stride]; GAMMA_VAR: [B, n]
+  long long gamma_stride;
+  long long B, x_stride;
+  int m, dc;
+  float alpha, beta, big;
+};
+
+// One check of one lane.  ``row`` is the lane's gathered row (x or the
+// totals), in shared memory when staged; ``signs`` the thread's column of
+// sign words (word w at signs[w * stride]).
+template <typename T, int FORM, int GAMMA, int kUnroll>
+__device__ __forceinline__ void check_node(const CheckArgs<T>& a, long long lane, int i,
+                                           const T* row, unsigned* signs, int stride) {
+  const int m = a.m;
+  const int d = a.deg[i];
+  const long long base = lane * (long long)a.dc * m;  // the lane's [dc, m] messages
+  const T* x = a.x + base;
+  T* mu = a.mu + base;
+  T* nu = a.nu + base;
+  float g = 0.f, g1 = 0.f;
+  if (GAMMA == GAMMA_LANE) {
+    g = load_f(a.gamma, lane * a.gamma_stride);
+    g1 = round_to<T>(__fsub_rn(1.f, g));
+  }
+  const T* gvar = a.gamma + lane * a.gamma_stride;  // GAMMA_VAR: the lane's [n] strengths
+
+  float min1 = a.big, min2 = a.big;
   int idx1 = 0;
-  unsigned parity = v0 < 0.f;
-  unsigned long long negbits = parity;
-  for (int k = 1; k < dc; ++k) {
-    const float v = slot(k);
-    const float mag = fabsf(v);
-    const unsigned neg = v < 0.f;
-    const bool smaller = mag < min1;
-    min2 = smaller ? min1 : fminf(min2, mag);
+  unsigned parity = 0, word = 0;
+  for (int k0 = 0; k0 < d; k0 += kUnroll) {
+    float v[kUnroll], prev[kUnroll], old[kUnroll], gk[kUnroll];
+    int vi[kUnroll];
+    // every load of the chunk first: the index and streamed loads, then the
+    // gathers that depend on the index
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = k0 + u;
+      const long long e = (long long)k * m + i;
+      if (k < d) {
+        if (FORM == DIRECT) {
+          v[u] = load_f(x, e);
+        } else {
+          vi[u] = a.idx[e];
+        }
+        if (FORM == ITER) {
+          prev[u] = load_f(mu, e);
+          if (GAMMA != GAMMA_NONE) old[u] = load_f(nu, e);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = k0 + u;
+      if (k < d && FORM != DIRECT) {
+        v[u] = load_f(row, vi[u]);
+        if (FORM == ITER && GAMMA == GAMMA_VAR) gk[u] = load_f(gvar, vi[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = k0 + u;
+      if (k >= d) continue;
+      float val = v[u];
+      if (FORM == ITER) {
+        val = round_to<T>(__fsub_rn(val, prev[u]));  // total[var] - mu_prev
+        if (GAMMA == GAMMA_LANE) val = damp<T>(g, g1, old[u], val);
+        if (GAMMA == GAMMA_VAR)
+          val = damp<T>(gk[u], round_to<T>(__fsub_rn(1.f, gk[u])), old[u], val);
+        if (GAMMA != GAMMA_NONE) {
+          store_f(nu, (long long)k * m + i, val);
+        }
+      }
+      const float mag = fabsf(val);
+      const unsigned neg = val < 0.f;
+      if (k == 0) {
+        min1 = mag;
+      } else {
+        const bool smaller = mag < min1;
+        min2 = smaller ? min1 : fminf(min2, mag);
+        idx1 = smaller ? k : idx1;
+        min1 = smaller ? mag : min1;
+      }
+      parity ^= neg;
+      word |= neg << (k & 31);
+      if ((k & 31) == 31) {
+        signs[(k >> 5) * stride] = word;
+        word = 0;
+      }
+    }
+  }
+  if (d & 31) signs[(d >> 5) * stride] = word;
+  // the padded slots read as +big: folding it in at the first two of them
+  // gives the state the whole padded run would (a third changes nothing)
+  const int first_pad = d > 0 ? d : 1;
+  for (int k = first_pad; k < a.dc && k < first_pad + 2; ++k) {
+    const bool smaller = a.big < min1;
+    min2 = smaller ? min1 : fminf(min2, a.big);
     idx1 = smaller ? k : idx1;
-    min1 = smaller ? mag : min1;
-    parity ^= neg;
-    if (k < 64) negbits |= (unsigned long long)neg << k;
+    min1 = smaller ? a.big : min1;
   }
 
-  const unsigned s = syn[lane * m + i] != 0;
-  T* out = mu + lane * (long long)dc * m;
-  for (int k = 0; k < dc; ++k) {
-    const unsigned neg = k < 64 ? (unsigned)((negbits >> k) & 1ull) : (unsigned)(slot(k) < 0.f);
-    const float excl = idx1 == k ? min2 : min1;
-    float r = round_to<T>(__fmul_rn(alpha, excl));
-    r = round_to<T>(__fsub_rn(r, beta));
-    r = r > 0.f ? r : 0.f;
-    store_f(out, (long long)k * m + i, (parity ^ neg ^ s) ? -r : r);
+  const unsigned s = a.syn[lane * m + i] != 0;
+  const float o1 = out_mag<T>(min1, a.alpha, a.beta), o2 = out_mag<T>(min2, a.alpha, a.beta);
+  const int nout = FORM == ITER ? d : a.dc;  // ITER leaves the padded slots alone
+  for (int k = 0; k < nout; ++k) {
+    if ((k & 31) == 0) word = k < d ? signs[(k >> 5) * stride] : 0u;
+    const unsigned neg = (word >> (k & 31)) & 1u;
+    const float r = idx1 == k ? o2 : o1;
+    store_f(mu, (long long)k * m + i, (parity ^ neg ^ s) ? -r : r);
   }
 }
 
-// mu: [B, mu_stride] check-side messages read through v2c [dv, n];
-// L0 [B, n]; W [dv, n] or null; nu [B, dv, n] or null; total [B, n].
-template <typename T>
-__global__ void minsum_var_kernel(const T* __restrict__ mu, const int32_t* __restrict__ v2c,
-                                  const uint8_t* __restrict__ mask, const T* __restrict__ L0,
-                                  const T* __restrict__ W, T* __restrict__ nu,
-                                  T* __restrict__ total, long long threads, int n, int dv,
-                                  long long mu_stride) {
+// Flat form: one thread per (lane, check) over all lanes; the gathers read
+// the lane's row in device memory (through L2).
+template <typename T, int FORM, int GAMMA>
+__global__ void __launch_bounds__(kThreads)
+minsum_check_kernel(const CheckArgs<T> a) {
+  extern __shared__ unsigned flat_signs[];
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= threads) return;
+  if (t >= a.B * a.m) return;
+  const long long lane = t / a.m;
+  check_node<T, FORM, GAMMA, kFlatUnroll<T>>(a, lane, (int)(t - lane * a.m),
+                                          a.x + lane * a.x_stride, flat_signs + threadIdx.x,
+                                          blockDim.x);
+}
+
+// Staged form: one block per lane; the lane's gathered row is copied into
+// shared memory once, then the block's threads take the checks in turn.
+template <typename T, int FORM, int GAMMA>
+__global__ void __launch_bounds__(kMaxStageThreads)
+minsum_check_staged_kernel(const CheckArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int words = (a.dc + 31) / 32;
+  unsigned* signs = reinterpret_cast<unsigned*>(smem);
+  T* row = reinterpret_cast<T*>(signs + (long long)words * blockDim.x);
+  const long long lane = blockIdx.x;
+  const T* src = a.x + lane * a.x_stride;
+  for (long long j = threadIdx.x; j < a.x_stride; j += blockDim.x) row[j] = src[j];
+  __syncthreads();
+  for (int i = threadIdx.x; i < a.m; i += blockDim.x)
+    check_node<T, FORM, GAMMA, kStagedUnroll>(a, lane, i, row, signs + threadIdx.x,
+                                              blockDim.x);
+}
+
+template <typename T>
+struct VarArgs {
+  const T* mu;           // [B, mu_stride] check-side messages, read through v2c
+  const int32_t* v2c;    // [dv * n]
+  const int32_t* deg;    // [n] real slots of each variable (they come first)
+  const T* L0;           // [B, n]
+  const T* W;            // [dv, n] per-edge weights or null
+  T* nu;                 // NU_FRESH: out [B, dv, n]; NU_INPLACE: nu_prev in, out
+  const T* gamma;        // as CheckArgs (GAMMA_VAR: [B, n], the thread's own entry)
+  long long gamma_stride;
+  T* total;              // [B, n] out, or null
+  const uint8_t* done;   // [B] or null; with it err [B, n] and llrs [B, n]
+  float* err;
+  T* llrs;
+  long long B, mu_stride;
+  int n, dv;
+};
+
+template <typename T, int NU, bool WEIGHTED, int GAMMA>
+__global__ void __launch_bounds__(kThreads)
+minsum_var_kernel(const VarArgs<T> a) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= a.B * a.n) return;
+  const int n = a.n;
   const long long lane = t / n;
   const int j = (int)(t - lane * n);
-  const T* ml = mu + lane * mu_stride;
+  const int d = a.deg[j];
+  const T* ml = a.mu + lane * a.mu_stride;
 
   // the masked, weighted message as a float32 product (exact for bfloat16
   // factors): the sum takes it as it is, the difference rounds it first
-  auto slot = [&](int k) -> float {
-    const int e = k * n + j;
-    float v = mask[e] ? load_f(ml, v2c[e]) : 0.f;
-    if (W) v = __fmul_rn(v, load_f(W, e));
+  auto msg = [&](int k, int at) -> float {
+    float v = load_f(ml, at);
+    if (WEIGHTED) v = __fmul_rn(v, load_f(a.W, (long long)k * n + j));
     return v;
   };
 
-  // windows of 32 slots, the padding to a multiple of 32 split before and
-  // after; each window summed from 0 into `part`, which is added to `acc` at
-  // the window's last slot (at most 32 windows: the launcher refuses
-  // dv > 1024).  dv <= 32 is one window, the plain sum.  One loop with the
-  // window edge as a counter: a loop per window ran K4 6-11% slower
-  // (tools/minsum_kernel_compare.py)
-  float acc = 0.f, part = 0.f;
-  const int low = (((dv + 31) / 32) * 32 - dv) / 2;
-  for (int k = 0, edge = 32 - low; k < dv; ++k) {
-    part = __fadd_rn(part, slot(k));
-    if (k + 1 == edge) {
-      acc = __fadd_rn(acc, part);
-      part = 0.f;
-      edge += 32;
+  float vals[kVarCap];
+  float acc = 0.f;
+  const bool in_regs = a.dv <= kVarCap;
+  if (in_regs) {  // one window: every load in flight, then the sum in order
+    int at[kVarCap];
+#pragma unroll
+    for (int k = 0; k < kVarCap; ++k)
+      if (k < d) at[k] = a.v2c[(long long)k * n + j];
+#pragma unroll
+    for (int k = 0; k < kVarCap; ++k)
+      if (k < d) vals[k] = msg(k, at[k]);
+#pragma unroll
+    for (int k = 0; k < kVarCap; ++k)
+      if (k < d) acc = __fadd_rn(acc, vals[k]);
+  } else {
+    // windows of 32 slots, the padding to a multiple of 32 split before and
+    // after; each window summed from 0 into `part`, which is added to `acc`
+    // at the window's last slot (at most 32 windows: the launcher refuses
+    // dv > 1024).  dv <= 32 is one window, the plain sum
+    float part = 0.f;
+    const int low = (((a.dv + 31) / 32) * 32 - a.dv) / 2;
+    for (int k = 0, edge = 32 - low; k < d; ++k) {
+      part = __fadd_rn(part, msg(k, a.v2c[(long long)k * n + j]));
+      if (k + 1 == edge) {
+        acc = __fadd_rn(acc, part);
+        part = 0.f;
+        edge += 32;
+      }
+    }
+    acc = __fadd_rn(acc, part);
+  }
+  const float tot = round_to<T>(__fadd_rn(load_f(a.L0, t), round_to<T>(acc)));
+
+  if (NU != NU_NONE) {
+    T* out = a.nu + lane * (long long)a.dv * n;
+    float g = 0.f, g1 = 0.f;
+    if (GAMMA != GAMMA_NONE) {
+      g = load_f(a.gamma, GAMMA == GAMMA_VAR ? lane * a.gamma_stride + j
+                                             : lane * a.gamma_stride);
+      g1 = round_to<T>(__fsub_rn(1.f, g));
+    }
+    // leave-one-out: total - msg; a padded slot (NU_FRESH only) is total - 0
+    auto emit = [&](int k, float mk) {
+      const long long e = (long long)k * n + j;
+      float r = round_to<T>(__fsub_rn(tot, round_to<T>(mk)));
+      if (NU == NU_INPLACE && GAMMA != GAMMA_NONE) r = damp<T>(g, g1, load_f(out, e), r);
+      store_f(out, e, r);
+    };
+    const int nout = NU == NU_FRESH ? a.dv : d;
+    if (in_regs) {
+#pragma unroll
+      for (int k = 0; k < kVarCap; ++k)
+        if (k < nout) emit(k, k < d ? vals[k] : 0.f);
+    } else {
+      for (int k = 0; k < nout; ++k)
+        emit(k, k < d ? msg(k, a.v2c[(long long)k * n + j]) : 0.f);
     }
   }
-  acc = __fadd_rn(acc, part);
-  const float tot = round_to<T>(__fadd_rn(load_f(L0, t), round_to<T>(acc)));
-  store_f(total, t, tot);
-  if (nu) {
-    T* out = nu + lane * (long long)dv * n;
-    for (int k = 0; k < dv; ++k)
-      store_f(out, (long long)k * n + j, round_to<T>(__fsub_rn(tot, round_to<T>(slot(k)))));
+  if (a.total) store_f(a.total, t, tot);
+  if (a.done && !a.done[lane]) {  // the freeze: done lanes keep their outputs
+    a.err[t] = tot < 0.f ? 1.f : 0.f;
+    store_f(a.llrs, t, tot);
   }
 }
 
-const int kThreads = 256;
+unsigned grid_for(long long threads, int block) {
+  return (unsigned)((threads + block - 1) / block);
+}
 
-unsigned grid_for(long long threads) { return (unsigned)((threads + kThreads - 1) / kThreads); }
+int words_of(int dc) { return (dc + 31) / 32; }
+
+// Threads of a staged block and its shared memory, or 0 threads where the
+// lane's row does not fit beside the sign words of 128 threads.
+void stage_plan(long long row_bytes, int m, int dc, int* threads, long long* bytes) {
+  int t = (int)((m + 31) / 32 * 32);
+  t = t < kMaxStageThreads ? t : kMaxStageThreads;
+  long long b = row_bytes + 4LL * words_of(dc) * t;
+  while (b > kMaxSmem && t > 128) {
+    t = (t / 2 + 31) / 32 * 32;
+    b = row_bytes + 4LL * words_of(dc) * t;
+  }
+  *threads = b <= kMaxSmem ? t : 0;
+  *bytes = b;
+}
+
+// Threads of a flat block whose sign words fit 48 KB (opt-in above that).
+int flat_threads(int dc, long long* bytes) {
+  int t = kThreads;
+  while (t > 32 && 4LL * words_of(dc) * t > kDefaultSmem) t /= 2;
+  *bytes = 4LL * words_of(dc) * t;
+  return t;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, long long bytes) {
+  if (bytes <= kDefaultSmem) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// stage: 1 staged, 0 flat, -1 the launcher's choice: staged where the row
+// is at least 48 KB and two blocks fit an SM.  Measured (as above): staged
+// 0.93x the flat form's time on the bb144 DEM's bfloat16 totals (63,296 B,
+// two blocks an SM), 1.11x on its float32 totals (one block an SM), 1.2x
+// and 1.8x on the Gallager code's rows of 36 KB (float32, bfloat16), whose
+// gathers the caches hold anyway
+template <typename T, int FORM, int GAMMA>
+int launch_check(const CheckArgs<T>& a, int stage, cudaStream_t st) {
+  if (FORM != DIRECT && stage != 0) {
+    const long long row = a.x_stride * (long long)sizeof(T);
+    int threads;
+    long long bytes;
+    stage_plan(row, a.m, a.dc, &threads, &bytes);
+    if (stage == -1 && (row < kStageMinRow || 2 * (bytes + 1024) > kSmemPerSm)) threads = 0;
+    if (threads > 0) {
+      auto kernel = minsum_check_staged_kernel<T, FORM, GAMMA>;
+      cudaError_t rc = allow_smem(kernel, bytes);
+      if (rc != cudaSuccess) return rc;
+      kernel<<<(unsigned)a.B, threads, bytes, st>>>(a);
+      return cudaGetLastError();
+    }
+    if (stage == 1) return cudaErrorInvalidValue;
+  }
+  long long bytes;
+  const int threads = flat_threads(a.dc, &bytes);
+  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = minsum_check_kernel<T, FORM, GAMMA>;
+  cudaError_t rc = allow_smem(kernel, bytes);
+  if (rc != cudaSuccess) return rc;
+  kernel<<<grid_for(a.B * a.m, threads), threads, bytes, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int check_iter(const CheckArgs<T>& a, int gamma_kind, int stage, cudaStream_t st) {
+  switch (gamma_kind) {
+    case GAMMA_NONE: return launch_check<T, ITER, GAMMA_NONE>(a, stage, st);
+    case GAMMA_LANE: return launch_check<T, ITER, GAMMA_LANE>(a, stage, st);
+    case GAMMA_VAR: return launch_check<T, ITER, GAMMA_VAR>(a, stage, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int NU, bool WEIGHTED>
+int launch_var_g(const VarArgs<T>& a, int gamma_kind, cudaStream_t st) {
+  const unsigned grid = grid_for(a.B * a.n, kThreads);
+  if constexpr (NU == NU_INPLACE) {
+    if (gamma_kind == GAMMA_LANE) {
+      minsum_var_kernel<T, NU, WEIGHTED, GAMMA_LANE><<<grid, kThreads, 0, st>>>(a);
+      return cudaGetLastError();
+    }
+    if (gamma_kind == GAMMA_VAR) {
+      minsum_var_kernel<T, NU, WEIGHTED, GAMMA_VAR><<<grid, kThreads, 0, st>>>(a);
+      return cudaGetLastError();
+    }
+  }
+  if (gamma_kind != GAMMA_NONE) return cudaErrorInvalidValue;  // damping needs nu in place
+  minsum_var_kernel<T, NU, WEIGHTED, GAMMA_NONE><<<grid, kThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_var(const VarArgs<T>& a, int nu_mode, int gamma_kind, cudaStream_t st) {
+  const bool w = a.W != nullptr;
+  switch (nu_mode) {
+    case NU_NONE:
+      return w ? launch_var_g<T, NU_NONE, true>(a, gamma_kind, st)
+               : launch_var_g<T, NU_NONE, false>(a, gamma_kind, st);
+    case NU_FRESH:
+      return w ? launch_var_g<T, NU_FRESH, true>(a, gamma_kind, st)
+               : launch_var_g<T, NU_FRESH, false>(a, gamma_kind, st);
+    case NU_INPLACE:
+      return w ? launch_var_g<T, NU_INPLACE, true>(a, gamma_kind, st)
+               : launch_var_g<T, NU_INPLACE, false>(a, gamma_kind, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+CheckArgs<T> check_args(const void* x, const void* idx, const void* syn, const void* deg,
+                        void* mu, void* nu, const void* gamma, long long gamma_stride, int B,
+                        int m, int dc, long long x_stride, float alpha, float beta, float big) {
+  CheckArgs<T> a;
+  a.x = static_cast<const T*>(x);
+  a.idx = static_cast<const int32_t*>(idx);
+  a.syn = static_cast<const uint8_t*>(syn);
+  a.deg = static_cast<const int32_t*>(deg);
+  a.mu = static_cast<T*>(mu);
+  a.nu = static_cast<T*>(nu);
+  a.gamma = static_cast<const T*>(gamma);
+  a.gamma_stride = gamma_stride;
+  a.B = B;
+  a.x_stride = x_stride;
+  a.m = m;
+  a.dc = dc;
+  a.alpha = alpha;
+  a.beta = beta;
+  a.big = big;
+  return a;
+}
 
 }  // namespace
 
 extern "C" {
 
-int ldpc_minsum_check(const void* x, const void* idx, const void* syn, const void* mask,
-                      void* mu, int B, int m, int dc, long long x_stride, float alpha,
-                      float beta, float big, int is_bf16, void* stream) {
-  const long long threads = (long long)B * m;
+// mu = check update of x: direct [B, dc, m] (idx null) or [B, x_stride]
+// read through idx [dc * m].  Every slot of mu is written.
+int ldpc_minsum_check(const void* x, const void* idx, const void* syn, const void* deg, void* mu,
+                      int B, int m, int dc, long long x_stride, float alpha, float beta,
+                      float big, int stage, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    minsum_check_kernel<bf16><<<grid_for(threads), kThreads, 0, st>>>(
-        static_cast<const bf16*>(x), static_cast<const int32_t*>(idx),
-        static_cast<const uint8_t*>(syn), static_cast<const uint8_t*>(mask),
-        static_cast<bf16*>(mu), threads, m, dc, x_stride, alpha, beta, big);
-  } else {
-    minsum_check_kernel<float><<<grid_for(threads), kThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const int32_t*>(idx),
-        static_cast<const uint8_t*>(syn), static_cast<const uint8_t*>(mask),
-        static_cast<float*>(mu), threads, m, dc, x_stride, alpha, beta, big);
+    auto a = check_args<bf16>(x, idx, syn, deg, mu, nullptr, nullptr, 0, B, m, dc, x_stride,
+                              alpha, beta, big);
+    return idx ? launch_check<bf16, GATHER, GAMMA_NONE>(a, stage, st)
+               : launch_check<bf16, DIRECT, GAMMA_NONE>(a, stage, st);
   }
-  return cudaGetLastError();
+  auto a = check_args<float>(x, idx, syn, deg, mu, nullptr, nullptr, 0, B, m, dc, x_stride,
+                             alpha, beta, big);
+  return idx ? launch_check<float, GATHER, GAMMA_NONE>(a, stage, st)
+             : launch_check<float, DIRECT, GAMMA_NONE>(a, stage, st);
 }
 
-int ldpc_minsum_var(const void* mu, const void* v2c, const void* mask, const void* L0,
-                    const void* W, void* nu, void* total, int B, int n, int dv,
-                    long long mu_stride, int is_bf16, void* stream) {
+// The check layout's iteration, in place: mu [B, dc, m] (previous in, new
+// out on the real slots), total [B, n], idx [dc * m] the variable of each
+// check slot; gamma_kind 0 none, 1 per lane (gamma_stride 0: one for all),
+// 2 per variable [B, n]; with damping nu [B, dc, m] (previous in, mixed out).
+int ldpc_minsum_check_iter(void* mu, void* nu, const void* total, const void* idx,
+                           const void* syn, const void* deg, const void* gamma, int gamma_kind,
+                           long long gamma_stride, int B, int m, int dc, int n, float alpha,
+                           float beta, float big, int stage, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((gamma_kind != GAMMA_NONE) != (nu != nullptr)) return cudaErrorInvalidValue;
+  if (is_bf16) {
+    auto a = check_args<bf16>(total, idx, syn, deg, mu, nu, gamma, gamma_stride, B, m, dc, n,
+                              alpha, beta, big);
+    return check_iter<bf16>(a, gamma_kind, stage, st);
+  }
+  auto a = check_args<float>(total, idx, syn, deg, mu, nu, gamma, gamma_stride, B, m, dc, n,
+                             alpha, beta, big);
+  return check_iter<float>(a, gamma_kind, stage, st);
+}
+
+// Variable update.  nu_mode 0: no messages out; 1: nu [B, dv, n] = total -
+// msg on every slot; 2: in place over nu_prev on the real slots, mixed with
+// it by gamma (kinds as above).  total [B, n] out where not null; with done
+// [B], err [B, n] float32 and llrs [B, n] take the active lanes' outputs.
+int ldpc_minsum_var(const void* mu, const void* v2c, const void* deg, const void* L0,
+                    const void* W, void* nu, int nu_mode, const void* gamma, int gamma_kind,
+                    long long gamma_stride, void* total, const void* done, void* err, void* llrs,
+                    int B, int n, int dv, long long mu_stride, int is_bf16, void* stream) {
   if (dv > 1024) return cudaErrorInvalidValue;
-  const long long threads = (long long)B * n;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    minsum_var_kernel<bf16><<<grid_for(threads), kThreads, 0, st>>>(
-        static_cast<const bf16*>(mu), static_cast<const int32_t*>(v2c),
-        static_cast<const uint8_t*>(mask), static_cast<const bf16*>(L0),
-        static_cast<const bf16*>(W), static_cast<bf16*>(nu), static_cast<bf16*>(total), threads,
-        n, dv, mu_stride);
-  } else {
-    minsum_var_kernel<float><<<grid_for(threads), kThreads, 0, st>>>(
-        static_cast<const float*>(mu), static_cast<const int32_t*>(v2c),
-        static_cast<const uint8_t*>(mask), static_cast<const float*>(L0),
-        static_cast<const float*>(W), static_cast<float*>(nu), static_cast<float*>(total),
-        threads, n, dv, mu_stride);
+    VarArgs<bf16> a{static_cast<const bf16*>(mu), static_cast<const int32_t*>(v2c),
+                    static_cast<const int32_t*>(deg), static_cast<const bf16*>(L0),
+                    static_cast<const bf16*>(W), static_cast<bf16*>(nu),
+                    static_cast<const bf16*>(gamma), gamma_stride, static_cast<bf16*>(total),
+                    static_cast<const uint8_t*>(done), static_cast<float*>(err),
+                    static_cast<bf16*>(llrs), B, mu_stride, n, dv};
+    return launch_var<bf16>(a, nu_mode, gamma_kind, st);
   }
-  return cudaGetLastError();
+  VarArgs<float> a{static_cast<const float*>(mu), static_cast<const int32_t*>(v2c),
+                   static_cast<const int32_t*>(deg), static_cast<const float*>(L0),
+                   static_cast<const float*>(W), static_cast<float*>(nu),
+                   static_cast<const float*>(gamma), gamma_stride, static_cast<float*>(total),
+                   static_cast<const uint8_t*>(done), static_cast<float*>(err),
+                   static_cast<float*>(llrs), B, mu_stride, n, dv};
+  return launch_var<float>(a, nu_mode, gamma_kind, st);
+}
+
+// The staged check form's plan for a gathered row of row_bytes: threads (0:
+// the flat form) and shared-memory bytes.
+void ldpc_minsum_stage_plan(long long row_bytes, int m, int dc, int* out) {
+  int threads;
+  long long bytes;
+  stage_plan(row_bytes, m, dc, &threads, &bytes);
+  out[0] = threads;
+  out[1] = (int)bytes;
 }
 
 }  // extern "C"

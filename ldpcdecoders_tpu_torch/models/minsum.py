@@ -6,15 +6,24 @@ products with a sign-parity + two-minimum reduction: no transcendentals, no
 NaN guards, at a loss of about 0.1-0.2 dB against sum-product that the
 normalization factor alpha mostly recovers (Chen & Fossorier 2002).
 
-Messages live in the slot-major ``[B, slot, node]`` layout.  The two
-message updates of an iteration are the hand-written kernels of
-ops/cuda_minsum.py on a card (their plain versions on the CPU), each doing
-its own cross-layout gather; damping, the check-layout reconstruction, the
-output freeze, the syndrome check and ``track_best`` are plain torch around
-them.  The reference's ``while_loop`` becomes a Python loop that stops once
-every lane has converged.  Convergence can change only where the syndrome
-check ran, so the host reads that flag (one synchronization on a card) on
-those iterations alone: every ``check_every``-th and the last.
+Messages live in the slot-major ``[B, slot, node]`` layout.  An iteration
+is two launches of the hand-written kernels of ops/cuda_minsum.py on a card
+(their plain versions on the CPU), each doing its own cross-layout gather:
+
+  * the check update (K3).  In the check layout from the second iteration
+    on, it also rebuilds the messages as ``total[var] - mu`` and applies the
+    damping mix, updating ``mu`` (and, damped, ``nu``) in place;
+  * the variable update (K4): the totals, in the variable layout the
+    leave-one-out messages and the damping mix in place, and on the
+    iterations that run the syndrome check the freeze of ``err`` / ``llrs``.
+
+The syndrome check, ``iters`` / ``done`` and ``track_best`` are plain torch
+and run only where the check runs: ``done`` changes nowhere else, and the
+outputs an iteration between two checks would freeze are overwritten by the
+next check's.  The reference's ``while_loop`` becomes a Python loop that
+stops once every lane has converged; the host reads that flag (one
+synchronization on a card) at the checks alone: every ``check_every``-th
+iteration and the last.
 """
 
 from __future__ import annotations
@@ -23,7 +32,8 @@ import numpy as np
 import torch
 
 from ..codes.graph import TannerGraph
-from ..ops.cuda_minsum import minsum_check_cuda, minsum_var_cuda
+from ..ops.cuda_minsum import minsum_check_cuda, minsum_check_iter_cuda, minsum_var_iter_cuda
+from ..ops.minsum import slot_degrees
 from ..ops.syndrome import SyndromeCheck
 from .base import Decoder, resolve_device
 from .bp import as_graph
@@ -143,6 +153,9 @@ class MinSumDecode(torch.nn.Module):
         buf("v2c", v2c_t.astype(np.int32))
         buf("chk_mask", chk_mask_t)  # [max_dc, m]
         buf("var_mask", var_mask_t)  # [max_dv, n]
+        # the kernels run each node's loops to its degree (real slots first)
+        buf("chk_deg", slot_degrees(torch.as_tensor(chk_mask_t)))
+        buf("var_deg", slot_degrees(torch.as_tensor(var_mask_t)))
         # var index per check slot: the check layout gathers totals through it
         buf("chk_varidx", np.ascontiguousarray(graph.chk_vars.T).reshape(-1).astype(np.int32)
             if layout == "check" else None)
@@ -173,68 +186,67 @@ class MinSumDecode(torch.nn.Module):
         g = self.gam if self.damping else None
         if self.lane_damping:
             g = torch.as_tensor(gamma, device=device).to(self.dtype)
-            if g.ndim == 1:
-                g = g.reshape(B, 1, 1)
-            elif check_layout:
-                # per-variable strengths, expanded to the check slots once
-                g = g.reshape(B, n).index_select(1, self.chk_varidx)
-                g = g.reshape(B, self.max_dc, m)
-            else:
-                g = g.reshape(B, 1, n)
+            g = (g.reshape(B) if g.ndim == 1 else g.reshape(B, n)).contiguous()
 
-        if check_layout:
-            nu = L0.index_select(1, self.chk_varidx).reshape(B, self.max_dc, m)
-        else:
-            nu = torch.broadcast_to(L0[:, None, :], (B, self.max_dv, n)).contiguous()
+        # llrs is written in place by the freeze: a copy, never L0 itself
         err = torch.zeros((B, n), dtype=torch.float32, device=device)
-        llrs = L0
+        llrs = L0.clone()
         done = torch.zeros((B,), dtype=torch.bool, device=device)
         iters = torch.zeros((B,), dtype=torch.int32, device=device)
         if self.track_best:
             bmis = torch.full((B,), _BIG_MISMATCH, dtype=torch.int32, device=device)
             berr = torch.zeros((B, n), dtype=torch.float32, device=device)
             bllr = L0.to(torch.float32)
+        chk_kw = dict(chk_deg=self.chk_deg)
+        var_kw = dict(var_deg=self.var_deg)
+        if check_layout:
+            # state: mu [B, dc, m], the totals, and nu [B, dc, m] where damped
+            # (the first iteration's messages are L0 at each slot's variable)
+            mu = None
+            total = torch.empty((B, n), dtype=self.dtype, device=device)
+            nu = (None if g is None else
+                  L0.index_select(1, self.chk_varidx).reshape(B, self.max_dc, m))
+        else:
+            nu = torch.broadcast_to(L0[:, None, :], (B, self.max_dv, n)).contiguous()
 
         it = 0
         while it < self.max_iters and B:
             alpha, beta = ((self.alpha[it], self.beta[it]) if self.per_iter_ab
                            else (self.alpha, self.beta))
+            checked = (it + 1) % self.check_every == 0 or it + 1 >= self.max_iters
+            # the freeze only where the check reads it (done is fixed between)
+            freeze = dict(done=done, err=err, llrs=llrs) if checked else {}
             if check_layout:
-                mu = minsum_check_cuda(nu, None, syn_flip, self.chk_mask, alpha, beta)
-                _, total = minsum_var_cuda(mu.reshape(B, self.max_dc * m), self.v2c,
-                                           self.var_mask, L0, want_nu=False)
-                nu_n = total.index_select(1, self.chk_varidx).reshape(B, self.max_dc, m) - mu
+                if mu is None:
+                    mu = minsum_check_cuda(L0, self.chk_varidx, syn_flip, self.chk_mask,
+                                           alpha, beta, **chk_kw)
+                else:
+                    minsum_check_iter_cuda(mu, total, self.chk_varidx, syn_flip,
+                                           self.chk_mask, alpha, beta, gamma=g, nu=nu,
+                                           **chk_kw)
+                minsum_var_iter_cuda(mu.reshape(B, self.max_dc * m), self.v2c, self.var_mask,
+                                     L0, total=total, **freeze, **var_kw)
             else:
                 mu = minsum_check_cuda(nu.reshape(B, self.max_dv * n), self.c2v, syn_flip,
-                                       self.chk_mask, alpha, beta)
+                                       self.chk_mask, alpha, beta, **chk_kw)
                 W = None if self.edge_weights is None else self.edge_weights[it]
-                nu_n, total = minsum_var_cuda(mu.reshape(B, self.max_dc * m), self.v2c,
-                                              self.var_mask, L0, W)
-            if g is not None:
-                nu_n = g * nu + (1.0 - g) * nu_n
-            errn = (total < 0).to(torch.float32)
+                minsum_var_iter_cuda(mu.reshape(B, self.max_dc * m), self.v2c, self.var_mask,
+                                     L0, W=W, nu=nu, gamma=g, **freeze, **var_kw)
+            it += 1
+            if not checked:
+                continue
             active = ~done
-            # only the [B, n] outputs freeze on convergence; the message
-            # state of done lanes no longer reaches any output
-            err = torch.where(active[:, None], errn, err)
-            llrs = torch.where(active[:, None], total, llrs)
-            checked = (it + 1) % self.check_every == 0 or it + 1 >= self.max_iters
-            if checked:
-                mis = (self.syndrome_from(err) != syn_f).sum(dim=-1).to(torch.int32)
-            else:
-                mis = torch.full((B,), _BIG_MISMATCH, dtype=torch.int32, device=device)
+            mis = (self.syndrome_from(err) != syn_f).sum(dim=-1).to(torch.int32)
             ok = mis == 0
-            iters = torch.where(ok & active, it + 1, iters)
+            iters = torch.where(ok & active, it, iters)
             done = done | ok
-            nu = nu_n
             if self.track_best:
                 better = active & (mis < bmis)
                 bmis = torch.where(better, mis, bmis)
                 berr = torch.where(better[:, None], err, berr)
                 bllr = torch.where(better[:, None], llrs.to(torch.float32), bllr)
-            it += 1
             # ``done`` changes only where the check ran: read it there alone
-            if checked and bool(done.all()):
+            if bool(done.all()):
                 break
         iters = torch.where(done, iters, it).to(torch.int32)
         if self.track_best:

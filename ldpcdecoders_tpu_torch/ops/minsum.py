@@ -25,6 +25,21 @@ bit:
 Messages are slot-major ``[B, slot, node]``; the ``*_update_ref`` forms
 take the other side's flattened messages and gather through the static
 tables of codes/graph.py first.
+
+The ``*_iter_ref`` forms are one min-sum iteration of the reference's
+``decode`` / ``decode_check`` bodies around the two updates, in the order
+the reference computes it, updating their state in place as the kernels do:
+
+  * :func:`check_iter_ref`, the check layout from the second iteration on:
+    the rebuild ``total[var] - mu``, the damping mix
+    ``g * nu + (1 - g) * new`` (``g`` a scalar, per lane ``[B]`` or per
+    variable ``[B, n]``), then the check update;
+  * :func:`var_iter_ref`: the variable update's ``total``, the
+    leave-one-out messages mixed with the previous ones by the damping
+    factor (the variable layout), and the freeze of ``err`` / ``llrs`` on
+    the lanes not yet done.
+
+The kernels update the real slots only; a padded slot's value is never read.
 """
 
 from __future__ import annotations
@@ -37,6 +52,9 @@ __all__ = [
     "var_core_ref",
     "check_update_ref",
     "var_update_ref",
+    "check_iter_ref",
+    "var_iter_ref",
+    "slot_degrees",
     "slot_sum",
 ]
 
@@ -122,3 +140,73 @@ def var_update_ref(mu_flat, v2c, var_mask, L0, W=None, want_nu=True):
     dv, n = var_mask.shape
     Mg = mu_flat.index_select(1, v2c).reshape(mu_flat.shape[0], dv, n)
     return var_core_ref(Mg, var_mask, L0, W, want_nu)
+
+
+def slot_degrees(mask: torch.Tensor) -> torch.Tensor:
+    """Real slots of each node, ``[node]`` int32, of a ``[slot, node]`` mask
+    whose real slots come first (as codes/graph.py lays them out: the
+    kernels run each node's loops to its degree); raises otherwise."""
+    deg = mask.sum(dim=0, dtype=torch.int32)
+    prefix = torch.arange(mask.shape[0], device=mask.device)[:, None] < deg
+    if not torch.equal(mask, prefix):
+        raise ValueError("the min-sum kernels take masks whose real slots come first "
+                         "(codes/graph.py's layout)")
+    return deg
+
+
+def _gamma_like(gamma, B, shape_one, per_var):
+    """The damping factor broadcast as the reference broadcasts it: a
+    0-dim tensor as it is, ``[B]`` per lane, ``[B, n]`` through ``per_var``."""
+    if gamma.ndim == 0:
+        return gamma
+    if gamma.ndim == 1:
+        return gamma.reshape(B, *shape_one)
+    return per_var(gamma)
+
+
+def check_iter_ref(mu, total, chk_varidx, syn_flip, chk_mask, alpha, beta, gamma=None,
+                   nu=None):
+    """The check layout's iteration, in place; returns ``mu``.
+
+    ``mu [B, dc, m]`` holds the previous check->variable messages and
+    receives the new ones; ``total [B, n]`` the previous totals;
+    ``chk_varidx [dc*m]`` the variable of each check slot.  The message of a
+    slot is ``total[var] - mu``; with ``gamma`` (the message dtype: 0-dim,
+    ``[B]`` or ``[B, n]``) it is mixed with ``nu [B, dc, m]``, the previous
+    messages, which receives the mix.
+    """
+    B, dc, m = mu.shape
+    new = total.index_select(1, chk_varidx).reshape(B, dc, m) - mu
+    if gamma is not None:
+        g = _gamma_like(gamma, B, (1, 1), lambda t: t.index_select(1, chk_varidx).reshape(
+            B, dc, m))
+        new = g * nu + (1.0 - g) * new
+        nu.copy_(new)
+    mu.copy_(check_core_ref(new, syn_flip, chk_mask, alpha, beta))
+    return mu
+
+
+def var_iter_ref(mu_flat, v2c, var_mask, L0, *, W=None, nu=None, gamma=None, total=None,
+                 done=None, err=None, llrs=None):
+    """The variable update of an iteration, in place; returns ``total``.
+
+    ``total [B, n]``, where given, receives ``L0 + sum``.  ``nu [B, dv, n]``,
+    where given, holds the previous variable->check messages and receives
+    ``total - msg``, mixed with them by ``gamma`` (0-dim, ``[B]`` or
+    ``[B, n]``) where given.  With ``done [B]`` the lanes not done take
+    ``err = total < 0`` (float32) and ``llrs = total``.
+    """
+    new, tot = var_update_ref(mu_flat, v2c, var_mask, L0, W, nu is not None)
+    if nu is not None:
+        if gamma is not None:
+            B, _, n = nu.shape
+            g = _gamma_like(gamma, B, (1, 1), lambda t: t.reshape(B, 1, n))
+            new = g * nu + (1.0 - g) * new
+        nu.copy_(new)
+    if total is not None:
+        total.copy_(tot)
+    if done is not None:
+        active = ~done[:, None]
+        err.copy_(torch.where(active, (tot < 0).to(torch.float32), err))
+        llrs.copy_(torch.where(active, tot, llrs))
+    return total

@@ -10,8 +10,8 @@ from the card's memory instead of fixed constants:
   * :func:`minsum_bytes_per_lane`: the peak-memory model of one batch lane
     of a min-sum decode: the variable-side messages ``[max_dv, n]`` and the
     check-side ``[max_dc, m]`` in the message dtype, times a headroom
-    factor for what else is alive (the other side's copy, temporaries),
-    measured on the card (4.0; the reference's is 1.25).
+    factor for what else is alive (the state, the syndrome check's
+    temporaries), measured on the card (3.25; the reference's is 1.25).
   * :func:`max_lanes_for`: the largest power-of-two lane count a budget
     fraction admits.
 """
@@ -29,14 +29,15 @@ __all__ = [
 ]
 
 #: live memory of a min-sum decode over the model's two message arrays.
-#: The reference's 1.25 (its compiler fuses the damping mix and the
-#: check-layout rebuild) underestimates the port's eager decode: on an
-#: NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md) the bb144 R=6
-#: DEM peaked at 2.66x the message bytes for a float32 stage-0 batch of
-#: 2048 lanes and 3.86x for a bfloat16 deep bucket of 6 x 256 lanes (check
-#: layout: the state, the messages, the rebuilt totals, the damping
-#: products and the per-variable gammas expanded to the check slots)
-_HEADROOM = 4.0
+#: The reference's 1.25 (its compiler fuses the iteration) underestimates
+#: the port's decode.  On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py,
+#: PERF.md) the bb144 R=6 DEM peaked at 1.80x the message bytes for a
+#: float32 stage-0 batch of 2048 lanes and 3.01x for a bfloat16 deep bucket
+#: of 6 x 256 lanes (check layout: mu and nu, the totals, and the syndrome
+#: check's float32 gathers, which do not shrink with the message type).
+#: The fused iteration dropped the damping's temporaries: 2.66x and 3.86x
+#: before, when this was 4.0
+_HEADROOM = 3.25
 
 
 def device_hbm_bytes(device=None, *, hbm_bytes: int | None = None) -> int:

@@ -176,7 +176,7 @@ def test_max_lanes_for_matches_reference(monkeypatch, fraction, lo, hi, hbm_byte
     g = lt.TannerGraph.from_pcm(A)
     gp = pt.TannerGraph.from_arrays(**dataclasses.asdict(g))
     kw = dict(dtype_bytes=dtype_bytes, fraction=fraction, hbm_bytes=hbm_bytes, lo=lo, hi=hi)
-    assert (ref_hbm._HEADROOM, hbm._HEADROOM) == (1.25, 4.0)
+    assert (ref_hbm._HEADROOM, hbm._HEADROOM) == (1.25, 3.25)
     monkeypatch.setattr(ref_hbm, "_HEADROOM", hbm._HEADROOM)
     assert hbm.max_lanes_for(gp, **kw) == ref_hbm.max_lanes_for(g, **kw)
     assert hbm.minsum_bytes_per_lane(gp, dtype_bytes) == ref_hbm.minsum_bytes_per_lane(

@@ -306,19 +306,28 @@ def test_minsum_wrappers_check_inputs(dev):
 
 @pytest.mark.parametrize("kw", [dict(), dict(dtype=torch.bfloat16), dict(damping=0.4),
                                 dict(layout="check", check_every=4),
-                                dict(alpha=0.8, beta=0.1, track_best=True)])
+                                dict(alpha=0.8, beta=0.1, track_best=True),
+                                dict(layout="check", damping=0.4, check_every=8),
+                                dict(layout="check", dtype=torch.bfloat16, lane_damping=True,
+                                     track_best=True, check_every=8),
+                                dict(lane_damping=True, edge_weights=True)])
 def test_minsum_on_card_matches_cpu(dev, kw):
     H = pt.parity_check_matrix(240, 8, 4, rng=37)
     rng = np.random.default_rng(3)
     errs = rng.random((32, 240)) < 0.05
     syns = torch.as_tensor(((errs @ H.T) % 2).astype(np.uint8))
     graph = pt.TannerGraph.from_pcm(H)
+    gamma = None
+    if kw.get("lane_damping"):  # per-variable strengths, negative ones among them
+        gamma = torch.as_tensor(rng.uniform(-0.24, 0.66, (32, 240)).astype(np.float32))
+    if kw.get("edge_weights"):
+        kw = dict(kw, edge_weights=rng.uniform(0.5, 1.2, (30, graph.max_dv, 240)))
     cpu = pt.MinSumDecode(graph, 0.05, 30, device="cpu", **kw)
     gpu = pt.MinSumDecode(graph, 0.05, 30, device=dev, **kw)
-    before = cuda_minsum.minsum_var_cuda.launches
-    want = cpu(syns)
-    got = gpu(syns.to(dev))
-    assert cuda_minsum.minsum_var_cuda.launches > before
+    before = cuda_minsum.minsum_var_iter_cuda.launches
+    want = cpu(syns, None, gamma)
+    got = gpu(syns.to(dev), None, None if gamma is None else gamma.to(dev))
+    assert cuda_minsum.minsum_var_iter_cuda.launches > before
     for a, b in zip(got[:3], want[:3]):
         assert torch.equal(a.cpu(), b)
     assert torch.equal(bits(got[3].cpu()), bits(want[3]))
@@ -627,6 +636,200 @@ def test_minsum_kernels_at_the_bb144_dem_shape(dev, layout):
             mu.reshape(8, -1), ms.v2c, ms.var_mask, L0)))
         for a, b in zip(got, want):
             assert torch.equal(bits(a.cpu()), bits(b))
+        if layout == "check":  # the next iteration's form, per-variable gammas
+            gam = torch.as_tensor(rng.uniform(-0.24, 0.66, (8, g.n))).to(dtype)
+            nu0 = x_in.reshape(8, g.max_dc, g.m)
+            mu_w, nu_w = mu.clone(), nu0.clone()
+            plain_minsum.check_iter_ref(mu_w, want[1], ms.chk_varidx, syn, ms.chk_mask, 1.0,
+                                        0.0, gam, nu_w)
+            mu_g, nu_g = mu.to(dev), nu0.to(dev)
+            cuda_minsum.minsum_check_iter_cuda(
+                mu_g, got[1], ms.chk_varidx.to(dev), syn.to(dev), ms.chk_mask.to(dev), 1.0,
+                0.0, gamma=gam.to(dev), nu=nu_g)
+            real = ms.chk_mask.reshape(-1)
+            for a, b in ((mu_g, mu_w), (nu_g, nu_w)):
+                assert torch.equal(bits(a.cpu()).reshape(8, -1)[:, real],
+                                   bits(b).reshape(8, -1)[:, real])
+
+
+GAMMAS = [None, "scalar", "lane", "var"]
+
+
+def gamma_for(kind, rng, B, n, dtype):
+    """A damping factor of each kind the kernels take, negative strengths
+    among the per-variable ones."""
+    if kind is None:
+        return None
+    if kind == "scalar":
+        return torch.tensor(0.4).to(dtype)
+    if kind == "lane":
+        return torch.as_tensor(rng.uniform(-0.2, 0.7, B)).to(dtype)
+    return torch.as_tensor(rng.uniform(-0.24, 0.66, (B, n))).to(dtype)
+
+
+def iter_graph(name):
+    """Graphs of the iteration forms' card tests: checks past 64 slots,
+    variables past 16 (not kept in registers) and past 32 slots (summed by
+    windows), tests/test_torch_staged.py's small DEM, a Gallager code."""
+    rng = np.random.default_rng(len(name))
+    if name == "dem":
+        A = (rng.random((40, 300)) < 0.08).astype(np.uint8)  # _small_dem(5)'s shape
+        A[:, A.sum(axis=0) == 0] = 1
+        return pt.TannerGraph.from_pcm(A)
+    if name == "gallager":
+        return pt.TannerGraph.from_pcm(pt.parity_check_matrix(60, 6, 3, rng=19))
+    H = (rng.random((45, 120)) < 0.08).astype(np.uint8)
+    H[0, :90] = 1  # a check of degree 90
+    H[:40, 1] = 1  # a variable of degree 40
+    H[5:25, 2] = 1  # and one of degree 20
+    H[rng.integers(45), H.sum(axis=0) == 0] = 1
+    return pt.TannerGraph.from_pcm(H)
+
+
+@pytest.mark.parametrize("graph_name", ["heavy", "dem", "gallager"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gamma_kind", GAMMAS)
+def test_minsum_check_iter_kernel_matches_plain_version(dev, graph_name, dtype, gamma_kind):
+    """K3's check-layout iteration form (rebuild, damping mix, check update,
+    in place) against check_iter_ref, bitwise on the real slots, in the
+    staged and the flat form; the padded slots are left as they were."""
+    g = iter_graph(graph_name)
+    rng = np.random.default_rng(7)
+    B, dc, m, n = 5, g.max_dc, g.m, g.n
+    ms = pt.MinSumDecode(g, 0.05, 2, layout="check", device="cpu")
+    real = ms.chk_mask.reshape(-1)
+    mu0 = torch.as_tensor(rng.normal(size=(B, dc, m)) * 2).to(dtype)
+    mu0[:, :, ::3] = torch.round(mu0[:, :, ::3])  # ties and zeros
+    nu0 = torch.as_tensor(rng.normal(size=(B, dc, m)) * 3).to(dtype)
+    total = torch.as_tensor(rng.normal(size=(B, n)) * 4).to(dtype)
+    syn = torch.as_tensor(rng.random((B, m)) < 0.5)
+    gamma = gamma_for(gamma_kind, rng, B, n, dtype)
+    on = lambda t: None if t is None else t.to(dev)  # noqa: E731
+    for alpha, beta in ((1.0, 0.0), (0.8125, 0.15625)):
+        mu_w, nu_w = mu0.clone(), None if gamma is None else nu0.clone()
+        plain_minsum.check_iter_ref(mu_w, total, ms.chk_varidx, syn, ms.chk_mask, alpha, beta,
+                                    gamma, nu_w)
+        for stage in (None, False, True):
+            mu_g, nu_g = mu0.to(dev), None if gamma is None else nu0.to(dev)
+            before = cuda_minsum.minsum_check_iter_cuda.launches
+            out = cuda_minsum.minsum_check_iter_cuda(
+                mu_g, on(total), on(ms.chk_varidx), on(syn), on(ms.chk_mask), alpha, beta,
+                gamma=on(gamma), nu=nu_g, chk_deg=on(ms.chk_deg), _stage=stage)
+            torch.cuda.synchronize()
+            assert out is mu_g and cuda_minsum.minsum_check_iter_cuda.launches == before + 1
+            got = bits(mu_g.cpu()).reshape(B, -1)
+            assert torch.equal(got[:, real], bits(mu_w).reshape(B, -1)[:, real])
+            assert torch.equal(got[:, ~real], bits(mu0).reshape(B, -1)[:, ~real])
+            if gamma is not None:
+                got = bits(nu_g.cpu()).reshape(B, -1)
+                assert torch.equal(got[:, real], bits(nu_w).reshape(B, -1)[:, real])
+                assert torch.equal(got[:, ~real], bits(nu0).reshape(B, -1)[:, ~real])
+
+
+@pytest.mark.parametrize("graph_name", ["heavy", "dem", "gallager"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["check", "var"])
+def test_minsum_var_iter_kernel_matches_plain_version(dev, graph_name, dtype, layout):
+    """K4's iteration form against var_iter_ref, bitwise: the totals, the
+    frozen err / llrs of the lanes not done, and in the variable layout the
+    leave-one-out messages in place (real slots), with every damping kind
+    and with and without per-edge weights."""
+    g = iter_graph(graph_name)
+    rng = np.random.default_rng(8)
+    B, dc, m, dv, n = 6, g.max_dc, g.m, g.max_dv, g.n
+    ms = pt.MinSumDecode(g, 0.05, 2, device="cpu")
+    real = ms.var_mask.reshape(-1)
+    mu_flat = torch.as_tensor(rng.normal(size=(B, dc * m))
+                              * 10.0 ** rng.integers(-3, 4, (B, dc * m))).to(dtype)
+    L0 = torch.as_tensor(rng.normal(size=(B, n)) * 2).to(dtype)
+    nu0 = torch.as_tensor(rng.normal(size=(B, dv, n)) * 3).to(dtype)
+    W = torch.as_tensor(rng.uniform(0.3, 1.4, size=(dv, n))).to(dtype)
+    done = torch.as_tensor(rng.random(B) < 0.4)
+    err0 = torch.as_tensor((rng.random((B, n)) < 0.5).astype(np.float32))
+    llr0 = torch.as_tensor(rng.normal(size=(B, n))).to(dtype)
+    on = lambda t: None if t is None else t.to(dev)  # noqa: E731
+    cases = ([(None, None)] if layout == "check" else
+             [(gk, w) for gk in GAMMAS for w in (None, W)])
+    for gamma_kind, w in cases:
+        gamma = gamma_for(gamma_kind, rng, B, n, dtype)
+        outs = []
+        for where in ("cpu", dev):
+            nu = None if layout == "check" else nu0.clone().to(where)
+            total = torch.full((B, n), 7.0, dtype=dtype, device=where)
+            err, llrs = err0.to(where), llr0.to(where)
+            before = cuda_minsum.minsum_var_iter_cuda.launches
+            ret = cuda_minsum.minsum_var_iter_cuda(
+                mu_flat.to(where), ms.v2c.to(where), ms.var_mask.to(where), L0.to(where),
+                W=None if w is None else w.to(where), nu=nu,
+                gamma=None if gamma is None else gamma.to(where), total=total,
+                done=done.to(where), err=err, llrs=llrs,
+                var_deg=None if where == "cpu" else on(ms.var_deg))
+            assert ret is total
+            assert cuda_minsum.minsum_var_iter_cuda.launches == before + (where != "cpu")
+            outs.append([None if t is None else t.cpu() for t in (nu, total, err, llrs)])
+        (nu_w, *want), (nu_g, *got) = outs
+        for a, b in zip(got, want):
+            assert torch.equal(bits(a), bits(b))
+        if nu_w is not None:
+            assert torch.equal(bits(nu_g).reshape(B, -1)[:, real],
+                               bits(nu_w).reshape(B, -1)[:, real])
+            assert torch.equal(bits(nu_g).reshape(B, -1)[:, ~real],
+                               bits(nu0).reshape(B, -1)[:, ~real])
+
+
+def test_minsum_iter_wrappers_check_inputs(dev):
+    g = iter_graph("heavy")
+    ms = pt.MinSumDecode(g, 0.05, 2, layout="check", device=dev)
+    B, dc, m, n = 2, g.max_dc, g.m, g.n
+    mu = torch.zeros((B, dc, m), device=dev)
+    total = torch.zeros((B, n), device=dev)
+    syn = torch.zeros((B, m), dtype=torch.bool, device=dev)
+    args = (ms.chk_varidx, syn, ms.chk_mask, 1.0, 0.0)
+    with pytest.raises(ValueError, match="damps"):
+        cuda_minsum.minsum_check_iter_cuda(mu, total, *args, nu=mu.clone())
+    with pytest.raises(ValueError, match="damps"):
+        cuda_minsum.minsum_check_iter_cuda(mu, total, *args, gamma=ms.gam)
+    with pytest.raises(ValueError, match="gamma"):
+        cuda_minsum.minsum_check_iter_cuda(mu, total, *args, gamma=torch.zeros((B, 3), device=dev),
+                                           nu=mu.clone())
+    with pytest.raises(TypeError, match="total"):
+        cuda_minsum.minsum_check_iter_cuda(mu, total.to(torch.bfloat16), *args)
+    with pytest.raises(ValueError, match="chk_deg"):
+        cuda_minsum.minsum_check_iter_cuda(mu, total, *args, chk_deg=ms.var_deg)
+    with pytest.raises(ValueError, match="real slots come first"):
+        cuda_minsum.minsum_check_iter_cuda(mu, total, *args[:2], ms.chk_mask.flip(0), 1.0, 0.0)
+    mu_flat, L0 = mu.reshape(B, -1), total.clone()
+    var = (ms.v2c, ms.var_mask, L0)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="go together"):
+        cuda_minsum.minsum_var_iter_cuda(mu_flat, *var, done=done)
+    with pytest.raises(ValueError, match="alias"):
+        cuda_minsum.minsum_var_iter_cuda(mu_flat, *var, done=done, err=total.clone(), llrs=L0)
+    with pytest.raises(ValueError, match="previous messages"):
+        cuda_minsum.minsum_var_iter_cuda(mu_flat, *var, gamma=ms.gam)
+    with pytest.raises(ValueError, match="nu has shape"):
+        cuda_minsum.minsum_var_iter_cuda(mu_flat, *var, nu=mu.clone(), gamma=ms.gam)
+    before = (cuda_minsum.minsum_check_iter_cuda.launches,
+              cuda_minsum.minsum_var_iter_cuda.launches)
+    cuda_minsum.minsum_check_iter_cuda(mu[:0], total[:0], ms.chk_varidx, syn[:0], ms.chk_mask,
+                                       1.0, 0.0)  # nothing to launch
+    assert (cuda_minsum.minsum_check_iter_cuda.launches,
+            cuda_minsum.minsum_var_iter_cuda.launches) == before
+
+
+def test_minsum_stage_plan_is_the_launchers(dev):
+    """The staged check form's plan (threads, shared memory) in Python equals
+    the launcher's, over row sizes up to past a block."""
+    import ctypes
+
+    from ldpcdecoders_tpu_torch import _build
+
+    lib = _build.load_library()
+    out = (ctypes.c_int * 2)()
+    for row in (0, 4000, 63296, 126592, 200000, 232448, 300000):
+        for m, dc in ((1, 1), (37, 16), (864, 294), (900, 10), (3000, 40), (864, 4000)):
+            lib.ldpc_minsum_stage_plan(row, m, dc, out)
+            assert cuda_minsum.stage_plan(row, m, dc) == (out[0], out[1])
 
 
 def surface_d5_records(B, seed, scale):
