@@ -48,7 +48,29 @@ public decoder API on ``cuda:0`` and prints, in order:
      failures, with the wall split between stage 0, deep, relay and the
      host OSD, and a stage-0 batch's and a flagship deep bucket's device
      time and launches per min-sum iteration (``torch.profiler``) beside
-     their peak memory;
+     their peak memory; then the evaluation harness (harness.py) through its
+     entry points: (t) ``FERSweep`` with BP+OSD-0 on the (1000, 10, 9) code
+     (batch 1024, 4 batches in flight, host sampling, seed 0) at per 0.005,
+     0.01, 0.02, 0.03, 0.04 and 0.2, 8192 trials a point: every output
+     syndrome-consistent, K1 launched, the five low points' Wilson intervals
+     overlapping ``benchmarks/results/fer_baseline.json``'s bposd0 points, a
+     sweep stopped at 4096 trials and resumed from its checkpoint giving the
+     same counts, and per 0.01 over 2048 trials giving the CPU's counts;
+     (u) ``benchmarks/fer_parity.py``'s five decoders (BP, BP+OSD-0,
+     BP+OSD-2, bit-flip, BP-OTS T=9 C=2.0) on its (120, 6, 3) code and
+     streams, 1000 trials a point, each LER and syndrome-match rate within
+     tests/test_fer_parity.py's tolerance of ``fer_parity_r4.json``'s golden
+     (bit-flip's as the mean over 8 tie-break streams);
+     (v) ``css_logical_sweep`` on the bb144 gross code (BP+OSD-0, device
+     sampling, 4096 pairs at per 0.02, 0.04, 0.08) overlapping
+     ``bicycle_ler_r2.json``'s intervals, and one heralded-loss point (0.05,
+     host loop, 1024 pairs); (w) ``dem_logical_sweep`` on the d=5 surface
+     code's 5-round memory DEM (BP+OSD-0, 60 iterations, batch 1024, 16,384
+     device-sampled shots) overlapping ``circuit_level_r3.json``'s
+     ``surface_d5_R5`` 2086/65,536 at p 0.002, and at p 0.003 a
+     circuit-sampled run and a DEM-sampled one overlapping each other; the
+     bit-flip and BP-OTS rates on the (1000, 10, 9) code with their launches
+     per iteration (``torch.profiler``);
   5. steady-state rates;
   6. a JSON line with each kernel's numbers, the card line again, and last
      ``{"ok": true, "device": {...}}``.
@@ -84,6 +106,13 @@ P_SHOTS, Q_SHOTS = 4096, 2048  # shots of the fast tier (p) and the flagship (q)
 DEEP_BUCKET = 256  # straggler records a flagship deep decode takes (x 6 members)
 MAX_ITERS = 100
 DEVICE = "cuda:0"
+# the evaluation harness's paths (t)-(w)
+T_PERS = (0.005, 0.01, 0.02, 0.03, 0.04, 0.2)  # fer_baseline.json's bposd0 points and per 0.2
+T_TRIALS, T_CPU_TRIALS = 8192, 2048  # (t) trials a point; per 0.01 on the CPU as well
+U_TRIALS = 1000  # (u) trials a point: benchmarks/fer_parity.py's fer_parity_r4.json run
+U_BITFLIP_SEEDS = 8  # (u) bit-flip's tie-break streams averaged (see harness_paths)
+V_PERS, V_PAIRS, V_LOSS_PAIRS = (0.02, 0.04, 0.08), 4096, 1024  # (v) bicycle_ler_r2.json
+W_SHOTS, W_BATCH = 16384, 1024  # (w) each DEM sweep
 # published peaks of one H100 SXM: device memory rate, and the float32 rate
 # outside the tensor cores.  That rate counts a fused multiply-add as two
 # operations on 128 lanes per SM; 32-bit integer and logic instructions
@@ -222,6 +251,206 @@ def profile_call(torch, name, fn, iterations, calls=1):
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:6]:
         print(f"    {ms:9.3f} ms x {count:5d}  {key[:110]}")
     return wall_ms, busy, launches, iterations
+
+
+def overlap(a, b) -> bool:
+    return a[0] <= b[1] and b[0] <= a[1]
+
+
+def harness_paths(torch, pt, drive, dev, card, H):
+    """Paths (t)-(w): the evaluation harness through its public entry
+    points, each under ``drive`` (its own launch counts), with the checks
+    of its docstring entry."""
+    import tempfile
+
+    from ldpcdecoders_tpu_torch.harness import FERSweep, css_logical_sweep, dem_logical_sweep
+    from ldpcdecoders_tpu_torch.utils.metrics import wilson_interval
+
+    def strip(summary):
+        return {p: {k: v for k, v in pt_.items() if k != "throughput_syndromes_per_s"}
+                for p, pt_ in summary.items()}
+
+    # (t) FERSweep: BP+OSD-0 on the (1000, 10, 9) code, host sampling, 4
+    # batches in flight, counts reduced on the card
+    def bposd0(per):
+        return pt.BeliefPropagationOSDDecoder(H, per, MAX_ITERS, device=dev)
+
+    sweep_kw = dict(batch=B, seed=0, pipeline=4)
+    fer = drive("t", ["gf2_osd0"], lambda: FERSweep(H, bposd0, T_PERS, **sweep_kw).run(
+        trials_per_point=T_TRIALS))
+    base = json.loads((ROOT / "benchmarks/results/fer_baseline.json").read_text())
+    base = base["results"]["bposd0"]
+    for per, s in fer.items():
+        ref = base.get(str(per))
+        lo, hi = s["ler_ci95"]
+        print(f"main (t) FERSweep BP+OSD-0 (1000, 10, 9) per {per}: {s['trials']} trials, LER "
+              f"{s['ler']:.4e} (Wilson 95% {lo:.4e}-{hi:.4e}), syndrome match "
+              f"{s['syndrome_match_rate']:.4f}, converged {s['converged_fraction']:.4f}, mean "
+              f"iterations {s['mean_iters']:.3f}, {s['throughput_syndromes_per_s']:.1f} "
+              f"syndromes/s"
+              + (f"; fer_baseline.json {ref['ler']:.4e} ({ref['ler_ci95'][0]:.4e}-"
+                 f"{ref['ler_ci95'][1]:.4e}), overlap {overlap(s['ler_ci95'], ref['ler_ci95'])}"
+                 if ref else "") + f" | B={B} | {card}")
+        if s["syndrome_match_rate"] != 1.0:
+            raise AssertionError(f"(t) per {per}: OSD outputs miss their syndrome")
+        if ref and not overlap(s["ler_ci95"], ref["ler_ci95"]):
+            raise AssertionError(f"(t) per {per}: the LER interval misses fer_baseline.json's")
+    if sum(str(per) in base for per in fer) != 5:
+        raise AssertionError("(t): fer_baseline.json lacks the five low points")
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "fer.json")
+        FERSweep(H, bposd0, T_PERS, checkpoint_path=ck, **sweep_kw).run(
+            trials_per_point=T_TRIALS // 2)
+        resumed = FERSweep(H, bposd0, T_PERS, checkpoint_path=ck, **sweep_kw)
+        half = {p: s.trials for p, s in resumed.points.items()}
+        again = resumed.run(trials_per_point=T_TRIALS)
+    same = strip(again) == strip(fer)
+    print(f"main (t) a sweep stopped at {T_TRIALS // 2} trials a point ({half}) and resumed from "
+          f"its checkpoint to {T_TRIALS}: counts equal to the uninterrupted sweep's {same}")
+    if not same:
+        raise AssertionError("(t): the resumed sweep's counts differ from the uninterrupted one")
+    on_cpu, on_card = (strip(FERSweep(H, lambda p, d=d: pt.BeliefPropagationOSDDecoder(
+        H, p, MAX_ITERS, device=d), [0.01], **sweep_kw).run(trials_per_point=T_CPU_TRIALS))
+        for d in ("cpu", dev))
+    print(f"main (t) per 0.01, {T_CPU_TRIALS} trials, the card against the CPU: counts equal "
+          f"{on_cpu == on_card} ({on_card[0.01]})")
+    if on_cpu != on_card:
+        raise AssertionError("(t): the card's sweep counts differ from the CPU's")
+
+    # (u) FER parity: benchmarks/fer_parity.py's five decoders on its code
+    # and streams, against the committed goldens of fer_parity_r4.json
+    art = json.loads((ROOT / "benchmarks/results/fer_parity_r4.json").read_text())
+    Hu = pt.parity_check_matrix(120, 6, 3, rng=61)
+    tolerance = {"bp": 0.002, "bposd0": 0.002, "bposd2": 0.002, "bitflip": 0.01, "bpots": 0.01}
+    factories = {
+        "bp": lambda per: pt.BeliefPropagationDecoder(Hu, per, MAX_ITERS, device=dev),
+        "bposd0": lambda per: pt.BeliefPropagationOSDDecoder(Hu, per, MAX_ITERS, device=dev),
+        "bposd2": lambda per: pt.BeliefPropagationOSDDecoder(Hu, per, MAX_ITERS, osd_order=2,
+                                                             device=dev),
+        "bitflip": lambda per: pt.BitFlipDecoder(Hu, per, MAX_ITERS, device=dev),
+        "bpots": lambda per: pt.BPOTSDecoder(Hu, per, MAX_ITERS, T=9, C=2.0, device=dev),
+    }
+
+    # Bit-flip's outcome depends on its tie-break stream: one stream's LER at
+    # per 0.05 spreads over 0.481-0.521 in the JAX package itself (16 decode
+    # seeds on these syndromes), so the golden, itself one stream, is held
+    # against the mean over U_BITFLIP_SEEDS of the port's streams
+    def parity():
+        rows = {}
+        for name, factory in factories.items():
+            for point in art["decoders"][name]:
+                per = point["per"]
+                rng = np.random.default_rng((0, int(per * 1e9), 7))
+                errs = rng.random((U_TRIALS, Hu.shape[1])) < per
+                syns = (errs @ Hu.T) % 2
+                dec = factory(per)
+                lers, smrs, dts = [], [], []
+                for seed in range(U_BITFLIP_SEEDS if name == "bitflip" else 1):
+                    t0 = time.perf_counter()
+                    guesses, _ = dec.batch_decode(syns, seed=seed)
+                    dts.append(time.perf_counter() - t0)
+                    lers.append(1.0 - (guesses.astype(bool) == errs).all(axis=1).mean())
+                    smrs.append(((guesses.astype(np.int64) @ Hu.T) % 2 == syns).all(axis=1).mean())
+                rows[(name, per)] = (lers, smrs, dts, point)
+        return rows
+
+    rows = drive("u", ["gf2_osd0", "gf2_eliminate"], parity)
+    for (name, per), (lers, smrs, dts, point) in rows.items():
+        ler, smr = float(np.mean(lers)), float(np.mean(smrs))
+        d_ler, d_smr = abs(ler - point["ler_golden"]), abs(smr - point["syndrome_match_golden"])
+        ok = d_ler <= tolerance[name] and d_smr <= tolerance[name]
+        streams = (f" (mean of {len(lers)} tie-break streams, each "
+                   f"{', '.join(f'{x:.4f}' for x in lers)})" if len(lers) > 1 else "")
+        print(f"main (u) {name} per {per}: LER {ler:.4f}{streams} (golden "
+              f"{point['ler_golden']:.4f}, |delta| {d_ler:.4f}), syndrome match {smr:.4f} "
+              f"(golden {point['syndrome_match_golden']:.4f}, |delta| {d_smr:.4f}), tolerance "
+              f"{tolerance[name]}: {ok}; {U_TRIALS / dts[0]:.1f} syndromes/s (first call), "
+              f"{U_TRIALS / min(dts):.1f} (best) | {card}")
+        if not ok:
+            raise AssertionError(f"(u) {name} per {per}: off fer_parity_r4.json's golden")
+
+    # (v) css_logical_sweep on the bb144 gross code: the loss-free points
+    # through the device route, one heralded-loss point through the host loop
+    bb = json.loads((ROOT / "benchmarks/results/bicycle_ler_r2.json").read_text())["points"]
+    Hx, Hz, _ = pt.named_bicycle_code("bb144")
+    css = drive("v", ["gf2_osd0"], lambda: css_logical_sweep(
+        Hx, Hz, V_PERS, trials_per_point=V_PAIRS, batch=B, seed=0, device=dev))
+    for per, s in css.items():
+        ref = bb[str(per)]
+        ok = overlap(s["any_logical_ci95"], ref["any_logical_ci95"])
+        print(f"main (v) css_logical_sweep bb144 BP+OSD-0 per {per}: {s['trials']} pairs "
+              f"(device-sampled {s['device_sampled']}), any-logical rate "
+              f"{s['any_logical_rate']:.4e} (Wilson 95% {s['any_logical_ci95'][0]:.4e}-"
+              f"{s['any_logical_ci95'][1]:.4e}); bicycle_ler_r2.json {ref['any_logical_rate']:.4e} "
+              f"({ref['any_logical_ci95'][0]:.4e}-{ref['any_logical_ci95'][1]:.4e}), overlap {ok}; "
+              f"converged z {s['z_converged']:.4f} x {s['x_converged']:.4f}, "
+              f"{s['throughput_pairs_per_s']:.1f} pairs/s | B={B} | {card}")
+        if not (ok and s["device_sampled"] and s["trials"] == V_PAIRS and ref["any_logical_rate"]):
+            raise AssertionError(f"(v) per {per}: the interval misses bicycle_ler_r2.json's")
+    loss = drive("v_loss", [], lambda: css_logical_sweep(
+        Hx, Hz, [0.02], trials_per_point=V_LOSS_PAIRS, batch=B, seed=0, loss_rate=0.05,
+        device=dev))[0.02]
+    print(f"main (v) heralded loss 0.05 at per 0.02 (host loop, erasures= priors): "
+          f"{loss['trials']} pairs, any-logical rate {loss['any_logical_rate']:.4e}, converged z "
+          f"{loss['z_converged']:.4f} x {loss['x_converged']:.4f}, "
+          f"{loss['throughput_pairs_per_s']:.1f} pairs/s | {card}")
+    if loss["trials"] != V_LOSS_PAIRS or not 0.0 <= loss["any_logical_rate"] < 1.0:
+        raise AssertionError("(v): the heralded-loss point did not run through")
+
+    # (w) dem_logical_sweep on the surface d=5, 5-round memory circuit's DEM:
+    # BP+OSD-0 (K1 where BP fails), 60 iterations, device-sampled at p 0.002
+    # against circuit_level_r3.json; at p 0.003 circuit-sampled (host
+    # Pauli frames) against DEM-sampled
+    sx, sz = pt.surface_code_x(5), pt.surface_code_z(5)
+    c2 = pt.css_memory_circuit(sx, sz, 5, p=0.002)
+    dem_kw = dict(shots=W_SHOTS, batch=W_BATCH, max_iters=60, rounds=5, device=dev)
+    w2 = drive("w", ["gf2_osd0"], lambda: dem_logical_sweep(pt.circuit_dem(c2), seed=17,
+                                                            **dem_kw))
+    ref = json.loads((ROOT / "benchmarks/results/circuit_level_r3.json").read_text())
+    ref = ref["surface_d5_R5"]["0.002"]
+    ok = overlap(w2["logical_ci95"], wilson_interval(ref["fails"], ref["shots"]))
+    print(f"main (w) dem_logical_sweep surface d=5 R=5 p=0.002, DEM-sampled: {w2['shots']} shots, "
+          f"{w2['fails']} fails, LER {w2['logical_rate']:.4e} (Wilson 95% "
+          f"{w2['logical_ci95'][0]:.4e}-{w2['logical_ci95'][1]:.4e}), per round "
+          f"{w2['per_round_rate']:.4e}; circuit_level_r3.json {ref['fails']}/{ref['shots']}, "
+          f"overlap {ok}; converged {w2['converged']:.4f}, {w2['throughput_shots_per_s']:.1f} "
+          f"shots/s | batch {W_BATCH} | {card}")
+    if not (ok and w2["device_sampled"]):
+        raise AssertionError("(w): the DEM-sampled interval misses circuit_level_r3.json's")
+    c3 = pt.css_memory_circuit(sx, sz, 5, p=0.003)
+    dem3 = pt.circuit_dem(c3)
+    w3 = drive("w_circuit", ["gf2_osd0"], lambda: (
+        dem_logical_sweep(dem3, seed=23, circuit=c3, **dem_kw),
+        dem_logical_sweep(dem3, seed=17, **dem_kw)))
+    ok = overlap(w3[0]["logical_ci95"], w3[1]["logical_ci95"])
+    for what, r in zip(("circuit-sampled (host sample_circuit)", "DEM-sampled"), w3):
+        print(f"main (w) p=0.003 {what}: {r['shots']} shots, {r['fails']} fails, LER "
+              f"{r['logical_rate']:.4e} (Wilson 95% {r['logical_ci95'][0]:.4e}-"
+              f"{r['logical_ci95'][1]:.4e}), converged {r['converged']:.4f}, "
+              f"{r['throughput_shots_per_s']:.1f} shots/s | {card}")
+    print(f"main (w) p=0.003 circuit-sampled and DEM-sampled intervals overlap {ok}")
+    if not ok or w3[0]["device_sampled"]:
+        raise AssertionError("(w): circuit-sampled and DEM-sampled rates disagree")
+
+    # bit-flip and BP-OTS on the (1000, 10, 9) code at B=1024: rates and
+    # launches per iteration (both loop in plain torch with a host read an
+    # iteration)
+    rng = np.random.default_rng(31)
+    for per in (0.01, 0.03):
+        syn = torch.as_tensor(syndromes(H, per, rng)[1], device=dev)
+        for name, dec, fn in (
+                ("bit-flip", pt.BitFlipDecoder(H, per, MAX_ITERS, device=dev),
+                 lambda d, s: d.bitflip(s, 0)),
+                ("BP-OTS", pt.BPOTSDecoder(H, per, MAX_ITERS, device=dev),
+                 lambda d, s: d.bpots(s))):
+            t, out = wall_s(torch, lambda: fn(dec, syn), 3)
+            its = int(out[2].max())
+            wall_ms, busy, launches, _ = profile_call(torch, f"{name} per {per}",
+                                                      lambda: fn(dec, syn), its)
+            print(f"rate {name} per {per}: {B / t:.1f} syndromes/s ({t * 1e3:.1f} ms/batch), "
+                  f"converged {out[1].float().mean():.4f}, iterations mean "
+                  f"{out[2].float().mean():.2f} max {its}; {launches / its:.1f} launches per "
+                  f"iteration, device busy {100 * busy / wall_ms:.1f}% | B={B} | {card}")
 
 
 def main() -> int:
@@ -1081,6 +1310,8 @@ def main() -> int:
               f"wall {wall_ms:.2f} ms, device busy {100 * busy / wall_ms:.1f}%), peak memory "
               f"{memory[mem_key]['measured_bytes'] / 1e9:.3f} GB | {card}")
         memory[mem_key].update(iteration_ms=busy / its, launches_per_iteration=launches / its)
+
+    harness_paths(torch, pt, drive, dev, card, H)
 
     # in the summary, ``launches`` is the count of the first path that must
     # launch the kernel; ``launches_by_path`` has every path's own count

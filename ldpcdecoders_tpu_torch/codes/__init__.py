@@ -5,6 +5,24 @@ from .bicycle import (
     css_code_k,
     named_bicycle_code,
 )
+from .circuit import (
+    StabilizerCircuit,
+    circuit_dem,
+    css_memory_circuit,
+    dem_text,
+    sample_circuit,
+)
+from .css import (
+    cycle_matrix,
+    hamming_code,
+    hypergraph_product,
+    hypergraph_product_edges,
+    repetition_code,
+    surface_code_x,
+    surface_code_z,
+    toric_code_x,
+    toric_code_z,
+)
 from .gallager import parity_check_matrix
 from .graph import TannerGraph
 from .qc import (
@@ -34,4 +52,18 @@ __all__ = [
     "spacetime_pcm",
     "spacetime_prior",
     "detectors_of",
+    "toric_code_x",
+    "toric_code_z",
+    "surface_code_x",
+    "surface_code_z",
+    "repetition_code",
+    "cycle_matrix",
+    "hamming_code",
+    "hypergraph_product",
+    "hypergraph_product_edges",
+    "StabilizerCircuit",
+    "css_memory_circuit",
+    "circuit_dem",
+    "dem_text",
+    "sample_circuit",
 ]

@@ -4,8 +4,8 @@ Counterpart of ``ldpcdecoders_tpu/config.py``: the same dataclass, the same
 fields and defaults, and the same JSON text, so a configuration serialized
 by either package rebuilds in the other.  :meth:`DecoderConfig.build` makes
 this package's decoders of the ported kinds (``bp``, ``bposd``,
-``minsum``, ``qc_minsum``, ``spacetime``, ``detector``, ``ensemble``,
-``staged``) and raises ``NotImplementedError`` for the rest.
+``bitflip``, ``bpots``, ``minsum``, ``qc_minsum``, ``spacetime``,
+``detector``, ``ensemble``, ``staged``) and raises ``NotImplementedError`` for the rest.
 
 Knobs of the reference that select TPU machinery have no effect here:
 ``use_pallas`` (the hand-written kernels always run on a card) and
@@ -41,8 +41,8 @@ _KINDS = (
 )
 
 #: the kinds :meth:`DecoderConfig.build` makes in this package
-PORTED_KINDS = ("bp", "bposd", "minsum", "qc_minsum", "spacetime", "detector", "ensemble",
-                "staged")
+PORTED_KINDS = ("bp", "bposd", "bitflip", "bpots", "minsum", "qc_minsum", "spacetime",
+                "detector", "ensemble", "staged")
 
 #: decoder-specific knobs forwarded from a wrapper kind's config to its
 #: inner decoder's DecoderConfig
@@ -249,6 +249,11 @@ class DecoderConfig:
                 algorithm=self.algorithm, device=device)
         if k == "bp":
             return models.BeliefPropagationDecoder(H, self.per, self.max_iters, device=device)
+        if k == "bitflip":
+            return models.BitFlipDecoder(H, self.per, self.max_iters, device=device)
+        if k == "bpots":
+            return models.BPOTSDecoder(H, self.per, self.max_iters, T=self.T, C=self.C,
+                                       device=device)
         if k == "bposd":
             return models.BeliefPropagationOSDDecoder(
                 H, self.per, self.max_iters, osd_order=self.osd_order,

@@ -1,6 +1,9 @@
 from .base import Decoder, DecodeStats, decode, batchdecode, decode_soft
+from .bitflip import BitFlipDecoder
 from .bp import BeliefPropagationDecoder
 from .bposd import BeliefPropagationOSDDecoder
+from .bpots import BPOTSDecoder
+from .css import CSSDecoder
 from .detector import DetectorGraphDecoder, load_dem
 from .ensemble import EnsembleDecoder
 from .minsum import MinSumDecode, MinSumDecoder
@@ -16,6 +19,9 @@ __all__ = [
     "decode_soft",
     "BeliefPropagationDecoder",
     "BeliefPropagationOSDDecoder",
+    "BitFlipDecoder",
+    "BPOTSDecoder",
+    "CSSDecoder",
     "MinSumDecoder",
     "MinSumDecode",
     "QCMinSumDecoder",

@@ -60,8 +60,9 @@ class Decoder(torch.nn.Module):
     Concrete decoders implement ``_decode_batch(syndromes, seed=0,
     per=None) -> (errors, converged, iters, aux)`` over tensors on
     ``self.device``; this base class provides the host-facing ``decode`` /
-    ``batch_decode`` API.  ``seed`` keys a randomized decoder's draws; the
-    decoders of this package are deterministic and ignore it.
+    ``batch_decode`` API.  ``seed`` keys a randomized decoder's draws (the
+    bit-flip decoder's tie-breaks); the other decoders are deterministic
+    and ignore it.
     """
 
     #: number of parity checks (rows of H)
@@ -69,6 +70,15 @@ class Decoder(torch.nn.Module):
     #: number of variable nodes (columns of H)
     n: int
     device: torch.device
+    #: whether converged=True guarantees the estimate reproduces the
+    #: syndrome (True except for bit-flip, which also reports convergence
+    #: when no flip is worthwhile)
+    converged_implies_syndrome_match: bool = True
+    #: whether ``per=`` can override the channel prior for one call
+    #: (False: bit-flip)
+    supports_per_override: bool = True
+    #: whether a per-bit ``[n]`` prior vector is accepted (False: bit-flip)
+    supports_vector_prior: bool = True
 
     def _decode_batch(self, syndromes: torch.Tensor, seed: int = 0, per=None):
         raise NotImplementedError
@@ -84,6 +94,9 @@ class Decoder(torch.nn.Module):
                 f"per-lane prior batch ({np.shape(per)[0]}) must match the "
                 f"syndrome batch ({syndromes.shape[0]})"
             )
+        if per is not None and not self.supports_per_override:
+            raise ValueError(
+                f"{type(self).__name__} does not support per-call channel prior overrides")
         return self._decode_batch(syndromes, seed, per=per)
 
     # -- public API -------------------------------------------------------

@@ -278,6 +278,11 @@ class DetectorGraphDecoder(Decoder):
             build_input = np.asarray(A.todense())
         self.inner = cfg.build(build_input, device=device)
         self.device = self.inner.device
+        if not (self.inner.supports_per_override and self.inner.supports_vector_prior):
+            raise ValueError(
+                f"decoder kind '{decoder}' cannot honor per-mechanism priors; use a "
+                "prior-capable kind (bp, bposd, minsum, bpots)")
+        self.converged_implies_syndrome_match = self.inner.converged_implies_syndrome_match
         # Decoder contract: m = input record length, n = output length
         self.m, self.n = self.D, self.N
 

@@ -83,6 +83,8 @@ class EnsembleDecoder(Decoder):
             if priors.shape != (n,) or np.any(priors <= 0) or np.any(priors >= 1):
                 raise ValueError(f"priors must be [{n}] strictly in (0, 1)")
             self._w = np.log((1.0 - priors) / priors)
+        self.supports_per_override = all(d.supports_per_override for d in members)
+        self.supports_vector_prior = all(d.supports_vector_prior for d in members)
         self._fused_gammas = self._try_fuse_plan()
         self.fused = None
         if self._fused_gammas is not None:

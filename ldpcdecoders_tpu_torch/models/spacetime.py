@@ -109,6 +109,11 @@ class SpaceTimeDecoder(Decoder):
             self.inner = _build_inner(
                 decoder, Hs if (self.rounds == 1 and self.perfect_last) else self.A,
                 float(self._prior.mean()), max_iters, self.device, knobs)
+        if not (self.inner.supports_per_override and self.inner.supports_vector_prior):
+            raise ValueError(
+                f"decoder kind '{decoder}' cannot honor the mixed data/measurement prior "
+                "vector; use a prior-capable kind (bp, bposd, minsum, bpots)")
+        self.converged_implies_syndrome_match = self.inner.converged_implies_syndrome_match
 
     @classmethod
     def for_bicycle(cls, code, block: str, rounds: int, per, max_iters: int, *,

@@ -29,6 +29,8 @@ torch.set_num_threads(1)
 
 CONFIGS = [
     dict(kind="bp", per=0.03, max_iters=20),
+    dict(kind="bitflip", per=0.03, max_iters=25),
+    dict(kind="bpots", per=0.05, max_iters=30, T=5, C=1.5),
     dict(kind="bposd", per=0.05, max_iters=15, osd_order=4, osd_method="combination_sweep",
          inner="minsum", damping=0.25, osd_scope="failed"),
     dict(kind="minsum", per=0.04, max_iters=25, alpha=0.8, beta=0.1),
@@ -71,6 +73,10 @@ def _code_and_direct(kind):
     cpu = dict(device="cpu")
     if kind == "bp":
         return H, pt.BeliefPropagationDecoder(H, 0.03, 20, **cpu)
+    if kind == "bitflip":
+        return H, pt.BitFlipDecoder(H, 0.03, 25, **cpu)
+    if kind == "bpots":
+        return H, pt.BPOTSDecoder(H, 0.05, 30, T=5, C=1.5, **cpu)
     if kind == "bposd":
         return H, pt.BeliefPropagationOSDDecoder(
             H, 0.05, 15, osd_order=4, osd_method="combination_sweep", inner="minsum",
@@ -112,13 +118,51 @@ def test_reference_config_builds_port_decoders(kw):
         assert np.array_equal(a, b)
 
 
-@pytest.mark.parametrize("kind", ["bitflip", "bpots", "minsum_int8", "layered_minsum",
-                                  "neural_minsum", "window"])
+UNPORTED = ["minsum_int8", "layered_minsum", "neural_minsum", "window"]
+
+
+def test_unported_kinds_are_the_four_left():
+    """Bit-flip and BP-OTS left the list of unported kinds; these remain."""
+    from ldpcdecoders_tpu_torch.config import _KINDS
+
+    assert sorted(set(_KINDS) - set(PORTED_KINDS)) == sorted(UNPORTED)
+    assert {"bitflip", "bpots"} <= set(PORTED_KINDS)
+
+
+@pytest.mark.parametrize("kind", UNPORTED)
 def test_unported_kinds_raise(kind):
     assert kind not in PORTED_KINDS
     cfg = pt.DecoderConfig(kind=kind)
     with pytest.raises(NotImplementedError, match=f"'{kind}' is not ported"):
         cfg.build(np.eye(3, dtype=np.uint8), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [c for c in CONFIGS if c["kind"] in ("bitflip", "bpots")],
+                         ids=["bitflip", "bpots"])
+def test_json_builds_the_same_decoder_in_both_packages(kw):
+    """One JSON text builds the JAX package's decoder and the port's, with
+    the same knobs, and they decode alike: bit-flip bitwise given the JAX
+    package's tie-break draws, BP-OTS with equal flags and iterations."""
+    text = lt.DecoderConfig(**kw).to_json()
+    H = lt.parity_check_matrix(120, 6, 3, rng=51)
+    ref = lt.DecoderConfig.from_json(text).build(H)
+    port = pt.DecoderConfig.from_json(text).build(H, device="cpu")
+    assert type(port).__name__ == type(ref).__name__
+    assert (port.per, port.max_iters) == (ref.per, ref.max_iters)
+    rng = np.random.default_rng(3)
+    errs = rng.random((32, H.shape[1])) < 0.02
+    syn = ((errs.astype(np.int64) @ H.T) % 2).astype(np.uint8)
+    want = ref.batch_decode_detailed(syn, seed=4)
+    if kw["kind"] == "bitflip":
+        key = jax.random.PRNGKey(4)
+        got = port.bitflip(torch.as_tensor(syn), uniforms=lambda it: np.array(
+            jax.random.uniform(jax.random.fold_in(key, it), syn.shape[:1] + (H.shape[1],))))
+        got = [t.numpy() for t in got]
+    else:
+        assert (port.T, port.C) == (ref.T, ref.C) == (5, 1.5)
+        got = port.batch_decode_detailed(syn, seed=4)
+    for g, w in zip(got[:3], want[:3]):
+        assert np.array_equal(g, w)
 
 
 def test_config_validation_matches_reference():

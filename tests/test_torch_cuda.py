@@ -885,3 +885,116 @@ def test_detector_decoder_routes_and_launches_on_card(dev):
         want = cpu.batch_decode(det)
         assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
         assert np.array_equal((got[0].astype(np.int64) @ A.T.toarray()) % 2, det)
+
+
+# -- the evaluation harness and the last two reference decoders ---------------
+
+
+def test_bitflip_on_card_matches_cpu(dev):
+    """Given the same tie-break draws the card's bit-flip decode is the
+    CPU's, bitwise; with its own draws a seed repeats on the card."""
+    H = pt.parity_check_matrix(240, 8, 4, rng=13)
+    rng = np.random.default_rng(1)
+    syn = (((rng.random((128, 240)) < 0.03).astype(np.int64) @ H.T) % 2).astype(np.uint8)
+    draws = rng.random((60, 128, 240)).astype(np.float32)
+    cpu = pt.BitFlipDecoder(H, 0.03, 60, device="cpu")
+    gpu = pt.BitFlipDecoder(H, 0.03, 60, device=dev)
+    want = cpu.bitflip(torch.as_tensor(syn), uniforms=lambda it: torch.as_tensor(draws[it]))
+    got = gpu.bitflip(torch.as_tensor(syn, device=dev),
+                      uniforms=lambda it: torch.as_tensor(draws[it], device=dev))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    a = gpu.batch_decode_detailed(syn, seed=3)
+    b = gpu.batch_decode_detailed(syn, seed=3)
+    for x, y in zip(a[:3], b[:3]):
+        assert np.array_equal(x, y)
+    assert a[1].mean() > 0.5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bpots_on_card_decode_equivalent_to_cpu(dev, dtype):
+    """The card's tanh/atanh may differ from the CPU's by an ulp: flags and
+    iterations agree on at least 99% of 256 lanes, the estimates on 97%,
+    and every converged lane reproduces its syndrome."""
+    H = pt.parity_check_matrix(120, 6, 3, rng=61)
+    rng = np.random.default_rng(9)
+    syn = (((rng.random((256, 120)) < 0.05).astype(np.int64) @ H.T) % 2).astype(np.uint8)
+    want = pt.BPOTSDecoder(H, 0.05, 100, dtype=dtype, device="cpu").batch_decode_detailed(syn)
+    got = pt.BPOTSDecoder(H, 0.05, 100, dtype=dtype, device=dev).batch_decode_detailed(syn)
+    assert (got[1] == want[1]).mean() >= 0.99 and (got[2] == want[2]).mean() >= 0.99
+    assert (got[0] == want[0]).all(axis=1).mean() >= 0.97
+    assert ((got[0].astype(np.int64) @ H.T) % 2 == syn)[got[1]].all()
+
+
+def test_fer_sweep_on_card(dev):
+    """Host sampling: the card's counts equal the CPU's where BP converges
+    (per 0.01); per 0.2 sends every lane through K1, all
+    syndrome-consistent; the device sampler repeats for a seed."""
+    from ldpcdecoders_tpu_torch.harness import FERSweep
+
+    H = pt.parity_check_matrix(1000, 10, 9, rng=42)
+    out = {}
+    for device in ("cpu", dev):
+        out[str(device)] = FERSweep(
+            H, lambda p, d=device: pt.BeliefPropagationOSDDecoder(H, p, 100, device=d), [0.01],
+            batch=256, seed=0).run(trials_per_point=512)[0.01]
+    strip = lambda s: {k: v for k, v in s.items() if k != "throughput_syndromes_per_s"}
+    assert strip(out["cpu"]) == strip(out[str(dev)])
+    before = cuda_gf2.gf2_osd0_cuda.launches
+    s = FERSweep(H, lambda p: pt.BeliefPropagationOSDDecoder(H, p, 100, device=dev), [0.2],
+                 batch=256, seed=0).run(trials_per_point=256)[0.2]
+    assert cuda_gf2.gf2_osd0_cuda.launches > before and s["syndrome_match_rate"] == 1.0
+    kw = dict(batch=256, seed=5, sample_on_device=True)
+    a, b = (FERSweep(H, lambda p: pt.MinSumDecoder(H, p, 50, device=dev), [0.02], **kw).run(
+        trials_per_point=512)[0.02] for _ in range(2))
+    assert strip(a) == strip(b) and a["converged_fraction"] > 0.99
+
+
+def test_css_and_spacetime_sweeps_on_card(dev):
+    """The device route on the card (sampling, both block decodes through
+    K1 where BP fails, the stabilizer verdict) repeats for a seed; the
+    host route's counts equal the CPU's with the min-sum inner (bitwise on
+    the card and the CPU)."""
+    from ldpcdecoders_tpu_torch.harness import css_logical_sweep
+
+    Hx, Hz = pt.surface_code_x(5), pt.surface_code_z(5)
+    kw = dict(trials_per_point=512, batch=256, max_iters=30, seed=3, device=dev)
+    before = cuda_gf2.gf2_osd0_cuda.launches
+    a = css_logical_sweep(Hx, Hz, [0.05], **kw)
+    assert cuda_gf2.gf2_osd0_cuda.launches > before
+    assert a == {k: {**v, "throughput_pairs_per_s": a[k]["throughput_pairs_per_s"]}
+                 for k, v in css_logical_sweep(Hx, Hz, [0.05], **kw).items()}
+    assert a[0.05]["device_sampled"] and 0 < a[0.05]["any_logical_rate"] < 0.5
+    host = dict(kw, on_device=False, decoder="minsum", trials_per_point=256)
+    got = css_logical_sweep(Hx, Hz, [0.05], **host)[0.05]
+    want = css_logical_sweep(Hx, Hz, [0.05], **dict(host, device="cpu"))[0.05]
+    got.pop("throughput_pairs_per_s")
+    want.pop("throughput_pairs_per_s")
+    assert got == want
+
+
+def test_dem_sweep_on_card(dev):
+    """The d5 DEM: the device route repeats for a seed and launches K1;
+    circuit-sampled shots give the CPU's counts with the min-sum inner."""
+    from ldpcdecoders_tpu_torch.harness import dem_logical_sweep
+
+    c = pt.css_memory_circuit(pt.surface_code_x(5), pt.surface_code_z(5), 5, p=0.003)
+    dem = pt.circuit_dem(c)
+    kw = dict(shots=2048, batch=1024, max_iters=60, seed=7, device=dev)
+    before = cuda_gf2.gf2_osd0_cuda.launches
+    a = dem_logical_sweep(dem, **kw)
+    assert cuda_gf2.gf2_osd0_cuda.launches > before and a["device_sampled"]
+    b = dem_logical_sweep(dem, **kw)
+    assert (a["fails"], a["converged"]) == (b["fails"], b["converged"])
+    host = dict(kw, circuit=c, inner="minsum", shots=1024)
+    got, want = dem_logical_sweep(dem, **host), dem_logical_sweep(dem, **dict(host, device="cpu"))
+    assert (got["fails"], got["converged"]) == (want["fails"], want["converged"])
+
+
+def test_device_error_draws_on_card(dev):
+    from ldpcdecoders_tpu_torch.utils.noise import sample_errors_device
+
+    a = sample_errors_device(4, 4096, 1000, 0.01, device=dev)
+    assert a.device.type == "cuda" and torch.equal(a, sample_errors_device(4, 4096, 1000, 0.01,
+                                                                            device=dev))
+    assert abs(a.float().mean().item() - 0.01) < 0.0005

@@ -163,9 +163,13 @@ def test_detector_decoder_validation_and_densify():
     with pytest.raises(ValueError, match="observables must be"):
         pt.DetectorGraphDecoder(np.eye(2, dtype=np.uint8), [0.1, 0.1], 5,
                                 observables=np.ones((1, 3), np.uint8), device="cpu")
-    with pytest.raises(NotImplementedError, match="'bitflip' is not ported"):
+    # bit-flip is ported but takes no prior: refused as the reference does
+    with pytest.raises(ValueError, match="cannot honor per-mechanism priors"):
         pt.DetectorGraphDecoder(np.eye(2, dtype=np.uint8), [0.1, 0.1], 5, decoder="bitflip",
                                 device="cpu")
+    with pytest.raises(NotImplementedError, match="'layered_minsum' is not ported"):
+        pt.DetectorGraphDecoder(np.eye(2, dtype=np.uint8), [0.1, 0.1], 5,
+                                decoder="layered_minsum", device="cpu")
     dec = pt.DetectorGraphDecoder(np.eye(2, dtype=np.uint8), [0.1, 0.1], 10, device="cpu")
     with pytest.raises(ValueError, match="no observables"):
         dec.predict_observables(np.zeros((1, 2), np.uint8))

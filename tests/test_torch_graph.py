@@ -139,6 +139,10 @@ def test_port_imports_without_jax():
         "import ldpcdecoders_tpu_torch.native, ldpcdecoders_tpu_torch.utils.hbm\n"
         "import ldpcdecoders_tpu_torch.config, ldpcdecoders_tpu_torch.models.staged\n"
         "import ldpcdecoders_tpu_torch.models.detector, ldpcdecoders_tpu_torch.models.ensemble\n"
+        "import ldpcdecoders_tpu_torch.harness, ldpcdecoders_tpu_torch.models.bitflip\n"
+        "import ldpcdecoders_tpu_torch.models.bpots, ldpcdecoders_tpu_torch.models.css\n"
+        "import ldpcdecoders_tpu_torch.codes.css, ldpcdecoders_tpu_torch.codes.circuit\n"
+        "import ldpcdecoders_tpu_torch.utils.noise, ldpcdecoders_tpu_torch.utils.io\n"
         "assert ldpcdecoders_tpu_torch.native.native_available()\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'ldpcdecoders_tpu.'))"
         " or k == 'ldpcdecoders_tpu']\n"

@@ -148,8 +148,12 @@ def test_validation(toric):
     dec = pt.SpaceTimeDecoder(toric, 2, 0.03, 10, decoder="bp", device="cpu")
     with pytest.raises(ValueError, match=r"expected detectors of shape \[B, 18\]"):
         dec.batch_decode(np.zeros((2, 9), np.uint8))
-    with pytest.raises(NotImplementedError, match="'bpots' is not ported"):
-        pt.SpaceTimeDecoder(toric, 2, 0.03, 10, decoder="bpots", device="cpu")
+    with pytest.raises(NotImplementedError, match="'layered_minsum' is not ported"):
+        pt.SpaceTimeDecoder(toric, 2, 0.03, 10, decoder="layered_minsum", device="cpu")
+    # bit-flip is ported but takes no prior vector: refused as the reference does
+    with pytest.raises(ValueError, match="cannot honor the mixed"):
+        pt.SpaceTimeDecoder(toric, 2, 0.03, 10, decoder="bitflip", device="cpu")
+    assert pt.SpaceTimeDecoder(toric, 2, 0.03, 10, decoder="bpots", device="cpu").inner.T == 9
     with pytest.raises(TypeError, match="unknown decoder knobs"):
         pt.SpaceTimeDecoder(toric, 2, 0.03, 10, decoder="bp", device="cpu", bogus=1)
     inner = pt.MinSumDecoder(toric, 0.03, 10, device="cpu")
