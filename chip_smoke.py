@@ -24,7 +24,11 @@ public decoder API on ``cuda:0`` and prints, in order:
      the real slots; the eliminations with the panel width and shared
      memory the launcher reports (``ldpc_gf2_plan`` of the built library,
      which must equal ``cuda_gf2.launch_plan``), and their times at 128
-     lanes and with the panel capped at 4, 2 and 1 columns;
+     lanes and with the panel capped at 4, 2 and 1 columns; and (PR 10) the
+     two eliminations' device-memory body, which takes a lane past a block
+     (the launcher finds no panel), against the plain forms at the (2400, 6,
+     3) code's [75, 1200] lane (256 lanes) and the bb144 R=6 DEM's
+     [989, 864] (16 lanes), with its bound from the plain forms' work;
   4. the main paths, each one with every launch count set to 0 just before
      it and read just after it, and failing if a kernel of that path was
      never launched: (a), (b) BP+OSD-0 at per 0.01 and 0.2, (c) BP+OSD-2 at
@@ -70,7 +74,28 @@ public decoder API on ``cuda:0`` and prints, in order:
      ``surface_d5_R5`` 2086/65,536 at p 0.002, and at p 0.003 a
      circuit-sampled run and a DEM-sampled one overlapping each other; the
      bit-flip and BP-OTS rates on the (1000, 10, 9) code with their launches
-     per iteration (``torch.profiler``);
+     per iteration (``torch.profiler``); then (PR 10) the rest of the
+     decoder family: (x) ``LayeredMinSumDecoder`` on the (1000, 10, 9) code at
+     per 0.04 (converged >= 0.99, sweeps beside flooding min-sum's, launches
+     per sweep, 64 lanes bitwise against the CPU) and the lifted layered QC
+     route on (j)'s code; (y) ``SlidingWindowDecoder`` on streaming_r3.json's
+     three streams (64 rounds, W=3, C=1; converged within 0.01 of the
+     artifact's, every stream's correction reproducing its final syndrome,
+     rounds/s); (z) ``WindowedDemDecoder`` on the bb144 R=12 p=0.003 DEM with
+     demwindow_bb144_r5.jsonl's first configuration, on 512 of its 2048
+     shots (Wilson interval overlapping 100/2048, window convergence within
+     0.05 of 0.814); (aa) ``QuantizedMinSumDecoder`` at per 0.01 and 0.5 (64
+     lanes bitwise against the CPU, edge-iterations/s and modelled message
+     bytes beside float32 min-sum's) and ``BucketedDecoder`` around BP+OSD-0
+     at batches 1, 37, 1000 and 5000, equal to its inner; (ab)
+     ``NeuralMinSumDecoder`` trained as neural_toric_r2.json's, its logical
+     failure below untrained min-sum's at the three points; (ac)
+     ``ErasurePeelingDecoder`` on erasure_threshold_r2.json's (2400, 6, 3)
+     code and streams (intervals overlapping, K2's device-memory body where
+     stopping sets occur, launches per peeling round); (ad)
+     ``mixed_fer_sweep`` on mixed_channel_r2.json's p_flip 0.002 curve
+     (intervals overlapping, every output syndrome-consistent, K1's launches
+     by body);
   5. steady-state rates;
   6. a JSON line with each kernel's numbers, the card line again, and last
      ``{"ok": true, "device": {...}}``.
@@ -113,6 +138,16 @@ U_TRIALS = 1000  # (u) trials a point: benchmarks/fer_parity.py's fer_parity_r4.
 U_BITFLIP_SEEDS = 8  # (u) bit-flip's tie-break streams averaged (see harness_paths)
 V_PERS, V_PAIRS, V_LOSS_PAIRS = (0.02, 0.04, 0.08), 4096, 1024  # (v) bicycle_ler_r2.json
 W_SHOTS, W_BATCH = 16384, 1024  # (w) each DEM sweep
+# the decoder family's paths (x)-(ad)
+GLOBAL_B, GLOBAL_DEM_B = 256, 16  # lanes of the device-memory elimination cases
+Y_STREAMS = {"toric_d3": 1024, "toric_d5": 512, "bb144": 256}  # (y) streaming_r3.json
+Y_ROUNDS = 64
+Z_SHOTS = 512  # (z) of demwindow_bb144_r5.jsonl's 2048 (cut for the time limit)
+AB_STEPS, AB_TRIALS = 400, 4096  # (ab) neural_toric_r2.json's training steps, trials a point
+AC_TRIALS = 2048  # (ac) erasure_threshold_r2.json's trials a point
+AD_TRIALS = 2048  # (ad) mixed_channel_r2.json's trials a point
+RESULTS = ROOT / "benchmarks/results"
+FAMILY_MINSUM = ["minsum_check", "minsum_var"]
 # published peaks of one H100 SXM: device memory rate, and the float32 rate
 # outside the tensor cores.  That rate counts a fused multiply-add as two
 # operations on 128 lanes per SM; 32-bit integer and logic instructions
@@ -255,6 +290,379 @@ def profile_call(torch, name, fn, iterations, calls=1):
 
 def overlap(a, b) -> bool:
     return a[0] <= b[1] and b[0] <= a[1]
+
+
+def global_body_cases(torch, pt, dev, dem_graph, dem_pr):
+    """Phase-3 cases of the eliminations' device-memory body (K1/K2 for a
+    lane past a block): the (2400, 6, 3) code's ``[75, 1200]`` lane, the
+    shape of paths (ac) and (ad), at ``GLOBAL_B`` lanes, and the bb144 R=6
+    DEM's ``[989, 864]`` lane at ``GLOBAL_DEM_B``.  Each lane is the code's
+    columns in the order of random reliabilities (``OSD.sort_and_pack``, as
+    a device OSD sorts them), the syndrome of a sampled error, and OSD-0's
+    residual of a second sampled error.  The bound counts the plain forms'
+    work on these inputs (trips of m rows, two operations a row; each row
+    XOR the words from the pivot's on and the syndrome bit) at the 32-bit
+    integer rate, or the bytes, whichever is larger; the plain forms count
+    that work on their first call."""
+    from ldpcdecoders_tpu_torch.models.bposd import OSD
+    from ldpcdecoders_tpu_torch.ops import cuda_gf2, gf2
+
+    src = "ldpcdecoders_tpu_torch/csrc/gf2_elim.cu"
+    rng = np.random.default_rng(31)
+    cases = []
+    for label, graph, lanes, per in (
+            ("(2400, 6, 3)", pt.TannerGraph.from_pcm(pt.parity_check_matrix(2400, 6, 3, rng=0)),
+             GLOBAL_B, 0.05),
+            ("bb144 R=6 DEM", dem_graph, GLOBAL_DEM_B, dem_pr)):
+        osd = OSD(graph, 0, device=dev)
+        m, n = graph.m, graph.n
+        logp = torch.as_tensor(rng.normal(4.0, 2.0, (lanes, n)), dtype=torch.float32, device=dev)
+        errs = torch.as_tensor(rng.random((lanes, n)) < per, device=dev)
+        bp_err = torch.as_tensor(rng.random((lanes, n)) < per, device=dev).to(torch.int8)
+        _, Ht, bp_sorted = osd.sort_and_pack(bp_err, logp)
+        syn = (errs.to(torch.float32) @ osd.H_cols_f).to(torch.int32) & 1
+        hb = (bp_err.to(torch.float32) @ osd.H_cols_f).to(torch.int32) & 1
+        s_int, resid = syn.contiguous(), (syn ^ hb).contiguous()
+        W = Ht.shape[1]
+        # the body the wrappers take: the built launcher's plan
+        if any(cuda_gf2.body_of(cuda_gf2.launcher_plan(W, m, osd0=o)) != "global"
+               for o in (True, False)):
+            raise AssertionError(f"{label}: [{W}, {m}] fits a block")
+        shape = f"B={lanes} W={W} m={m} n={n} ({label}, {4 * W * m} B a lane)"
+        # the plain forms count their work on the first call (the comparison's)
+        works = {}
+
+        def plain_osd0(Ht=Ht, resid=resid, bp=bp_sorted, n=n, works=works):
+            if "gf2_osd0_global" in works:
+                return (cuda_gf2.gf2_osd0_ref(Ht, resid, bp, n),)
+            corr, works["gf2_osd0_global"] = gf2.gf2_osd0(Ht, resid, bp, n, return_work=True)
+            return (corr,)
+
+        def plain_elim(Ht=Ht, s=s_int, n=n, works=works):
+            if "gf2_eliminate_global" in works:
+                return cuda_gf2.gf2_eliminate_ref(Ht, s, n)
+            *out, _, works["gf2_eliminate_global"] = gf2.gf2_eliminate(Ht, s, n,
+                                                                       return_work=True)
+            return tuple(out[:3])
+
+        def bounds_of(key, n_bytes, label=label, lanes=lanes, m=m, W=W, works=works):
+            def bounds(_got):
+                trips, row_xors, words = (int(t.sum()) for t in works[key])
+                print(f"work {key} {label}: {trips / lanes:.1f} trips and {row_xors / lanes:.1f} "
+                      f"row XORs per lane ({row_xors / max(trips, 1):.2f} rows per trip of {m}; "
+                      f"{words / max(row_xors, 1):.2f} words a row XOR of {W + 1})")
+                return bound(n_bytes, trips * m * 2 + words, PEAK_I32_OPS_PER_S)
+            return bounds
+
+        del osd
+        cases += [
+            (f"gf2_osd0_global {label}", src, "ldpcdecoders_tpu/ops/pallas_gf2.py:93", shape,
+             lambda Ht=Ht, resid=resid, bp=bp_sorted, n=n: (
+                 cuda_gf2.gf2_osd0_cuda(Ht, resid, bp, n),),
+             plain_osd0,
+             bounds_of("gf2_osd0_global", nbytes(Ht, resid, bp_sorted) + lanes * n * 4),
+             (3, 1)),
+            (f"gf2_eliminate_global {label}", src, "ldpcdecoders_tpu/ops/pallas_gf2.py:39",
+             shape,
+             lambda Ht=Ht, s=s_int, n=n: cuda_gf2.gf2_eliminate_cuda(Ht, s, n),
+             plain_elim,
+             bounds_of("gf2_eliminate_global", 2 * nbytes(Ht, s_int) + lanes * m * 4), (3, 1)),
+        ]
+    return cases
+
+
+def stream_detectors(pt, H, b, rounds, p, q, seed):
+    """``benchmarks/streaming.py:make_stream``'s numpy draws: ``b`` streams of
+    ``rounds`` noisy rounds (the last perfect) as detector records."""
+    from ldpcdecoders_tpu_torch.utils.noise import sample_errors, syndromes_of
+
+    rng = np.random.default_rng(seed)
+    m, n = np.asarray(H).shape
+    e = sample_errors(rng, b * rounds, n, p).reshape(b, rounds, n)
+    cum = (np.cumsum(e, axis=1) & 1).astype(np.uint8)
+    syn = np.stack([syndromes_of(H, cum[:, r]) for r in range(rounds)], axis=1)
+    u = sample_errors(rng, b * rounds, m, q).reshape(b, rounds, m)
+    u[:, -1] = 0
+    syn ^= u.astype(np.uint8)
+    return pt.detectors_of(syn).reshape(b, rounds, m)
+
+
+def path_x(torch, pt, drive, dev, card, H, graph, qc):
+    """(x) layered min-sum on the (1000, 10, 9) code at per 0.04."""
+    E = graph.n_edges
+    rng = np.random.default_rng(40)
+    errs, syn = syndromes(H, 0.04, rng)
+    lay = pt.LayeredMinSumDecoder(graph, 0.04, 50, device=dev)
+    flo = pt.MinSumDecoder(graph, 0.04, MAX_ITERS, device=dev)
+    g, c, it, aux, _ = drive("x", [], lambda: lay.batch_decode_detailed(syn))
+    _, cf, itf, _, _ = flo.batch_decode_detailed(syn)
+    assert_consistent(H, g[c], syn[c], "(x) layered (converged lanes)")
+    ds = torch.as_tensor(syn, device=dev)
+    sweeps = int(it.max())
+    _, busy, launches, _ = profile_call(torch, "(x) layered min-sum", lambda: lay.layered(ds),
+                                        sweeps)
+    t, _ = wall_s(torch, lambda: lay.layered(ds), 3)
+    print(f"main (x) LayeredMinSumDecoder per 0.04 (alpha 0.8, {lay.n_layers} layers): "
+          f"converged {c.mean():.4f}, exact recovery "
+          f"{(g.astype(bool) == errs).all(axis=1).mean():.4f}, "
+          f"sweeps mean {it.mean():.3f} max {sweeps}; flooding MinSumDecoder (alpha 1) on the "
+          f"same syndromes: converged {cf.mean():.4f}, iterations mean {itf.mean():.3f}; "
+          f"{launches / sweeps:.1f} launches and {busy / sweeps:.3f} ms device per sweep; "
+          f"{B * sweeps * E / t:.4e} edge-sweeps/s ({t * 1e3:.2f} ms/batch) | B={B} | {card}")
+    if c.mean() < 0.99:
+        raise AssertionError(f"(x): only {c.mean():.4f} of the lanes converged")
+    cpu = pt.LayeredMinSumDecoder(graph, 0.04, 50, device="cpu").batch_decode_detailed(syn[:64])
+    got = lay.batch_decode_detailed(syn[:64])
+    same = [np.array_equal(a, b) for a, b in zip(got[:3], cpu[:3])]
+    same.append(np.array_equal(got[3]["llrs"].view(np.uint32), cpu[3]["llrs"].view(np.uint32)))
+    print(f"main (x) card against CPU, 64 lanes: err/converged/sweeps/llrs bitwise {same}")
+    if not all(same):
+        raise AssertionError("(x): the card's layered decode differs from the CPU's")
+    base_qc, Hq, qsyn = qc
+    qlay = pt.QCMinSumDecoder(base_qc, 128, 0.04, 32, backend="lifted", schedule="layered",
+                              device=dev)
+    gq, cq, iq, _, _ = drive("x lifted QC", [], lambda: qlay.batch_decode_detailed(qsyn))
+    assert_consistent(Hq, gq[cq], qsyn[cq], "(x) lifted layered QC (converged lanes)")
+    print(f"main (x) QCMinSumDecoder(backend='lifted', schedule='layered') on (j)'s code: "
+          f"converged {cq.mean():.4f}, sweeps mean {iq.mean():.3f}")
+    if cq.mean() < 0.99:
+        raise AssertionError(f"(x) lifted QC: only {cq.mean():.4f} converged")
+
+
+def path_y(torch, pt, drive, dev, card, H, graph, qc):
+    """(y) sliding windows over streaming_r3.json's three streams."""
+    ref_y = json.loads((RESULTS / "streaming_r3.json").read_text())
+    Hbb = pt.named_bicycle_code("bb144")[0]
+    for name, Hc, p in (("toric_d3", pt.toric_code_x(3), 0.01),
+                        ("toric_d5", pt.toric_code_x(5), 0.01), ("bb144", Hbb, 0.003)):
+        nb = Y_STREAMS[name]
+        det = stream_detectors(pt, Hc, nb, Y_ROUNDS, p, p, seed=5)
+        win = pt.SlidingWindowDecoder(Hc, p, 40, window=3, commit=1, device=dev)
+        t0 = time.perf_counter()
+        Ew, info = drive(f"y {name}", [], lambda: win.decode_detector_stream(det, seed=1))
+        wall = time.perf_counter() - t0
+        final = np.bitwise_xor.reduce(det, axis=1)  # the last (perfect) round's syndrome
+        synE = (Ew.astype(np.int64) @ np.asarray(Hc).T.astype(np.int64)) % 2
+        closes = (synE == final).all(axis=1)
+        want = ref_y[name]["converged"]
+        print(f"main (y) SlidingWindowDecoder {name}, {nb} streams x {Y_ROUNDS} rounds, W=3 C=1, "
+              f"per {p}: {info['windows']} windows, converged {info['converged']:.4f} "
+              f"(streaming_r3.json {want:.4f}), final syndrome reproduced on {closes.mean():.4f} "
+              f"of the streams, {nb * Y_ROUNDS / wall:.1f} rounds/s ({wall:.2f} s, first call) "
+              f"| {card}")
+        if abs(info["converged"] - want) > 0.01:
+            raise AssertionError(f"(y) {name}: converged {info['converged']:.4f}, artifact {want}")
+        if not closes.all():
+            raise AssertionError(f"(y) {name}: {int((~closes).sum())} streams miss the final "
+                                 "syndrome")
+
+
+def path_z(torch, pt, drive, dev, card, H, graph, qc):
+    """(z) windowed DEM decoding of the bb144 R=12 p=0.003 DEM: the first
+    configuration of demwindow_bb144_r5.jsonl, on the first Z_SHOTS of its
+    2048 shots."""
+    import scipy.sparse as sp
+    from ldpcdecoders_tpu_torch.utils.metrics import wilson_interval
+
+    ref_z = json.loads((RESULTS / "demwindow_bb144_r5.jsonl").read_text().splitlines()[0])
+    cfg = ref_z["config"]
+    z = np.load(RESULTS / "bb144_r12_p0.003.npz")
+    A12 = sp.csr_matrix((z["data"], z["indices"], z["indptr"]), shape=tuple(z["shape"]))
+    pr12, O12 = z["priors"], z["obs"]
+    x12 = (np.random.default_rng(17).random((ref_z["shots"], A12.shape[1]))
+           < pr12[None, :])[:Z_SHOTS].astype(np.uint8)
+    det12 = (np.asarray((A12 @ x12.T.astype(np.int32)).T) % 2).astype(np.uint8)
+    obs12 = (x12.astype(np.int32) @ O12.T.astype(np.int32)) % 2
+    gammas = (0.4,) + tuple((-0.24, 0.66) for _ in range(cfg["members"] - 1))
+    wd = pt.WindowedDemDecoder(
+        A12, pr12, detectors_per_round=ref_z["dem"]["detectors_per_round"],
+        window=cfg["window"], commit=cfg["commit"], observables=O12, decoder="staged",
+        max_iters=cfg["deep_iters"], gammas=gammas, stage0_iters=cfg["stage0_iters"],
+        lam=cfg["lam"], lam3=cfg["lam3"], check_every=8, relay_legs=cfg["relay_legs"],
+        deep_dtype=torch.bfloat16, layout="check", device=dev)
+    t0 = time.perf_counter()
+    flips, info = drive("z", FAMILY_MINSUM, lambda: wd.predict_observables(det12, seed=17))
+    wall = time.perf_counter() - t0
+    fails = int((flips != obs12).any(axis=1).sum())
+    ci = wilson_interval(fails, Z_SHOTS)
+    ref_ci = wilson_interval(ref_z["windowed"]["fails"], ref_z["shots"])
+    want = ref_z["windowed"]["window_converged"]
+    print(f"main (z) WindowedDemDecoder bb144 R=12 p=0.003, W={cfg['window']} C={cfg['commit']}, "
+          f"{cfg['members']} members, {cfg['relay_legs']} relay legs, {Z_SHOTS} shots: "
+          f"{info['windows']} windows, {fails} fails, LER {fails / Z_SHOTS:.4e} (Wilson 95% "
+          f"{ci[0]:.4e}-{ci[1]:.4e}; the artifact's {ref_z['windowed']['fails']}/"
+          f"{ref_z['shots']}: {ref_ci[0]:.4e}-{ref_ci[1]:.4e}), window convergence "
+          f"{info['converged']:.4f} (artifact {want}), {Z_SHOTS / wall:.2f} shots/s, "
+          f"{Z_SHOTS * 12 / wall:.1f} rounds/s ({wall:.1f} s) | {card}")
+    if not overlap(ci, ref_ci):
+        raise AssertionError("(z): the LER interval misses the artifact's")
+    if abs(info["converged"] - want) > 0.05:
+        raise AssertionError(f"(z): window convergence {info['converged']:.4f}, artifact {want}")
+    del wd, A12, x12
+
+
+def path_aa(torch, pt, drive, dev, card, H, graph, qc):
+    """(aa) int8 min-sum at per 0.01 and 0.5 beside float32 min-sum, and bucketing."""
+    E = graph.n_edges
+    rng = np.random.default_rng(41)
+    q8 = pt.QuantizedMinSumDecoder(graph, 0.01, MAX_ITERS, device=dev)
+    q8_cpu = pt.QuantizedMinSumDecoder(graph, 0.01, MAX_ITERS, device="cpu")
+    f32 = pt.MinSumDecoder(graph, 0.01, MAX_ITERS, device=dev)
+    dv, dc = graph.max_dv, graph.max_dc
+    for per in (0.01, 0.5):
+        errs, syn = syndromes(H, per, rng)
+        g, c, it, aux, _ = drive(f"aa {per}", [], lambda: q8.batch_decode_detailed(syn))
+        cpu = q8_cpu.batch_decode_detailed(syn[:64])
+        same = [np.array_equal(a[:64], b) for a, b in zip((g, c, it, aux["llr_q"]),
+                                                           (*cpu[:3], cpu[3]["llr_q"]))]
+        ds = torch.as_tensor(syn, device=dev)
+        t8, out8 = wall_s(torch, lambda: q8.minsum_q(ds), 3)
+        t32, out32 = wall_s(torch, lambda: f32.minsum(ds), 3)
+        i8, i32 = int(out8[2].max()) or MAX_ITERS, int(out32[2].max()) or MAX_ITERS
+        _, busy, launches, _ = profile_call(torch, f"(aa) int8 min-sum per {per}",
+                                            lambda: q8.minsum_q(ds), i8)
+        # bytes an iteration's message passes move (model): the check update
+        # gathers [B, dv*n] through c2v and writes [B, dc, m]; the variable
+        # update gathers [B, dc*m] through v2c, writes nu and the int32 totals
+        b8 = B * (2 * dv * graph.n + 2 * dc * graph.m) + 4 * B * graph.n
+        b32 = 4 * B * (2 * dv * graph.n + 2 * dc * graph.m) + 4 * B * graph.n
+        print(f"main (aa) QuantizedMinSumDecoder (scale 4, beta_q 1) per {per}: converged "
+              f"{c.mean():.4f}, exact recovery {(g.astype(bool) == errs).all(axis=1).mean():.4f}, "
+              f"iterations mean {it.mean():.2f}; 64 lanes against the CPU bitwise {same}; "
+              f"int8 {B * i8 * E / t8:.4e} edge-iterations/s ({t8 * 1e3:.2f} ms, {i8} "
+              f"iterations), float32 min-sum (path (e)'s decoder) {B * i32 * E / t32:.4e} "
+              f"({t32 * 1e3:.2f} ms, {i32}); {launches / i8:.1f} launches and "
+              f"{busy / i8:.3f} ms device per int8 iteration; message bytes per iteration "
+              f"(model) int8 {b8 / 1e6:.1f} MB, float32 {b32 / 1e6:.1f} MB | B={B} | {card}")
+        if not all(same):
+            raise AssertionError(f"(aa) per {per}: the card's int8 decode differs from the CPU's")
+    inner = pt.BeliefPropagationOSDDecoder(graph, 0.01, MAX_ITERS, device=dev)
+    bk = pt.BucketedDecoder(inner)
+    errs5 = np.random.default_rng(42).random((5000, graph.n)) < 0.02
+    syn5 = ((errs5.astype(np.float32) @ H.T.astype(np.float32)) % 2).astype(np.uint8)
+    for nb in (1, 37, 1000, 5000):
+        gb, cb = drive(f"aa bucketed {nb}", [], lambda nb=nb: bk.batch_decode(syn5[:nb]))
+        gi, ci_ = inner.batch_decode(syn5[:nb])
+        if not (np.array_equal(gb, gi) and np.array_equal(cb, ci_)):
+            raise AssertionError(f"(aa) BucketedDecoder at batch {nb} differs from its inner")
+        assert_consistent(H, gb, syn5[:nb], f"(aa) bucketed BP+OSD-0 batch {nb}")
+    print(f"main (aa) BucketedDecoder(BP+OSD-0) at batches 1, 37, 1000, 5000 per 0.02: equal to "
+          f"the inner decoder, every output syndrome-consistent")
+
+
+def path_ab(torch, pt, drive, dev, card, H, graph, qc):
+    """(ab) neural min-sum: neural_toric_r2.json's configuration."""
+    from ldpcdecoders_tpu_torch.utils.metrics import gf2_rowspan_reducer
+    ref_ab = json.loads((RESULTS / "neural_toric_r2.json").read_text())
+    Hx, Hz = pt.toric_code_x(6), pt.toric_code_z(6)
+    T = ref_ab["decoder_iters"]
+    neural = pt.NeuralMinSumDecoder(Hx, ref_ab["train"]["per"], T, param_scope="edge",
+                                    device=dev)
+    t0 = time.perf_counter()
+    hist = neural.train(steps=AB_STEPS, batch=ref_ab["train"]["batch"], seed=0)
+    train_s = time.perf_counter() - t0
+    plain = pt.MinSumDecoder(Hx, ref_ab["train"]["per"], T, device=dev)
+    span = gf2_rowspan_reducer(Hz)
+    rows = []
+    for per_s in ref_ab["points"]:
+        per = float(per_s)
+        e = np.random.default_rng(int(per * 1e4)).random((AB_TRIALS, Hx.shape[1])) < per
+        syn = ((e @ Hx.T) % 2).astype(np.int8)
+
+        def logical_fail(out):
+            smatch = (((out.astype(np.int64) @ Hx.T) % 2) == syn).all(axis=1)
+            return float((~span(e.astype(np.uint8) ^ out.astype(np.uint8)) | ~smatch).mean())
+
+        out_n, _ = drive(f"ab {per_s}", FAMILY_MINSUM,
+                         lambda per=per, syn=syn: neural.batch_decode(syn, per=per))
+        out_p, _ = plain.batch_decode(syn, per=per)
+        fn, fp = logical_fail(out_n), logical_fail(out_p)
+        rows.append((per_s, fn, fp))
+        if not fn < fp:
+            raise AssertionError(f"(ab) per {per_s}: neural {fn:.4f} not below plain {fp:.4f}")
+    print(f"main (ab) NeuralMinSumDecoder toric d=6, T={T}, per-edge weights, trained "
+          f"{AB_STEPS} steps x {ref_ab['train']['batch']} at per {ref_ab['train']['per']} "
+          f"({train_s:.1f} s, loss {hist['losses'][0]:.4f} -> {hist['losses'][-1]:.4f}); "
+          f"logical failure over {AB_TRIALS} trials, neural / untrained min-sum / artifact's "
+          "neural: "
+          + ", ".join(f"per {p}: {fn:.4f} / {fp:.4f} / "
+                      f"{ref_ab['points'][p]['neural_edge']['logical_fail']:.4f}"
+                      for p, fn, fp in rows) + f" | {card}")
+
+
+def path_ac(torch, pt, drive, dev, card, H, graph, qc):
+    """(ac) erasure peeling on erasure_threshold_r2.json's (2400, 6, 3) code and streams."""
+    from ldpcdecoders_tpu_torch.utils.metrics import wilson_interval
+    ref_ac = json.loads((RESULTS / "erasure_threshold_r2.json").read_text())
+    H24 = pt.parity_check_matrix(2400, 6, 3, rng=0)
+    ml = pt.ErasurePeelingDecoder(H24, device=dev)
+    pl = pt.ErasurePeelingDecoder(H24, on_stuck="fail", device=dev)
+    rng = np.random.default_rng(0)
+    n24 = H24.shape[1]
+    for rate_s, want in ref_ac["points"].items():
+        rate = float(rate_s)
+        eps = rng.random((AC_TRIALS, n24)) < rate
+        e = eps & (rng.random((AC_TRIALS, n24)) < 0.5)
+        syn = ((e @ H24.T) % 2).astype(np.int8)
+        _, ok_pl = drive(f"ac {rate_s} peeling", [], lambda: pl.batch_decode(syn, eps))
+        rounds = pl.peeling.peel.rounds_run
+        stuck = not ok_pl.all()
+        err_ml, ok_ml = drive(f"ac {rate_s}", ["gf2_eliminate_global"] if stuck else [],
+                              lambda: ml.batch_decode(syn, eps))
+        exact = (err_ml.astype(bool) == e).all(axis=1)
+        got_ci = [wilson_interval(int(v.sum()), AC_TRIALS) for v in (ok_pl, exact)]
+        want_ci = [wilson_interval(round(want[k] * want["trials"]), want["trials"])
+                   for k in ("peeling_success", "ml_exact")]
+        print(f"main (ac) ErasurePeelingDecoder erasure {rate}: peeling success "
+              f"{ok_pl.mean():.4f} (artifact {want['peeling_success']:.4f}), ML solvable "
+              f"{ok_ml.mean():.4f}, ML exact {exact.mean():.4f} (artifact {want['ml_exact']:.4f}), "
+              f"{rounds} peeling rounds, {ml.peeling.gf2_lanes} lanes through the elimination "
+              f"({'its device-memory body' if stuck else 'none stuck'})")
+        if not all(overlap(a, b) for a, b in zip(got_ci, want_ci)):
+            raise AssertionError(f"(ac) erasure {rate}: intervals miss the artifact's")
+    eps = np.random.default_rng(5).random((AC_TRIALS, n24)) < 0.42
+    d_syn = torch.as_tensor(((eps & (np.random.default_rng(6).random(eps.shape) < 0.5)) @ H24.T)
+                            % 2, device=dev)
+    d_eps = torch.as_tensor(eps, device=dev)
+    pl.peeling(d_syn, d_eps)
+    its = pl.peeling.peel.rounds_run
+    profile_call(torch, f"(ac) peeling per round, erasure 0.42, B={AC_TRIALS}",
+                 lambda: pl.peeling(d_syn, d_eps), its)
+
+
+def path_ad(torch, pt, drive, dev, card, H, graph, qc):
+    """(ad) the mixed channel: mixed_channel_r2.json's p_flip 0.002 curve."""
+    from ldpcdecoders_tpu_torch.harness import mixed_fer_sweep
+    ref_ad = json.loads((RESULTS / "mixed_channel_r2.json").read_text())["curves_by_p_flip"]
+    ref_ad = ref_ad["0.002"]
+    H24 = pt.parity_check_matrix(2400, 6, 3, rng=0)
+    t0 = time.perf_counter()
+    res = drive("ad", ["gf2_osd0_global"] + FAMILY_MINSUM,
+                lambda: mixed_fer_sweep(H24, 0.002, [float(k) for k in ref_ad],
+                                        trials_per_point=AD_TRIALS, batch=256, seed=0,
+                                        osd_order=0, device=dev))
+    wall = time.perf_counter() - t0
+    for k, want in ref_ad.items():
+        r = res[float(k)]
+        print(f"main (ad) mixed_fer_sweep (2400, 6, 3), p_flip 0.002, erasure {k}: exact failure "
+              f"{r['exact_failure_rate']:.4f} {r['exact_failure_ci95']} (artifact "
+              f"{want['exact_failure_rate']:.4f} {want['exact_failure_ci95']}), syndrome "
+              f"mismatch {r['syndrome_mismatch_rate']:.4f}, BP engaged {r['bp_engaged_steps']}/"
+              f"{r['steps']} steps, mean peel rounds {r['mean_peel_rounds']:.3f}")
+        if not overlap(r["exact_failure_ci95"], want["exact_failure_ci95"]):
+            raise AssertionError(f"(ad) erasure {k}: the interval misses the artifact's")
+        if r["syndrome_mismatch_rate"] != 0:
+            raise AssertionError(f"(ad) erasure {k}: outputs miss their syndrome")
+    print(f"main (ad) {len(ref_ad)} points x {AD_TRIALS} trials in {wall:.1f} s; K1's launches "
+          f"by body on this path: {drive.last_routes} | {card}")
+
+
+def family_paths(torch, pt, drive, dev, card, H, qc):
+    """Paths (x)-(ad): the rest of the decoder family through its entry
+    points.  ``qc``: path (j)'s code and syndromes ``(base, Hq, qsyn)``."""
+    graph = pt.TannerGraph.from_pcm(H)
+    for path in (path_x, path_y, path_z, path_aa, path_ab, path_ac, path_ad):
+        path(torch, pt, drive, dev, card, H, graph, qc)
 
 
 def harness_paths(torch, pt, drive, dev, card, H):
@@ -512,14 +920,16 @@ def main() -> int:
     # count, per lane, the column trips made before the lane stops (OSD-0:
     # no residual left outside the pivot space; elimination: full rank) and
     # the rows each pivot is XORed into.  A trip tests bit j of all m rows
-    # (a shift and a mask each); a row XOR is W words and the syndrome bit.
+    # (a shift and a mask each); a row XOR needs the words from the pivot's
+    # on (the pivot row is zero before it) and the syndrome bit.
     W = Ht.shape[1]
 
     def elim_ops(work, what):
-        trips, row_xors = (int(t.sum()) for t in work)
+        trips, row_xors, words = (int(t.sum()) for t in work)
         print(f"work {what}: {trips / B:.1f} trips and {row_xors / B:.1f} row XORs per lane "
-              f"({row_xors / max(trips, 1):.2f} rows per trip of {m})")
-        return trips * m * 2 + row_xors * (W + 1)
+              f"({row_xors / max(trips, 1):.2f} rows per trip of {m}; "
+              f"{words / max(row_xors, 1):.2f} words a row XOR of {W + 1})")
+        return trips * m * 2 + words
 
     osd0_ops = elim_ops(gf2.gf2_osd0(Ht, resid, bp_sorted, n, return_work=True)[1], "gf2_osd0")
     full_ops = elim_ops(gf2.gf2_eliminate(Ht, s_int, n, return_work=True)[4], "gf2_eliminate")
@@ -738,6 +1148,9 @@ def main() -> int:
     dem_det = torch.as_tensor((dem_x @ dem_A.T.toarray().astype(np.float32)) % 2 == 1,
                               device=dev)
     dem_llr = torch.as_tensor(np.log((1 - dem_pr) / dem_pr), device=dev)
+
+    # step 0: K1/K2's device-memory body at the lanes past a block
+    cases += global_body_cases(torch, pt, dev, dem_graph, dem_pr)
 
     # one entry per kernel in the summary: the first case of each name is
     # the main path's (float32; gathered; layered with the baked prior); the
@@ -981,14 +1394,24 @@ def main() -> int:
 
     path_launches = {}
 
+    # K1/K2 count their launches by body: the shared-memory kernels under
+    # their own names, the device-memory body (lanes past a block) apart
+    routed = {"gf2_osd0": cuda_gf2.gf2_osd0_cuda, "gf2_eliminate": cuda_gf2.gf2_eliminate_cuda}
+
     def drive(path, expect, fn):
         """Run one main path with every count set to 0 just before it and
         read just after it; a kernel of ``expect`` never launched fails."""
         for ws in wrappers.values():
             for w in ws:
                 w.launches = 0
+        for w in routed.values():
+            w.routes.update({"shared": 0, "global": 0})
         out = fn()
         counts = {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
+        for k, w in routed.items():
+            counts[k] = w.routes["shared"]
+            counts[f"{k}_global"] = w.routes["global"]
+        drive.last_routes = {k: dict(w.routes) for k, w in routed.items()}
         for k in expect:
             if counts[k] == 0:
                 raise AssertionError(f"main ({path}) never launched {k}")
@@ -1252,11 +1675,12 @@ def main() -> int:
               f"{measured / modeled:.3f} | {card}")
 
     dem_lane = cuda_gf2.smem_bytes((dem_graph.n + 31) // 32, dem_graph.m, osd0=False)
-    print(f"main (p), (q) OSD route: host (the native OSD-CS, on a worker thread): one lane of the "
-          f"bb144 DEM takes {dem_lane} B of shared memory in the elimination kernel, a block "
-          f"holds {cuda_gf2.MAX_SMEM_BYTES}")
+    print(f"main (p), (q) OSD route: host (the native OSD-CS, on a worker thread, as the "
+          f"reference's staged decoder): one lane of the bb144 DEM takes {dem_lane} B of shared "
+          f"memory in the elimination kernels, a block holds {cuda_gf2.MAX_SMEM_BYTES}, so a "
+          f"device OSD would take their device-memory body")
     if dem_lane <= cuda_gf2.MAX_SMEM_BYTES:
-        raise AssertionError("(p): the DEM's lane fits a block; the host route is not the rule")
+        raise AssertionError("(p): the DEM's lane fits a block of the elimination kernels")
     ref_lo, ref_hi = wilson_interval(149, 16384)
     staged = {}
     for path, what, dec, shots, kw in (
@@ -1312,11 +1736,12 @@ def main() -> int:
         memory[mem_key].update(iteration_ms=busy / its, launches_per_iteration=launches / its)
 
     harness_paths(torch, pt, drive, dev, card, H)
+    family_paths(torch, pt, drive, dev, card, H, (base_qc, Hq, qsyn))
 
     # in the summary, ``launches`` is the count of the first path that must
     # launch the kernel; ``launches_by_path`` has every path's own count
     own_path = {"gf2_osd0": "b", "gf2_eliminate": "c", "minsum_check": "e", "minsum_var": "e",
-                "qc_minsum": "j"}
+                "qc_minsum": "j", "gf2_osd0_global": "ad", "gf2_eliminate_global": "ac 0.5"}
     for k, path in own_path.items():
         kernels[k]["launches"] = path_launches[path][k]
         kernels[k]["launches_path"] = path

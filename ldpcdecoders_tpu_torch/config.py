@@ -3,9 +3,7 @@
 Counterpart of ``ldpcdecoders_tpu/config.py``: the same dataclass, the same
 fields and defaults, and the same JSON text, so a configuration serialized
 by either package rebuilds in the other.  :meth:`DecoderConfig.build` makes
-this package's decoders of the ported kinds (``bp``, ``bposd``,
-``bitflip``, ``bpots``, ``minsum``, ``qc_minsum``, ``spacetime``,
-``detector``, ``ensemble``, ``staged``) and raises ``NotImplementedError`` for the rest.
+this package's decoder of every kind the reference builds.
 
 Knobs of the reference that select TPU machinery have no effect here:
 ``use_pallas`` (the hand-written kernels always run on a card) and
@@ -40,9 +38,8 @@ _KINDS = (
     "staged",
 )
 
-#: the kinds :meth:`DecoderConfig.build` makes in this package
-PORTED_KINDS = ("bp", "bposd", "bitflip", "bpots", "minsum", "qc_minsum", "spacetime",
-                "detector", "ensemble", "staged")
+#: the kinds :meth:`DecoderConfig.build` makes in this package: all of them
+PORTED_KINDS = _KINDS
 
 #: decoder-specific knobs forwarded from a wrapper kind's config to its
 #: inner decoder's DecoderConfig
@@ -184,23 +181,24 @@ class DecoderConfig:
         from . import models
 
         k = self.kind
-        if k not in PORTED_KINDS:
-            raise NotImplementedError(
-                f"decoder kind '{k}' is not ported to ldpcdecoders_tpu_torch yet "
-                f"(ROADMAP.md queue 1); the ported kinds are {PORTED_KINDS}")
         if k == "ensemble":
             built = [DecoderConfig.from_dict(d).build(H, device=device)
                      for d in self.members]
             H_arr = H if (hasattr(H, "todense") or (
                 hasattr(H, "ndim") and getattr(H, "ndim", 0) == 2)) else None
             return models.EnsembleDecoder(built, H=H_arr)
-        if k in ("spacetime", "detector"):
+        if k in ("spacetime", "window", "detector"):
             knobs = {f: getattr(self, f) for f in _INNER_KNOBS}
             if k == "spacetime":
                 return models.SpaceTimeDecoder(
                     H, self.rounds, self.per, self.max_iters,
                     meas_error_rate=self.meas_error_rate, decoder=self.inner_kind,
                     perfect_last=self.perfect_last, device=device, **knobs)
+            if k == "window":
+                return models.SlidingWindowDecoder(
+                    H, self.per, self.max_iters, window=self.window, commit=self.commit,
+                    meas_error_rate=self.meas_error_rate, decoder=self.inner_kind,
+                    device=device, **knobs)
             if self.dem_path:
                 return models.DetectorGraphDecoder.from_dem(
                     self.dem_path, self.max_iters, decoder=self.inner_kind, device=device,
@@ -260,6 +258,18 @@ class DecoderConfig:
                 fused=self.fused, osd_scope=self.osd_scope,
                 osd_method=self.osd_method, osd_impl=self.osd_impl,
                 inner=self.inner, damping=self.damping, device=device)
+        if k == "minsum_int8":
+            return models.QuantizedMinSumDecoder(H, self.per, self.max_iters, scale=self.scale,
+                                                 beta_q=self.beta_q, device=device)
+        if k == "neural_minsum":
+            dec = models.NeuralMinSumDecoder(H, self.per, self.max_iters, device=device)
+            if self.schedule_path:
+                dec.load_schedule(self.schedule_path)
+            return dec
+        if k == "layered_minsum":
+            return models.LayeredMinSumDecoder(
+                H, self.per, self.max_iters, damping=self.damping,
+                alpha=0.8 if self.alpha is None else self.alpha, beta=self.beta, device=device)
         # k == "minsum"
         return models.MinSumDecoder(
             H, self.per, self.max_iters, damping=self.damping,

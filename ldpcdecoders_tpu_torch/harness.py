@@ -7,7 +7,8 @@ interruption (:class:`FERSweep`, :func:`find_threshold`), and the quantum
 evaluations: the degeneracy-aware logical error rate of a CSS code pair
 (:func:`css_logical_sweep`), of ``R`` noisy measurement rounds
 (:func:`spacetime_logical_sweep`) and of a detector error model
-(:func:`dem_logical_sweep`).
+(:func:`dem_logical_sweep`), and the frame-error rate of the mixed erasure +
+bit-flip channel over erasure rates (:func:`mixed_fer_sweep`).
 
 Every batch of a point draws from its own counted streams, derived from
 ``(seed, point, step)``.  Host sampling uses the reference's numpy streams,
@@ -39,10 +40,11 @@ import torch
 from .models.base import Decoder
 from .utils.io import atomic_write_json, read_json
 from .utils.metrics import wilson_interval
-from .utils.noise import sample_errors, sample_errors_device, syndromes_of, verify_decodes
+from .utils.noise import (sample_errors, sample_errors_device, sample_mixed_channel,
+                          syndromes_of, verify_decodes)
 
 __all__ = ["FERSweep", "SweepPoint", "find_threshold", "css_logical_sweep",
-           "spacetime_logical_sweep", "dem_logical_sweep"]
+           "spacetime_logical_sweep", "dem_logical_sweep", "mixed_fer_sweep"]
 
 # dense [m, n] size above which a device step would hold an unreasonable
 # float32 operand: the sweeps then sample on the host
@@ -540,6 +542,114 @@ def css_logical_sweep(
             "z_converged": zc_cnt / trials,
             "x_converged": xc_cnt / trials,
             "throughput_pairs_per_s": trials / dt if dt else 0.0,
+        }
+    return out
+
+
+def mixed_fer_sweep(
+    H,
+    p_flip: float,
+    erasure_rates: Sequence[float],
+    *,
+    trials_per_point: int,
+    max_iters: int = 60,
+    batch: int = 256,
+    seed: int = 0,
+    algorithm: str = "minsum",
+    strategy: str = "peel+bp",
+    osd_order: int | None = None,
+    checkpoint_path: str | None = None,
+    max_seconds: float | None = None,
+    device=None,
+    **knobs,
+) -> dict:
+    """FER sweep over erasure rates on the mixed erasure + bit-flip channel.
+
+    The mixed-channel analog of :class:`FERSweep`: at each erasure rate a
+    batch of (erasure mask, error) pairs is drawn on the host
+    (``utils.noise.sample_mixed_channel``: erased bits uniform, the rest
+    flipped with ``p_flip``) from the counted stream ``(seed, point,
+    step)`` of the reference, and decoded by one
+    :class:`~.models.mixed.MixedChannelDecoder` on ``device`` (None: the
+    current CUDA card).  The same streams give the reference's counts
+    wherever the decoder is bitwise, and the checkpoint JSON is the
+    reference's: a sweep resumes in either package.
+
+    Returns ``{eps: {"trials", "exact_failure_rate", *_ci95,
+    "syndrome_mismatch_rate", "ok_rate", "bp_engaged_steps",
+    "mean_peel_rounds", "throughput_decodes_per_s"}}``;
+    ``bp_engaged_steps`` counts the decode calls whose BP stage ran.
+    ``checkpoint_path`` / ``max_seconds``: the counters are saved after
+    every batch, a re-run resumes on the exact counted streams, and the
+    sweep stops cleanly when the budget is spent.
+    """
+    from .models.mixed import MixedChannelDecoder
+
+    dec = MixedChannelDecoder(H, p_flip, max_iters, algorithm=algorithm, strategy=strategy,
+                              osd_order=osd_order, device=device, **knobs)
+    n = dec.n
+    _CNT = ("trials", "exact_fail", "smismatch", "not_ok", "bp_steps", "rounds_sum",
+            "wall_seconds")
+    state = {float(e): dict.fromkeys(_CNT + ("step",), 0) for e in erasure_rates}
+    for st in state.values():
+        st["wall_seconds"] = 0.0
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        data = read_json(checkpoint_path)
+        if (data.get("seed"), data.get("batch"), data.get("p_flip")) != (
+                seed, batch, float(p_flip)):
+            raise ValueError("checkpoint was written with a different seed/batch/p_flip config")
+        for k, rec in data["points"].items():
+            if float(k) in state:
+                state[float(k)].update(rec)
+
+    def save():
+        if checkpoint_path:
+            atomic_write_json(checkpoint_path, {
+                "seed": seed, "batch": batch, "p_flip": float(p_flip),
+                "points": {str(k): v for k, v in state.items()},
+            })
+
+    t_start = time.perf_counter()
+    out = {}
+    for eps in (float(e) for e in erasure_rates):
+        st = state[eps]
+        eps_hash = int(eps * 1e9) & 0x7FFFFFFF
+        while st["trials"] < trials_per_point:
+            if max_seconds is not None and time.perf_counter() - t_start >= max_seconds:
+                break
+            b = min(batch, trials_per_point - st["trials"])
+            rng = np.random.default_rng((seed, eps_hash, st["step"]))
+            erasures, errs = sample_mixed_channel(rng, b, n, p_flip, eps)
+            syns = syndromes_of(H, errs)
+            t0 = time.perf_counter()
+            guesses, ok, peel_rounds, bp_iters = dec.batch_decode_detailed(syns, erasures)
+            st["wall_seconds"] += time.perf_counter() - t0
+            exact, smatch = verify_decodes(H, errs, guesses, syns)
+            st["trials"] += b
+            st["step"] += 1
+            st["exact_fail"] += int(b - exact.sum())
+            st["smismatch"] += int(b - smatch.sum())
+            st["not_ok"] += int(b - ok.sum())
+            st["bp_steps"] += int(bp_iters > 0)
+            st["rounds_sum"] += int(peel_rounds.sum())
+            save()
+        trials = st["trials"]
+        if not trials:
+            continue
+        lo, hi = wilson_interval(st["exact_fail"], trials)
+        out[eps] = {
+            "erasure_rate": eps,
+            "p_flip": float(p_flip),
+            "trials": trials,
+            "exact_failure_rate": st["exact_fail"] / trials,
+            "exact_failure_ci95": [lo, hi],
+            "syndrome_mismatch_rate": st["smismatch"] / trials,
+            "ok_rate": 1.0 - st["not_ok"] / trials,
+            "bp_engaged_steps": st["bp_steps"],
+            "steps": st["step"],
+            "mean_peel_rounds": st["rounds_sum"] / trials,
+            "throughput_decodes_per_s": (trials / st["wall_seconds"]
+                                         if st["wall_seconds"] else 0.0),
         }
     return out
 

@@ -20,9 +20,9 @@ Counterpart of ``ldpcdecoders_tpu/models/bposd.py``:
     (``osd_cs_sweep``: every single flip and the pairs within the first
     ``osd_order`` columns);
   * the native host OSD (native/gf2_osd.cpp) takes the OSD where
-    ``osd_impl="host"``.  A device OSD whose lane does not fit one block
-    of the elimination kernels raises at construction: the caller chooses
-    the host OSD for such a code.
+    ``osd_impl="host"``.  A lane too large for one block of the
+    elimination kernels takes their device-memory body (ops/cuda_gf2.py):
+    the device OSD decodes every code size.
 
 ``converged`` reports BP convergence; the returned error estimate is
 always syndrome-consistent for OSD-0, and for OSD-w whenever H's rows span
@@ -38,7 +38,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..ops.cuda_gf2 import gf2_eliminate_cuda, gf2_osd0_cuda, launch_plan
+from ..ops.cuda_gf2 import gf2_eliminate_cuda, gf2_osd0_cuda
 from ..ops.gf2 import osd_cs_sweep, osdw_sweep, wrap_int32
 from .base import Decoder, resolve_device
 from .bp import BPDecode, as_graph
@@ -203,10 +203,9 @@ class BeliefPropagationOSDDecoder(Decoder):
         inner decoder's output.
       osd_impl: ``"device"`` (default: the elimination kernels on the
         card, the plain versions on the CPU) or ``"host"`` (the threaded
-        C++ eliminator of native/, for OSD-0 or OSD-CS).  A device OSD
-        whose lane does not fit one block of the elimination kernels
-        raises ``NotImplementedError`` (ROADMAP.md queue 2): pass
-        ``osd_impl="host"`` for such a code.
+        C++ eliminator of native/, for OSD-0 or OSD-CS).  A lane too large
+        for one block of the elimination kernels takes their device-memory
+        body.
       osd_triples: with ``osd_impl="host"`` and OSD-CS, the triple-sweep
         depth (order-3 combinations; 0 disables).
       fused: not ported (raises ``NotImplementedError``).
@@ -278,16 +277,6 @@ class BeliefPropagationOSDDecoder(Decoder):
                 "combination_sweep extension: set osd_impl='host', "
                 "osd_method='combination_sweep'")
         self.osd_triples = int(osd_triples)
-        if osd_impl == "device":
-            # OSD-0 runs the OSD-0 kernel, OSD-w the elimination kernel; a
-            # lane must fit one block of it (the same rule on the CPU)
-            W = (self.n + 31) // 32
-            if launch_plan(W, self.m, osd0=self.osd_order == 0).panel == 0:
-                raise NotImplementedError(
-                    f"one lane of the [{self.m}, {self.n}] code does not fit a block of "
-                    "the elimination kernels (ROADMAP.md queue 2); pass osd_impl='host' "
-                    "for the native host OSD (OSD-0, or OSD-CS with "
-                    "osd_method='combination_sweep')")
         self._Hcols = None
         if osd_impl == "host":
             from ..native import gf2_pack_cols, native_available

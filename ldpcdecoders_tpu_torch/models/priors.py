@@ -13,6 +13,7 @@ __all__ = [
     "per_to_ratio",
     "per_to_llr",
     "per_to_depolarizing_llr",
+    "per_to_quantized_llr",
     "next_pow2",
 ]
 
@@ -42,6 +43,13 @@ def per_to_depolarizing_llr(per, n: int) -> np.ndarray:
     """p -> log((1-2p/3)/(2p/3)) (depolarizing prior)."""
     p = validate_per(per, n)
     return np.log((1.0 - 2.0 * p / 3.0) / (2.0 * p / 3.0))
+
+
+def per_to_quantized_llr(per, scale: float) -> int:
+    """Scalar p -> round(scale * llr) clipped to the int8 range."""
+    if np.ndim(per):
+        raise ValueError("quantized decoders need a scalar per")
+    return int(np.clip(round(float(np.log((1.0 - per) / per) * scale)), -127, 127))
 
 
 def next_pow2(x: int) -> int:

@@ -44,6 +44,7 @@ from ..ops.cuda_qc import qc_minsum_cuda
 from ..ops.qc_minsum import QCTerms, qc_launch_shape, qc_modes
 from .base import Decoder, resolve_device
 from .bp import BPDecode
+from .layered import LayeredMinSumDecode
 from .minsum import MinSumDecode
 from .priors import per_to_llr
 
@@ -107,7 +108,8 @@ class QCMinSumDecoder(Decoder):
         'lifted' (generic edge-list decoder on the lifted graph).
       schedule: 'flooding' (default) or 'layered' (serial-C over base rows:
         conflict-free layers for single-term blocks, about half the
-        sweeps).  The lifted backend has no layered schedule yet.
+        sweeps).  The lifted backend's layered schedule is the layered
+        min-sum decoder (models/layered.py) on the lifted graph.
       algorithm: 'minsum' (default) or 'sumproduct' (exact tanh rule).
       dtype: message storage precision, torch.float32 (default) or
         torch.bfloat16 (half the shared memory; arithmetic and LLR outputs
@@ -229,10 +231,9 @@ class QCMinSumDecoder(Decoder):
                                      "backend (the lifted layered path is min-sum)")
                 self.lifted = BPDecode(self.graph, self.per, self.max_iters, device=self.device)
             elif layered:
-                raise NotImplementedError(
-                    "backend='lifted' with schedule='layered' needs the layered min-sum "
-                    "decoder (models/layered.py), which is not ported to "
-                    "ldpcdecoders_tpu_torch yet (ROADMAP.md queue 1)")
+                self.lifted = LayeredMinSumDecode(self.graph, self.per, self.max_iters,
+                                                  device=self.device, alpha=self.alpha,
+                                                  beta=self.beta, dtype=dtype)
             else:
                 self.lifted = MinSumDecode(self.graph, self.per, self.max_iters,
                                            device=self.device, alpha=self.alpha,

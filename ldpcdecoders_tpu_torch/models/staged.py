@@ -21,8 +21,8 @@ decoding semantics, lane for lane:
 
 The min-sum message updates run in the hand-written kernels
 (ops/cuda_minsum.py) on a card.  The OSD of this path always runs on the
-host, as the reference's does: one lane of a circuit-level DEM (the bb144
-R=6 model is 864 x 31,648) is far past a block of the elimination kernels.
+host, as the reference's does (one lane of the bb144 R=6 model, 864 x
+31,648, would take the elimination kernels' device-memory body).
 :meth:`StagedDemDecoder.run_eval` samples mechanisms on the device from a
 ``torch.Generator`` seeded per batch from ``np.random.default_rng(seed)``
 (the reference draws with ``jax.random``, which torch cannot reproduce) and

@@ -23,10 +23,17 @@ the other warps' apply pass; other lanes keep their rows in shared memory
 and meet at a block barrier per trip.  The launcher picks P for a shape: the
 widest panel whose table fits the 232,448 bytes of a block beside the lane.
 :func:`launcher_plan` asks the built library for that choice, and the
-wrappers refuse by it; :func:`launch_plan` is the same sum in Python, for
+wrappers route by it; :func:`launch_plan` is the same sum in Python, for
 where there is no library, and the card's tests hold the two together.
 ``ops/gf2.py`` has the same algorithm in plain torch (``gf2_osd0_blocked``,
 ``gf2_eliminate_blocked``).
+
+A lane that fits no block (``launch_plan(...).panel == 0``) takes the
+third body, ``gf2_global_kernel``: the lane stays in device memory (the
+elimination works in its output ``Ht'``, OSD-0 in a workspace of its own,
+allocated per chunk of lanes under ``utils/hbm.py``'s budget) and the column
+trips are the plain forms' one by one.  :func:`route` names the body a
+shape takes; ``<wrapper>.routes`` counts the launches of each body.
 """
 
 from __future__ import annotations
@@ -44,6 +51,9 @@ __all__ = [
     "gf2_eliminate_ref",
     "launch_plan",
     "launcher_plan",
+    "route",
+    "body_of",
+    "global_smem_bytes",
     "row_stride",
     "smem_bytes",
     "MAX_SMEM_BYTES",
@@ -128,6 +138,27 @@ def launcher_plan(W: int, m: int, *, osd0: bool, panel: int = 8, lib=None) -> La
     return LaunchPlan(out[0], bool(out[2]), bool(out[3]), out[1])
 
 
+def body_of(plan: LaunchPlan) -> str:
+    """The body a plan launches: ``"shared"`` where a block holds the lane
+    (the pipelined or panel kernel), ``"global"`` (the lane in device
+    memory) where the plan has no panel.  The wrappers route by it."""
+    return "global" if plan.panel == 0 else "shared"
+
+
+def route(W: int, m: int, *, osd0: bool) -> str:
+    """The body a ``[W, m]`` lane takes: :func:`body_of` its
+    :func:`launch_plan` (the card's tests hold that plan to the
+    launcher's, which the wrappers read)."""
+    return body_of(launch_plan(W, m, osd0=osd0))
+
+
+def global_smem_bytes(m: int) -> int:
+    """Shared memory of the device-memory body for ``m`` rows: a state word
+    and a list entry per row (each part rounded to 4), 64 words of warp
+    slots and two counts (``global_smem_bytes`` in ``csrc/gf2_elim.cu``)."""
+    return 4 * (2 * _round4(m) + 64 + 4)
+
+
 def smem_bytes(W: int, m: int, *, osd0: bool) -> int:
     """Shared memory the block of one ``[W, m]`` lane takes under
     :func:`launch_plan` (the least it could take where it does not fit)."""
@@ -157,7 +188,7 @@ def _check(name, t, shape, device):
 
 
 def _prepare(Ht, n, osd0, panel, lib):
-    """Validate the packed system and return ``(lib, B, W, m, stream)``."""
+    """Validate the packed system; return ``(lib, B, W, m, stream, plan)``."""
     from .._build import load_library
 
     if Ht.device.type != "cuda":
@@ -175,12 +206,11 @@ def _prepare(Ht, n, osd0, panel, lib):
         raise ValueError(f"panel must be 1, 2, 4 or 8, got {panel}")
     lib = lib or load_library()
     plan = launcher_plan(W, m, osd0=osd0, panel=panel, lib=lib)
-    if plan.panel == 0:
-        raise ValueError(
-            f"one lane of a [{m}, {n}] system takes {plan.bytes} bytes of shared memory; "
-            f"a Hopper block holds at most {MAX_SMEM_BYTES}")
+    if body_of(plan) == "global" and global_smem_bytes(m) > MAX_SMEM_BYTES:
+        raise ValueError(f"a lane of {m} rows takes {global_smem_bytes(m)} bytes of shared "
+                         f"memory in the device-memory body; a block holds {MAX_SMEM_BYTES}")
     stream = torch.cuda.current_stream(Ht.device).cuda_stream
-    return lib, B, W, m, stream
+    return lib, B, W, m, stream, plan
 
 
 def _raise_on(lib, rc, what):
@@ -203,17 +233,35 @@ def gf2_osd0_cuda(Ht, resid, bp_err, n, *, _max_panel=8, _lib=None):
     """
     if Ht.device.type == "cpu":
         return gf2_osd0_ref(Ht, resid, bp_err, n)
-    lib, B, W, m, stream = _prepare(Ht, n, True, _max_panel, _lib)
+    lib, B, W, m, stream, plan = _prepare(Ht, n, True, _max_panel, _lib)
     _check("resid", resid, (B, m), Ht.device)
     _check("bp_err", bp_err, (B, n), Ht.device)
     corr = torch.empty((B, n), dtype=torch.int32, device=Ht.device)
     if B == 0:
+        return corr
+    if body_of(plan) == "global":
+        # the device-memory body works in a copy of each lane: by chunks of
+        # lanes whose workspace the memory budget admits
+        from ..utils.hbm import gf2_workspace_lanes
+
+        chunk = min(B, gf2_workspace_lanes(W, m, device=Ht.device))
+        work = torch.empty((chunk, W, m), dtype=torch.int32, device=Ht.device)
+        for b0 in range(0, B, chunk):
+            b = min(chunk, B - b0)
+            with torch.cuda.device(Ht.device):
+                rc = lib.ldpc_gf2_osd0_global(Ht[b0].data_ptr(), resid[b0].data_ptr(),
+                                              bp_err[b0].data_ptr(), corr[b0].data_ptr(),
+                                              work.data_ptr(), b, W, m, n, stream)
+            _raise_on(lib, rc, "gf2_osd0 (device-memory body)")
+            gf2_osd0_cuda.launches += 1
+            gf2_osd0_cuda.routes["global"] += 1
         return corr
     with torch.cuda.device(Ht.device):  # the launch goes to the current device
         rc = lib.ldpc_gf2_osd0(Ht.data_ptr(), resid.data_ptr(), bp_err.data_ptr(),
                                corr.data_ptr(), B, W, m, n, _max_panel, stream)
     _raise_on(lib, rc, "gf2_osd0")
     gf2_osd0_cuda.launches += 1
+    gf2_osd0_cuda.routes["shared"] += 1
     return corr
 
 
@@ -231,21 +279,31 @@ def gf2_eliminate_cuda(Ht, s, n, *, _max_panel=8, _lib=None):
     """
     if Ht.device.type == "cpu":
         return gf2_eliminate_ref(Ht, s, n)
-    lib, B, W, m, stream = _prepare(Ht, n, False, _max_panel, _lib)
+    lib, B, W, m, stream, plan = _prepare(Ht, n, False, _max_panel, _lib)
     _check("s", s, (B, m), Ht.device)
     Ht2 = torch.empty_like(Ht)
     s2 = torch.empty_like(s)
     piv = torch.empty((B, m), dtype=torch.int32, device=Ht.device)
     if B == 0:
         return Ht2, s2, piv
+    body = body_of(plan)
     with torch.cuda.device(Ht.device):
-        rc = lib.ldpc_gf2_eliminate(Ht.data_ptr(), s.data_ptr(), Ht2.data_ptr(),
-                                    s2.data_ptr(), piv.data_ptr(), B, W, m, n, _max_panel,
-                                    stream)
+        if body == "global":  # the lane in device memory: the kernel works in Ht2
+            rc = lib.ldpc_gf2_eliminate_global(Ht.data_ptr(), s.data_ptr(), Ht2.data_ptr(),
+                                               s2.data_ptr(), piv.data_ptr(), B, W, m, n,
+                                               stream)
+        else:
+            rc = lib.ldpc_gf2_eliminate(Ht.data_ptr(), s.data_ptr(), Ht2.data_ptr(),
+                                        s2.data_ptr(), piv.data_ptr(), B, W, m, n, _max_panel,
+                                        stream)
     _raise_on(lib, rc, "gf2_eliminate")
     gf2_eliminate_cuda.launches += 1
+    gf2_eliminate_cuda.routes[body] += 1
     return Ht2, s2, piv
 
 
 gf2_osd0_cuda.launches = 0
 gf2_eliminate_cuda.launches = 0
+#: launches per body: "shared" (a block holds the lane), "global" (device memory)
+gf2_osd0_cuda.routes = {"shared": 0, "global": 0}
+gf2_eliminate_cuda.routes = {"shared": 0, "global": 0}

@@ -82,6 +82,15 @@ def _first_row(avail: torch.Tensor):
     return k, k < m
 
 
+def _xor_words(W: int, j: int) -> int:
+    """Words a row XOR of column ``j``'s trip needs: the packed words from
+    the pivot's, ``j // 32``, on, and the syndrome bit.  The words before
+    are zero in an unused pivot row: every earlier column either had a
+    pivot, whose trip cleared its bit in every other row, or had no unused
+    row with its bit set."""
+    return W - j // 32 + 1
+
+
 def gf2_osd0(Ht: torch.Tensor, resid: torch.Tensor, bp_err: torch.Tensor, n: int,
              return_work: bool = False):
     """Batched OSD-0 elimination; returns the ``[B, n]`` int32 correction.
@@ -100,8 +109,9 @@ def gf2_osd0(Ht: torch.Tensor, resid: torch.Tensor, bp_err: torch.Tensor, n: int
       bp_err: ``[B, n]`` 0/1 BP hard decisions (sorted order).
       n: column count.
       return_work: also return the work these inputs needed, ``(trips [B],
-        row_xors [B])`` int64: the column trips a lane made before it
-        stopped, and the rows its pivots were XORed into.
+        row_xors [B], row_words [B])`` int64: the column trips a lane made
+        before it stopped, the rows its pivots were XORed into, and the
+        words those XORs need (see :func:`_xor_words`).
     """
     B, W, m = Ht.shape
     device = Ht.device
@@ -110,6 +120,7 @@ def gf2_osd0(Ht: torch.Tensor, resid: torch.Tensor, bp_err: torch.Tensor, n: int
     bp = bp_err.to(torch.int32)
     trips = torch.zeros(B, dtype=torch.int64, device=device)
     row_xors = torch.zeros(B, dtype=torch.int64, device=device)
+    row_words = torch.zeros(B, dtype=torch.int64, device=device)
     piv = torch.full((B, m), n, dtype=torch.int32, device=device)
     rows = torch.arange(m, device=device)
     active = torch.ones(B, dtype=torch.bool, device=device)
@@ -133,8 +144,9 @@ def gf2_osd0(Ht: torch.Tensor, resid: torch.Tensor, bp_err: torch.Tensor, n: int
         if return_work:
             trips += active
             row_xors += elim.sum(dim=1)
+            row_words += elim.sum(dim=1) * _xor_words(W, j)
     corr = scatter_pivots(bp, piv, s, n)
-    return (corr, (trips, row_xors)) if return_work else corr
+    return (corr, (trips, row_xors, row_words)) if return_work else corr
 
 
 def scatter_pivots(values: torch.Tensor, piv: torch.Tensor, s: torch.Tensor, n: int):
@@ -161,8 +173,9 @@ def gf2_eliminate(Ht: torch.Tensor, s: torch.Tensor, n: int, return_work: bool =
     Returns ``(Ht [B, W, m] int32, s [B, m] int32, pivcol [B, m] int32, r [B])``
     where ``pivcol[b, i]`` is row i's pivot column (sentinel ``n``) and
     ``r`` the rank; with ``return_work`` a fifth item ``(trips [B],
-    row_xors [B])`` int64, the column trips a lane made before it reached
-    full rank and the rows its pivots were XORed into.
+    row_xors [B], row_words [B])`` int64, the column trips a lane made
+    before it reached full rank, the rows its pivots were XORed into, and
+    the words those XORs need (:func:`_xor_words`).
     """
     B, W, m = Ht.shape
     device = Ht.device
@@ -170,6 +183,7 @@ def gf2_eliminate(Ht: torch.Tensor, s: torch.Tensor, n: int, return_work: bool =
     s = s.to(torch.int32).clone()
     trips = torch.zeros(B, dtype=torch.int64, device=device)
     row_xors = torch.zeros(B, dtype=torch.int64, device=device)
+    row_words = torch.zeros(B, dtype=torch.int64, device=device)
     piv = torch.full((B, m), n, dtype=torch.int32, device=device)
     rows = torch.arange(m, device=device)
     r = torch.zeros(B, dtype=torch.int32, device=device)
@@ -189,8 +203,9 @@ def gf2_eliminate(Ht: torch.Tensor, s: torch.Tensor, n: int, return_work: bool =
         if return_work:
             trips += r < m
             row_xors += elim.sum(dim=1)
+            row_words += elim.sum(dim=1) * _xor_words(W, j)
         r = r + found.to(torch.int32)
-    return (Ht, s, piv, r, (trips, row_xors)) if return_work else (Ht, s, piv, r)
+    return (Ht, s, piv, r, (trips, row_xors, row_words)) if return_work else (Ht, s, piv, r)
 
 
 def _eliminate_blocked(Ht, s, n, panel, bp):

@@ -13,7 +13,10 @@ from the card's memory instead of fixed constants:
     factor for what else is alive (the state, the syndrome check's
     temporaries), measured on the card (3.25; the reference's is 1.25).
   * :func:`max_lanes_for`: the largest power-of-two lane count a budget
-    fraction admits.
+    fraction admits;
+  * :func:`gf2_workspace_lanes`: how many lanes of the OSD-0 elimination's
+    device-memory body one workspace may hold (``ops/cuda_gf2.py``: a lane
+    past a block is copied into device memory, ``4 * W * m`` bytes).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ __all__ = [
     "device_hbm_bytes",
     "minsum_bytes_per_lane",
     "max_lanes_for",
+    "gf2_workspace_lanes",
 ]
 
 #: live memory of a min-sum decode over the model's two message arrays.
@@ -76,3 +80,17 @@ def max_lanes_for(graph, *, dtype_bytes: int = 4, fraction: float = 0.85,
     while p * 2 <= min(lanes, hi):
         p *= 2
     return p
+
+
+#: share of the device budget the OSD-0 elimination's device-memory
+#: workspace may take: a quarter leaves the decoder's own tensors (the BP
+#: messages, the sorted and packed system the workspace copies) room
+GF2_WORKSPACE_FRACTION = 0.25
+
+
+def gf2_workspace_lanes(W: int, m: int, *, device=None, hbm_bytes: int | None = None) -> int:
+    """Lanes of ``4 * W * m`` bytes that fit ``GF2_WORKSPACE_FRACTION`` of
+    the device budget (at least one): the chunk of the OSD-0 elimination's
+    device-memory body (1024 lanes of the bb144 R=6 DEM take 3.5 GB)."""
+    budget = device_hbm_bytes(device, hbm_bytes=hbm_bytes) * GF2_WORKSPACE_FRACTION
+    return max(1, int(budget // (4 * W * m)))

@@ -117,13 +117,16 @@ def test_gf2_eliminate_ref_matches_reference(B, m, n, dens):
 
 
 def dense_elimination_work(H, n, resid=None, bp=None):
-    """(trips, row XORs) of one lane's elimination on a dense 0/1 matrix, in
-    plain numpy: the full elimination, or OSD-0's with its early stop."""
+    """(trips, row XORs, words) of one lane's elimination on a dense 0/1
+    matrix, in plain numpy: the full elimination, or OSD-0's with its early
+    stop.  A row XOR needs the packed words from the pivot's on and the
+    syndrome bit, since the pivot row is zero before column j's word."""
     H = H.astype(np.uint8).copy()
     m = H.shape[0]
+    W = (n + 31) // 32
     used = np.zeros(m, bool)
     s = None if resid is None else resid.astype(np.uint8).copy()
-    trips = xors = 0
+    trips = xors = words = 0
     for j in range(n):
         if (used.all() if s is None else not (s.astype(bool) & ~used).any()):
             break
@@ -133,16 +136,18 @@ def dense_elimination_work(H, n, resid=None, bp=None):
         if free.size == 0:
             continue
         k = free[0]
+        assert not H[k, :32 * (j // 32)].any()
         if s is not None and bp[j]:
             s ^= col
         others = col.copy()
         others[k] = False
         xors += int(others.sum())
+        words += int(others.sum()) * (W - j // 32 + 1)
         H[others] ^= H[k]
         if s is not None:
             s[others] ^= s[k]
         used[k] = True
-    return trips, xors
+    return trips, xors, words
 
 
 @pytest.mark.parametrize("B,m,n,dens", [(4, 60, 80, 0.3), (3, 90, 130, 0.08), (3, 31, 33, 0.5)])
@@ -156,15 +161,15 @@ def test_elimination_work_counts(B, m, n, dens):
     resid = (np.einsum("bmn,bn->bm", H, (rng.random((B, n)) < 0.1)) % 2).astype(np.uint32)
     resid[0] = rng.random(m) < 0.5
     plain = port_gf2.gf2_eliminate(i32(Ht), i32(s), n)
-    *same, (trips, xors) = port_gf2.gf2_eliminate(i32(Ht), i32(s), n, return_work=True)
+    *same, work = port_gf2.gf2_eliminate(i32(Ht), i32(s), n, return_work=True)
     assert all(torch.equal(a, b) for a, b in zip(plain, same))
     want = [dense_elimination_work(H[b], n) for b in range(B)]
-    assert [(int(t), int(x)) for t, x in zip(trips, xors)] == want
-    corr, (trips, xors) = port_gf2.gf2_osd0(i32(Ht), i32(resid), i32(bp), n, return_work=True)
+    assert [tuple(int(c) for c in lane) for lane in zip(*work)] == want
+    corr, work = port_gf2.gf2_osd0(i32(Ht), i32(resid), i32(bp), n, return_work=True)
     assert torch.equal(corr, port_gf2.gf2_osd0(i32(Ht), i32(resid), i32(bp), n))
     want = [dense_elimination_work(H[b], n, resid[b], bp[b]) for b in range(B)]
-    assert [(int(t), int(x)) for t, x in zip(trips, xors)] == want
-    assert min(t for t, _ in want) < n  # OSD-0 stops early on these
+    assert [tuple(int(c) for c in lane) for lane in zip(*work)] == want
+    assert min(t for t, *_ in want) < n  # OSD-0 stops early on these
 
 
 @pytest.mark.parametrize("w", [0, 1, 2, 3, 5])
@@ -465,18 +470,22 @@ def test_bposd_cs_and_host_match_reference(variant):
 def test_lanes_past_shared_memory_take_the_host_osd():
     """A lane too large for one block of the elimination kernels takes the
     host OSD where the caller asks for it (OSD-0 and OSD-CS), equal to the
-    reference's ``osd_impl="host"``; the device OSD raises at construction
-    there (OSD-0, OSD-CS and the exhaustive OSD-w), on the CPU as on the
-    card."""
+    reference's ``osd_impl="host"``; the device OSD constructs there too
+    (OSD-0, OSD-CS and the exhaustive OSD-w: the kernels' device-memory
+    body) and its OSD-0 decodes equal to the host OSD-0 (the three device
+    orders against the reference: tests/test_torch_gf2_global.py)."""
     H = lt.parity_check_matrix(2000, 10, 5, rng=3)  # m=1000: W*m*4 > 232,448 B
     W, m = (H.shape[1] + 31) // 32, H.shape[0]
     assert cuda_gf2.launch_plan(W, m, osd0=True).panel == 0
     assert cuda_gf2.launch_plan(W, m, osd0=False).panel == 0
-    for kw in (dict(), dict(osd_order=2), dict(osd_method="combination_sweep", osd_order=8)):
-        with pytest.raises(NotImplementedError, match="pass osd_impl='host'"):
-            pt.BeliefPropagationOSDDecoder(H, 0.03, 10, device="cpu", **kw)
+    assert cuda_gf2.route(W, m, osd0=True) == cuda_gf2.route(W, m, osd0=False) == "global"
+    for kw in (dict(osd_order=2), dict(osd_method="combination_sweep", osd_order=8)):
+        assert pt.BeliefPropagationOSDDecoder(H, 0.03, 10, device="cpu", **kw).osd is not None
     rng = np.random.default_rng(4)
     syns = (((rng.random((6, H.shape[1])) < 0.07) @ H.T) % 2).astype(np.uint8)
+    dev = pt.BeliefPropagationOSDDecoder(H, 0.03, 10, device="cpu")
+    host = pt.BeliefPropagationOSDDecoder(H, 0.03, 10, device="cpu", osd_impl="host")
+    assert np.array_equal(dev.batch_decode(syns)[0], host.batch_decode(syns)[0])
     for kw in (dict(), dict(osd_method="combination_sweep", osd_order=8)):
         port = pt.BeliefPropagationOSDDecoder(H, 0.03, 10, device="cpu", osd_impl="host", **kw)
         ref = lt.BeliefPropagationOSDDecoder(H, 0.03, 10, osd_impl="host", **kw)

@@ -4,10 +4,9 @@ A configuration serialized by ``ldpcdecoders_tpu`` (``to_json``) is the
 "weights" of a decoder: the port's ``DecoderConfig`` has the same fields
 and defaults and writes the same JSON text, and a config from the JAX
 package builds port decoders that decode exactly as port decoders built
-directly (bitwise in every output).  Kinds not ported yet raise
-``NotImplementedError``.  ``utils/hbm.py``'s lane ceilings equal the
-reference's under an explicit ``hbm_bytes=``, given the headroom the port
-measured on the card.
+directly (bitwise in every output); every kind of the reference builds.
+``utils/hbm.py``'s lane ceilings equal the reference's under an explicit
+``hbm_bytes=``, given the headroom the port measured on the card.
 """
 
 import dataclasses
@@ -118,23 +117,52 @@ def test_reference_config_builds_port_decoders(kw):
         assert np.array_equal(a, b)
 
 
-UNPORTED = ["minsum_int8", "layered_minsum", "neural_minsum", "window"]
+LAST_PORTED = ["minsum_int8", "layered_minsum", "neural_minsum", "window"]
 
 
-def test_unported_kinds_are_the_four_left():
-    """Bit-flip and BP-OTS left the list of unported kinds; these remain."""
+def test_every_reference_kind_is_ported():
+    """Every kind of the reference's ``_KINDS`` builds in the port."""
+    from ldpcdecoders_tpu.config import _KINDS as REF_KINDS
     from ldpcdecoders_tpu_torch.config import _KINDS
 
-    assert sorted(set(_KINDS) - set(PORTED_KINDS)) == sorted(UNPORTED)
-    assert {"bitflip", "bpots"} <= set(PORTED_KINDS)
+    assert set(PORTED_KINDS) == set(_KINDS) == set(REF_KINDS)
 
 
-@pytest.mark.parametrize("kind", UNPORTED)
-def test_unported_kinds_raise(kind):
-    assert kind not in PORTED_KINDS
-    cfg = pt.DecoderConfig(kind=kind)
-    with pytest.raises(NotImplementedError, match=f"'{kind}' is not ported"):
-        cfg.build(np.eye(3, dtype=np.uint8), device="cpu")
+def _last_kind_case(kind):
+    """(config kwargs, code, inputs) of one of the last four kinds."""
+    H = lt.parity_check_matrix(96, 6, 3, rng=11)
+    rng = np.random.default_rng(3)
+    if kind == "window":
+        Hq = lt.toric_code_x(3)
+        syn = (rng.random((6, 5, Hq.shape[0])) < 0.1).astype(np.uint8)
+        syn[:, -1] = ((rng.random((6, Hq.shape[1])) < 0.1) @ Hq.T) % 2
+        return dict(kind=kind, per=0.01, max_iters=20, window=3, commit=1,
+                    inner_kind="minsum"), Hq, syn
+    syn = (((rng.random((12, H.shape[1])) < 0.05) @ H.T) % 2).astype(np.uint8)
+    extra = {"minsum_int8": dict(scale=2.0, beta_q=0), "layered_minsum": dict(damping=0.2),
+             "neural_minsum": dict()}[kind]
+    return dict(kind=kind, per=0.05, max_iters=10, **extra), H, syn
+
+
+@pytest.mark.parametrize("kind", LAST_PORTED)
+def test_last_ported_kinds_build_and_decode_as_reference(kind):
+    """The four kinds this slice ported build from the reference's JSON and
+    decode equal to the reference's build: int8 min-sum, the untrained
+    neural schedule (flags), the window corrections and layered min-sum
+    (flags; its LLRs see the reference's contracted damping mix)."""
+    kw, code, syn = _last_kind_case(kind)
+    built = pt.DecoderConfig.from_json(lt.DecoderConfig(**kw).to_json()).build(code,
+                                                                              device="cpu")
+    ref = lt.DecoderConfig(**kw).build(code)
+    assert type(built).__name__ == type(ref).__name__
+    if kind == "window":
+        got, want = built.decode_stream(syn), ref.decode_stream(syn)
+        assert np.array_equal(got[0], np.asarray(want[0]))
+        assert abs(got[1]["converged"] - want[1]["converged"]) <= 1e-6
+        return
+    got, want = built.batch_decode_detailed(syn), ref.batch_decode_detailed(syn)
+    for a, b in zip(got[:3], want[:3]):
+        assert np.array_equal(a, np.asarray(b))
 
 
 @pytest.mark.parametrize("kw", [c for c in CONFIGS if c["kind"] in ("bitflip", "bpots")],

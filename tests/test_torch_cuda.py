@@ -125,7 +125,7 @@ def test_osd0_kernel_lanes_stop_inside_a_panel(dev):
     Ht = systems_from(H)
     resid = torch.as_tensor(np.stack([H[b, :, b] for b in range(B)]).astype(np.int32))
     bp = torch.as_tensor((rng.random((B, n)) < 0.2).astype(np.int32))
-    want, (trips, _) = gf2.gf2_osd0(Ht, resid, bp, n, return_work=True)
+    want, (trips, *_) = gf2.gf2_osd0(Ht, resid, bp, n, return_work=True)
     assert sorted(set((trips % 8).tolist())) == list(range(8))
     assert torch.equal(gf2.gf2_osd0_blocked(Ht, resid, bp, n), want)
     got = cuda_gf2.gf2_osd0_cuda(Ht.to(dev), resid.to(dev), bp.to(dev), n)
@@ -185,10 +185,18 @@ def test_wrappers_check_inputs(dev):
     with pytest.raises(ValueError, match="contiguous"):
         cuda_gf2.gf2_eliminate_cuda(Ht, torch.zeros((m, 2), dtype=torch.int32,
                                                     device=dev).t(), n)
-    big = torch.zeros((1, 989, 864), dtype=torch.int32, device=dev)  # bb144 DEM lane
+    # the bb144 DEM lane fits no block: the device-memory body takes it
+    big = torch.zeros((1, 989, 864), dtype=torch.int32, device=dev)
+    before = cuda_gf2.gf2_eliminate_cuda.routes["global"]
+    _, s2, piv = cuda_gf2.gf2_eliminate_cuda(big, torch.zeros((1, 864), dtype=torch.int32,
+                                                              device=dev), 31648)
+    assert cuda_gf2.gf2_eliminate_cuda.routes["global"] == before + 1
+    assert (piv == 31648).all() and (s2 == 0).all()
+    # rows past what the body's state and row list fit in shared memory
+    many = torch.zeros((1, 1, 30000), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
-        cuda_gf2.gf2_eliminate_cuda(big, torch.zeros((1, 864), dtype=torch.int32,
-                                                     device=dev), 31648)
+        cuda_gf2.gf2_eliminate_cuda(many, torch.zeros((1, 30000), dtype=torch.int32,
+                                                      device=dev), 32)
 
 
 @pytest.mark.parametrize("order", [0, 2])
@@ -885,6 +893,111 @@ def test_detector_decoder_routes_and_launches_on_card(dev):
         want = cpu.batch_decode(det)
         assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
         assert np.array_equal((got[0].astype(np.int64) @ A.T.toarray()) % 2, det)
+
+
+# -- lanes past a block: the eliminations' device-memory body ------------------
+
+
+def permuted_lanes(H, B, seed):
+    """``B`` column permutations of a dense 0/1 ``H``, packed ``[B, W, m]``."""
+    rng = np.random.default_rng(seed)
+    Hs = np.stack([H[:, rng.permutation(H.shape[1])] for _ in range(B)]).astype(np.int64)
+    return Hs, systems_from(Hs)
+
+
+def dem_lanes(B, seed):
+    import scipy.sparse as sp
+
+    z = np.load(REPO / "benchmarks/results/bb144_r6_p0.003.npz")
+    A = sp.csr_matrix((z["data"], z["indices"], z["indptr"]), shape=tuple(z["shape"]))
+    return permuted_lanes(A.toarray(), B, seed)
+
+
+@pytest.mark.parametrize("shape", ["gallager_2400", "bb144_dem"])
+def test_device_memory_body_matches_plain_forms(dev, shape):
+    """K1 and K2 on lanes past a block, [75, 1200] ((2400, 6, 3)) and
+    [989, 864] (the bb144 R=6 DEM): bitwise the plain forms, through the
+    device-memory route."""
+    if shape == "gallager_2400":
+        Hs, Ht = permuted_lanes(pt.parity_check_matrix(2400, 6, 3, rng=0), 3, 1)
+    else:
+        Hs, Ht = dem_lanes(2, 2)
+    B, m, n = Hs.shape
+    for osd0 in (False, True):  # the helper tested is the one the wrappers route by
+        assert cuda_gf2.route(Ht.shape[1], m, osd0=osd0) == "global"
+        assert cuda_gf2.body_of(cuda_gf2.launcher_plan(Ht.shape[1], m, osd0=osd0)) == "global"
+    rng = np.random.default_rng(3)
+    s = torch.as_tensor((rng.random((B, m)) < 0.5).astype(np.int32))
+    resid, bp = osd0_inputs(rng, Hs, B, m, n)
+    before = dict(cuda_gf2.gf2_eliminate_cuda.routes), dict(cuda_gf2.gf2_osd0_cuda.routes)
+    got = cuda_gf2.gf2_eliminate_cuda(Ht.to(dev), s.to(dev), n)
+    got0 = cuda_gf2.gf2_osd0_cuda(Ht.to(dev), resid.to(dev), bp.to(dev), n)
+    torch.cuda.synchronize()
+    assert cuda_gf2.gf2_eliminate_cuda.routes["global"] == before[0]["global"] + 1
+    assert cuda_gf2.gf2_osd0_cuda.routes["global"] == before[1]["global"] + 1
+    for a, b in zip(got, cuda_gf2.gf2_eliminate_ref(Ht.to(dev), s.to(dev), n)):
+        assert torch.equal(a, b)
+    assert torch.equal(got0, cuda_gf2.gf2_osd0_ref(Ht.to(dev), resid.to(dev), bp.to(dev), n))
+
+
+def test_device_memory_osd0_by_chunks_of_lanes(dev, monkeypatch):
+    """K1's device-memory body with a workspace of two lanes: five lanes
+    run in three launches (2, 2, 1) at lane offsets 0, 2 and 4, bitwise the
+    plain form."""
+    from ldpcdecoders_tpu_torch.utils import hbm
+
+    monkeypatch.setattr(hbm, "gf2_workspace_lanes", lambda W, m, **kw: 2)
+    Hs, Ht = permuted_lanes(pt.parity_check_matrix(2400, 6, 3, rng=0), 5, 7)
+    B, m, n = Hs.shape
+    resid, bp = osd0_inputs(np.random.default_rng(8), Hs, B, m, n)
+    before = cuda_gf2.gf2_osd0_cuda.routes["global"]
+    got = cuda_gf2.gf2_osd0_cuda(Ht.to(dev), resid.to(dev), bp.to(dev), n)
+    torch.cuda.synchronize()
+    assert cuda_gf2.gf2_osd0_cuda.routes["global"] == before + 3
+    want = cuda_gf2.gf2_osd0_ref(Ht, resid, bp, n)
+    assert torch.equal(got.cpu(), want)
+    assert len({tuple(row.tolist()) for row in want}) == B  # the lanes differ
+
+
+def test_device_osd_past_a_block_on_card_matches_cpu(dev):
+    H = pt.parity_check_matrix(2000, 10, 5, rng=3)
+    rng = np.random.default_rng(4)
+    syns = (((rng.random((6, H.shape[1])) < 0.07) @ H.T) % 2).astype(np.uint8)
+    for kw in (dict(), dict(osd_order=2), dict(osd_method="combination_sweep", osd_order=8)):
+        got = pt.BeliefPropagationOSDDecoder(H, 0.03, 10, device=dev, **kw).batch_decode(syns)
+        want = pt.BeliefPropagationOSDDecoder(H, 0.03, 10, device="cpu", **kw).batch_decode(syns)
+        assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+def test_peeling_and_mixed_on_card_match_cpu(dev):
+    """Peeling with stopping sets (K2's device-memory body on the (2400, 6,
+    3) code), and the mixed decoder with min-sum and OSD-0 / OSD-2: the
+    card's outputs are the CPU's."""
+    H = pt.parity_check_matrix(2400, 6, 3, rng=0)
+    rng = np.random.default_rng(6)
+    B, n = 64, H.shape[1]
+    eps = rng.random((B, n)) < 0.42
+    e = np.where(eps, rng.random((B, n)) < 0.5, False)
+    syn = ((e @ H.T) % 2).astype(np.uint8)
+    before = cuda_gf2.gf2_eliminate_cuda.routes["global"]
+    gpu = pt.ErasurePeelingDecoder(H, device=dev)
+    got = gpu.batch_decode_detailed(syn, eps)
+    assert gpu.peeling.gf2_lanes > 0
+    assert cuda_gf2.gf2_eliminate_cuda.routes["global"] == before + 1
+    want = pt.ErasurePeelingDecoder(H, device="cpu").batch_decode_detailed(syn, eps)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+    H = pt.parity_check_matrix(240, 6, 3, rng=0)
+    eps = rng.random((B, 240)) < 0.12
+    e = np.where(eps, rng.random((B, 240)) < 0.5, rng.random((B, 240)) < 0.01)
+    syn = ((e @ H.T) % 2).astype(np.uint8)
+    for kw in (dict(), dict(osd_order=0), dict(osd_order=2, algorithm="sumproduct")):
+        got = pt.MixedChannelDecoder(H, 0.01, 30, device=dev, **kw).batch_decode_detailed(
+            syn, eps)
+        want = pt.MixedChannelDecoder(H, 0.01, 30, device="cpu", **kw).batch_decode_detailed(
+            syn, eps)
+        for a, b in zip(got, want):
+            assert np.array_equal(a, b)
 
 
 # -- the evaluation harness and the last two reference decoders ---------------

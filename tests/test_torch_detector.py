@@ -167,9 +167,14 @@ def test_detector_decoder_validation_and_densify():
     with pytest.raises(ValueError, match="cannot honor per-mechanism priors"):
         pt.DetectorGraphDecoder(np.eye(2, dtype=np.uint8), [0.1, 0.1], 5, decoder="bitflip",
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="'layered_minsum' is not ported"):
-        pt.DetectorGraphDecoder(np.eye(2, dtype=np.uint8), [0.1, 0.1], 5,
-                                decoder="layered_minsum", device="cpu")
+    # the layered inner takes the per-mechanism prior as the reference's does
+    lay = pt.DetectorGraphDecoder(np.eye(2, dtype=np.uint8), [0.1, 0.1], 5,
+                                  decoder="layered_minsum", device="cpu")
+    ref = lt.DetectorGraphDecoder(np.eye(2, dtype=np.uint8), [0.1, 0.1], 5,
+                                  decoder="layered_minsum")
+    rec = np.array([[1, 0], [0, 1], [1, 1]], np.uint8)
+    for g, w in zip(lay.batch_decode(rec), ref.batch_decode(rec)):
+        assert np.array_equal(g, np.asarray(w))
     dec = pt.DetectorGraphDecoder(np.eye(2, dtype=np.uint8), [0.1, 0.1], 10, device="cpu")
     with pytest.raises(ValueError, match="no observables"):
         dec.predict_observables(np.zeros((1, 2), np.uint8))
@@ -177,12 +182,12 @@ def test_detector_decoder_validation_and_densify():
         dec.batch_decode(np.zeros((1, 5), np.uint8))
     # above the 4M-entry auto-densify threshold the bposd inner is given
     # the dense matrix deliberately (the reference's rule); its lane is past
-    # a block of the elimination kernels, so the device OSD raises and the
-    # host OSD is the caller's choice
+    # a block of the elimination kernels, so the device OSD takes their
+    # device-memory body, and the host OSD is the caller's choice
     m, n = 1500, 3000
     A_big = sp.eye(m, n, dtype=np.uint8, format="csr")
-    with pytest.raises(NotImplementedError, match="pass osd_impl='host'"):
-        pt.DetectorGraphDecoder(A_big, np.full(n, 0.01), max_iters=5, device="cpu")
+    dev_big = pt.DetectorGraphDecoder(A_big, np.full(n, 0.01), max_iters=5, device="cpu")
+    assert dev_big.inner.osd_impl == "device" and dev_big.inner.graph.H is not None
     big = pt.DetectorGraphDecoder(A_big, np.full(n, 0.01), max_iters=5, osd_impl="host",
                                   device="cpu")
     assert big.inner.graph.H is not None and big.inner.osd_impl == "host"
@@ -190,6 +195,7 @@ def test_detector_decoder_validation_and_densify():
     syn[1, 7] = 1
     x, conv = big.batch_decode(syn)
     assert conv.all() and x[1, 7] == 1 and x[0].sum() == 0
+    assert np.array_equal(dev_big.batch_decode(syn)[0], x)
 
 
 # -- the ensemble ---------------------------------------------------------

@@ -114,7 +114,7 @@ def test_osd0_blocked_equals_sequential(name, panel):
     resid[0] = rng.random(m) < 0.5
     resid[-1] = 0
     args = (Ht, torch.as_tensor(resid), torch.as_tensor(bp), n)
-    want, (trips, _) = gf2.gf2_osd0(*args, return_work=True)
+    want, (trips, *_) = gf2.gf2_osd0(*args, return_work=True)
     assert int(trips[-1]) == 0
     got = gf2.gf2_osd0_blocked(*args, panel)
     assert got.dtype == torch.int32 and torch.equal(got, want)
@@ -130,7 +130,7 @@ def test_osd0_blocked_lanes_stop_inside_a_panel(panel):
     Ht = pack(H)
     resid = torch.as_tensor(np.stack([H[b, :, b] for b in range(B)]).astype(np.int32))
     bp = torch.as_tensor((rng.random((B, n)) < 0.2).astype(np.int32))
-    want, (trips, _) = gf2.gf2_osd0(Ht, resid, bp, n, return_work=True)
+    want, (trips, *_) = gf2.gf2_osd0(Ht, resid, bp, n, return_work=True)
     assert trips.tolist() == list(range(1, B + 1))
     assert torch.equal(gf2.gf2_osd0_blocked(Ht, resid, bp, n, panel), want)
 

@@ -1,0 +1,184 @@
+"""The OSD eliminations for lanes past a block: plain forms and routing.
+
+A lane whose packed system does not fit one Hopper block of the
+elimination kernels (``cuda_gf2.launch_plan(...).panel == 0``) takes the
+device-memory body of ``csrc/gf2_elim.cu`` (``gf2_global_kernel``), whose
+plain versions are the column-by-column forms ``ops/gf2.py::gf2_osd0`` /
+``gf2_eliminate``.  Here, on the CPU:
+
+  * those plain forms at such a lane (``parity_check_matrix(2000, 10, 5)``,
+    1000 x 2000, 252,000 bytes a lane) are bitwise the JAX package's
+    ``gf2_osd0`` / ``gf2_eliminate``;
+  * a numpy model of the body's trips (the pivot by the least key, the
+    listed rows, the XOR from the pivot's word on) is bitwise the plain
+    forms: the words before the pivot's word are zero in the pivot row;
+  * :func:`cuda_gf2.route` picks the body exactly where ``launch_plan``
+    finds no panel;
+  * BP+OSD-0, OSD-2 and OSD-CS at that size construct and decode equal to
+    the reference.
+
+The kernel itself runs on the card only (tests/test_torch_cuda.py).
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import ldpcdecoders_tpu as lt
+import ldpcdecoders_tpu_torch as pt
+from ldpcdecoders_tpu.ops import gf2 as ref_gf2
+from ldpcdecoders_tpu_torch.ops import cuda_gf2
+from ldpcdecoders_tpu_torch.ops import gf2 as port_gf2
+
+torch.set_num_threads(1)
+
+BIG = dict(n=2000, wr=10, wc=5, rng=3)  # m=1000: 252,000 bytes a lane
+
+
+@pytest.fixture(scope="module")
+def H_big():
+    return lt.parity_check_matrix(BIG["n"], BIG["wr"], BIG["wc"], rng=BIG["rng"])
+
+
+def i32(a):
+    return torch.as_tensor(np.ascontiguousarray(np.asarray(a).astype(np.uint32).view(np.int32)))
+
+
+def systems(H, B, seed):
+    """B column-permuted copies of H, packed ``[B, W, m]``, and the numpy rows."""
+    rng = np.random.default_rng(seed)
+    m, n = H.shape
+    Hs = np.stack([H[:, rng.permutation(n)] for _ in range(B)]).astype(np.uint32)
+    Hp = jax.vmap(ref_gf2.pack_bits)(jnp.asarray(Hs))
+    return Hs, jnp.transpose(Hp, (0, 2, 1))
+
+
+def global_body_model(Hs, s, n, bp=None):
+    """One lane as ``gf2_global_kernel`` computes it, in numpy on bits:
+    the least key (row << 1 | syndrome bit) over the unused rows with bit
+    j is the pivot; every row with bit j but the pivot XORs the pivot row
+    into itself from the pivot's word on; OSD-0 stops at the first column
+    at whose entry no residual is left outside the pivot space and keeps
+    ``bp[j]`` on the pivot row.  Returns ``(Ht rows, s, pivcol)`` or, for
+    OSD-0, the correction."""
+    H = Hs.astype(np.uint8).copy()
+    s = s.astype(np.uint8).copy()
+    m = H.shape[0]
+    piv = np.full(m, n, np.int64)
+    rank = 0
+    for j in range(n):
+        unused = piv == n
+        if bp is None and rank >= m:
+            break
+        if bp is not None and not (unused & (s == 1)).any():
+            break
+        has = H[:, j] == 1
+        cand = np.flatnonzero(has & unused)
+        if cand.size == 0:
+            continue
+        k = int(cand.min())  # the least key is the least row
+        w0 = 32 * (j // 32)
+        assert not H[k, :w0].any(), "the pivot row has a bit before its word"
+        listed = np.flatnonzero(has)
+        for i in listed[listed != k]:
+            H[i, w0:] ^= H[k, w0:]
+            s[i] ^= s[k]
+        piv[k] = j
+        if bp is not None:
+            s[k] ^= bp[j]
+        rank += 1
+    if bp is None:
+        return H, s, piv
+    corr = bp.astype(np.int64).copy()
+    corr[piv[piv < n]] = s[piv < n]
+    return corr
+
+
+def test_plain_forms_past_a_block_match_reference(H_big):
+    m, n = H_big.shape
+    W = (n + 31) // 32
+    assert cuda_gf2.launch_plan(W, m, osd0=True).panel == 0
+    assert cuda_gf2.launch_plan(W, m, osd0=False).panel == 0
+    B = 3
+    Hs, Ht = systems(H_big, B, seed=1)
+    rng = np.random.default_rng(2)
+    s = (rng.random((B, m)) < 0.5).astype(np.uint32)
+    want = jax.vmap(lambda ht, sv: ref_gf2.gf2_eliminate(ht, sv, n))(Ht, jnp.asarray(s))
+    got = port_gf2.gf2_eliminate(i32(Ht), i32(s), n)
+    assert np.array_equal(got[0].numpy().view(np.uint32), np.asarray(want[0]))
+    for a, b in zip(got[1:4], want[1:4]):  # s', pivcol, rank
+        assert np.array_equal(a.numpy().astype(np.int64), np.asarray(b).astype(np.int64))
+    bp = (rng.random((B, n)) < 0.05).astype(np.uint32)
+    extra = (rng.random((B, n)) < 0.02).astype(np.uint32)
+    resid = (np.einsum("bmn,bn->bm", Hs, extra) % 2).astype(np.uint32)
+    want0 = np.asarray(jax.vmap(lambda hp, b, r: ref_gf2.gf2_osd0(hp, b, r, n))(
+        jnp.transpose(Ht, (0, 2, 1)), jnp.asarray(bp), jnp.asarray(resid)))
+    got0 = cuda_gf2.gf2_osd0_cuda(i32(Ht), i32(resid), i32(bp), n)  # CPU: the plain form
+    assert np.array_equal(got0.numpy(), want0.astype(np.int32))
+
+
+@pytest.mark.parametrize("osd0", [False, True])
+def test_global_body_model_matches_plain_forms(H_big, osd0):
+    """The body's trips (least key, row list, XOR from the pivot's word on)
+    give the plain forms' bits, at a small lane and at the lane past a block."""
+    for H, B, seed in ((lt.parity_check_matrix(120, 6, 3, rng=5), 3, 4), (H_big, 1, 6)):
+        m, n = H.shape
+        Hs, Ht = systems(H, B, seed)
+        rng = np.random.default_rng(seed)
+        s = (rng.random((B, m)) < 0.5).astype(np.uint32)
+        bp = (rng.random((B, n)) < 0.05).astype(np.uint32)
+        if osd0:
+            want = port_gf2.gf2_osd0(i32(Ht), i32(s), i32(bp), n).numpy()
+            for b in range(B):
+                assert np.array_equal(global_body_model(Hs[b], s[b], n, bp[b]), want[b])
+        else:
+            Ht2, s2, piv, _ = port_gf2.gf2_eliminate(i32(Ht), i32(s), n)
+            for b in range(B):
+                Hm, sm, pm = global_body_model(Hs[b], s[b], n)
+                packed = np.asarray(ref_gf2.pack_bits(jnp.asarray(Hm.astype(np.uint32))))
+                assert np.array_equal(packed.T, Ht2[b].numpy().view(np.uint32))
+                assert np.array_equal(sm, s2[b].numpy())
+                assert np.array_equal(pm, piv[b].numpy())
+
+
+@pytest.mark.parametrize("W,m", [(32, 900), (75, 1200), (989, 864), (63, 1000), (4, 100),
+                                 (40, 1500), (200, 300)])
+def test_route_takes_the_device_memory_body_where_no_panel_fits(W, m):
+    for osd0 in (False, True):
+        plan = cuda_gf2.launch_plan(W, m, osd0=osd0)
+        assert cuda_gf2.route(W, m, osd0=osd0) == ("global" if plan.panel == 0 else "shared")
+    assert cuda_gf2.global_smem_bytes(m) <= cuda_gf2.MAX_SMEM_BYTES
+    # lanes past a block: the (2400, 6, 3) code and the bb144 R=6 DEM
+    assert cuda_gf2.route(75, 1200, osd0=False) == "global"
+    assert cuda_gf2.route(989, 864, osd0=True) == "global"
+    assert cuda_gf2.route(32, 900, osd0=True) == "shared"
+
+
+def test_workspace_lanes_follow_the_budget():
+    from ldpcdecoders_tpu_torch.utils.hbm import gf2_workspace_lanes
+
+    lane = 4 * 989 * 864
+    assert gf2_workspace_lanes(989, 864, hbm_bytes=80 * 10**9) == int(20e9 // lane)
+    assert gf2_workspace_lanes(989, 864, hbm_bytes=lane) == 1  # at least one lane
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(osd_order=2),
+                                dict(osd_method="combination_sweep", osd_order=8)],
+                         ids=["osd0", "osd2", "osd_cs"])
+def test_device_osd_past_a_block_matches_reference(H_big, kw):
+    """The device OSD no longer refuses a lane past a block: it constructs
+    and decodes equal to the reference (OSD-0 bitwise; OSD-2 and OSD-CS
+    bitwise here, where BP's reliabilities have no ties)."""
+    rng = np.random.default_rng(4)
+    syns = (((rng.random((5, H_big.shape[1])) < 0.07) @ H_big.T) % 2).astype(np.uint8)
+    port = pt.BeliefPropagationOSDDecoder(H_big, 0.03, 10, device="cpu", **kw)
+    ref = lt.BeliefPropagationOSDDecoder(H_big, 0.03, 10, **kw)
+    g_ref, c_ref = ref.batch_decode(syns)
+    g, c = port.batch_decode(syns)
+    assert np.array_equal(c, c_ref) and not c.all()
+    assert np.array_equal(g, np.asarray(g_ref))
+    assert ((g.astype(np.int64) @ H_big.T) % 2 == syns).all()

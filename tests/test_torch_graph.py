@@ -143,6 +143,10 @@ def test_port_imports_without_jax():
         "import ldpcdecoders_tpu_torch.models.bpots, ldpcdecoders_tpu_torch.models.css\n"
         "import ldpcdecoders_tpu_torch.codes.css, ldpcdecoders_tpu_torch.codes.circuit\n"
         "import ldpcdecoders_tpu_torch.utils.noise, ldpcdecoders_tpu_torch.utils.io\n"
+        "import ldpcdecoders_tpu_torch.models.layered, ldpcdecoders_tpu_torch.models.window\n"
+        "import ldpcdecoders_tpu_torch.models.demwindow, ldpcdecoders_tpu_torch.models.neural\n"
+        "import ldpcdecoders_tpu_torch.models.peeling, ldpcdecoders_tpu_torch.models.mixed\n"
+        "import ldpcdecoders_tpu_torch.models.minsum_q, ldpcdecoders_tpu_torch.models.bucketed\n"
         "assert ldpcdecoders_tpu_torch.native.native_available()\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'ldpcdecoders_tpu.'))"
         " or k == 'ldpcdecoders_tpu']\n"

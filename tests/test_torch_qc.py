@@ -540,8 +540,11 @@ def test_decoder_validation(small_qc):
         pt.QCMinSumDecoder(base, Z, 0.05, 5, algorithm="bogus", device="cpu")
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         pt.QCMinSumDecoder(base, Z, 0.05, 5, dtype=torch.int8, device="cpu")
-    with pytest.raises(NotImplementedError, match="layered"):
-        pt.QCMinSumDecoder(base, Z, 0.05, 5, backend="lifted", schedule="layered", device="cpu")
+    # the lifted layered route is the layered min-sum decoder on the lifted graph
+    lay = pt.QCMinSumDecoder(base, Z, 0.05, 5, backend="lifted", schedule="layered",
+                             device="cpu")
+    assert type(lay.lifted).__name__ == "LayeredMinSumDecode" and lay.alpha == 0.8
+    assert lay.batch_decode(np.zeros((2, lay.m), np.uint8))[1].all()
     with pytest.raises(ValueError, match="only available on the cuda backend"):
         pt.QCMinSumDecoder(base, Z, 0.05, 5, backend="lifted", schedule="layered",
                            algorithm="sumproduct", device="cpu")

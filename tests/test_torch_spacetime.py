@@ -148,8 +148,13 @@ def test_validation(toric):
     dec = pt.SpaceTimeDecoder(toric, 2, 0.03, 10, decoder="bp", device="cpu")
     with pytest.raises(ValueError, match=r"expected detectors of shape \[B, 18\]"):
         dec.batch_decode(np.zeros((2, 9), np.uint8))
-    with pytest.raises(NotImplementedError, match="'layered_minsum' is not ported"):
-        pt.SpaceTimeDecoder(toric, 2, 0.03, 10, decoder="layered_minsum", device="cpu")
+    # the layered inner builds and decodes as the reference's (undamped,
+    # beta 0: bitwise against the jitted reference)
+    lay = pt.SpaceTimeDecoder(toric, 2, 0.03, 10, decoder="layered_minsum", device="cpu")
+    ref = lt.SpaceTimeDecoder(toric, 2, 0.03, 10, decoder="layered_minsum")
+    det = (np.random.default_rng(3).random((6, 18)) < 0.1).astype(np.uint8)
+    for g, w in zip(lay.batch_decode(det), ref.batch_decode(det)):
+        assert np.array_equal(g, np.asarray(w))
     # bit-flip is ported but takes no prior vector: refused as the reference does
     with pytest.raises(ValueError, match="cannot honor the mixed"):
         pt.SpaceTimeDecoder(toric, 2, 0.03, 10, decoder="bitflip", device="cpu")
@@ -238,6 +243,14 @@ def test_for_bicycle_flooding_and_lifted_backend():
         rec = np.asarray((fused.A.astype(np.int32) @ full.T.astype(np.int32)).T % 2, np.uint8)
         assert np.array_equal(rec[c], det[c])
     assert (outs[0][0] == outs[1][0]).all(axis=1).mean() >= 0.75
-    with pytest.raises(NotImplementedError, match="layered"):
-        pt.SpaceTimeDecoder.for_bicycle("bb72", "x", 3, 0.01, 30, backend="lifted",
-                                        device="cpu")
+    # the lifted backend's layered schedule (the default of for_bicycle) is
+    # the layered min-sum decoder on the space-time graph: it converges and
+    # reproduces the record on the lanes it closes, as the kernel path does
+    lay = pt.SpaceTimeDecoder.for_bicycle("bb72", "x", 3, 0.01, 30, backend="lifted",
+                                          meas_error_rate=0.015, device="cpu")
+    e, c, _, aux, _ = lay.batch_decode_detailed(det)
+    assert c.mean() > 0.9
+    full = np.concatenate([aux["data_rounds"].reshape(16, -1), aux["meas"].reshape(16, -1)],
+                          axis=1)
+    rec = np.asarray((lay.A.astype(np.int32) @ full.T.astype(np.int32)).T % 2, np.uint8)
+    assert np.array_equal(rec[c], det[c])
