@@ -28,7 +28,10 @@ public decoder API on ``cuda:0`` and prints, in order:
      two eliminations' device-memory body, which takes a lane past a block
      (the launcher finds no panel), against the plain forms at the (2400, 6,
      3) code's [75, 1200] lane (256 lanes) and the bb144 R=6 DEM's
-     [989, 864] (16 lanes), with its bound from the plain forms' work;
+     [989, 864] (16 lanes), with its bound from the plain forms' work; since
+     the cluster body took the route (a cluster of CTAs a lane, panels of 32
+     columns), the first such body (``_body="v1"``) timed in turns with it
+     and each cluster size (2, 4, 8), bitwise;
   4. the main paths, each one with every launch count set to 0 just before
      it and read just after it, and failing if a kernel of that path was
      never launched: (a), (b) BP+OSD-0 at per 0.01 and 0.2, (c) BP+OSD-2 at
@@ -95,7 +98,11 @@ public decoder API on ``cuda:0`` and prints, in order:
      stopping sets occur, launches per peeling round); (ad)
      ``mixed_fer_sweep`` on mixed_channel_r2.json's p_flip 0.002 curve
      (intervals overlapping, every output syndrome-consistent, K1's launches
-     by body);
+     by body); (ae), (af) ``fused=True`` BP+OSD-0 on (a)'s and (b)'s
+     configuration, bitwise the eager decoder, no host read inside a decode
+     (torch's sync debug mode), times, launches; (ag) BP+OSD-0 and (ah)
+     BP+OSD-CS on the (2400, 6, 3) code through ``batch_decode`` (the
+     device-memory body), syndrome-consistent, (ah) 8 lanes card = CPU;
   5. steady-state rates;
   6. a JSON line with each kernel's numbers, the card line again, and last
      ``{"ok": true, "device": {...}}``.
@@ -104,7 +111,9 @@ public decoder API on ``cuda:0`` and prints, in order:
 configuration (launches, device-busy share, largest kernels; the OSD paths
 (b), (c), (g), (h), (m) among them) before 6, and a second build of the kernels
 with ``-DLDPC_GF2_PHASE_CLOCKS``: block 0's SM clocks in the phases of the
-two eliminations, and that build's times beside the plain build's.
+two eliminations, and that build's times beside the plain build's; for the
+device-memory body, lane 0's clocks by phase of its leader and first
+applier CTA.
 
 Any failed check raises, and the script exits non-zero without the last
 line.  It needs a CUDA device and the package beside it.
@@ -303,13 +312,16 @@ def global_body_cases(torch, pt, dev, dem_graph, dem_pr):
     work on these inputs (trips of m rows, two operations a row; each row
     XOR the words from the pivot's on and the syndrome bit) at the 32-bit
     integer rate, or the bytes, whichever is larger; the plain forms count
-    that work on their first call."""
+    that work on their first call.  Returns the cases and, for
+    :func:`global_body_turns`, ``(kernel, label, osd0, lanes, m, call)``
+    with ``call(**kw)`` the wrapper with private arguments (``_body``,
+    ``_cluster``)."""
     from ldpcdecoders_tpu_torch.models.bposd import OSD
     from ldpcdecoders_tpu_torch.ops import cuda_gf2, gf2
 
     src = "ldpcdecoders_tpu_torch/csrc/gf2_elim.cu"
     rng = np.random.default_rng(31)
-    cases = []
+    cases, turns = [], []
     for label, graph, lanes, per in (
             ("(2400, 6, 3)", pt.TannerGraph.from_pcm(pt.parity_check_matrix(2400, 6, 3, rng=0)),
              GLOBAL_B, 0.05),
@@ -368,7 +380,66 @@ def global_body_cases(torch, pt, dev, dem_graph, dem_pr):
              plain_elim,
              bounds_of("gf2_eliminate_global", 2 * nbytes(Ht, s_int) + lanes * m * 4), (3, 1)),
         ]
-    return cases
+        turns += [
+            ("gf2_osd0_global", label, True, lanes, m,
+             lambda Ht=Ht, resid=resid, bp=bp_sorted, n=n, **kw: (
+                 cuda_gf2.gf2_osd0_cuda(Ht, resid, bp, n, **kw),)),
+            ("gf2_eliminate_global", label, False, lanes, m,
+             lambda Ht=Ht, s=s_int, n=n, **kw: cuda_gf2.gf2_eliminate_cuda(Ht, s, n, **kw)),
+        ]
+    return cases, turns
+
+
+def global_body_turns(torch, cuda_gf2, turns, kernels, card, clock_lib=None):
+    """The device-memory body against the first one (``_body="v1"``), timed
+    in turns on the card (body, first, first, body: means of 3 launches
+    each), and at each cluster size (2, 4, 8 CTAs a lane); every result
+    bitwise the launcher's choice.  The times go into the kernels line as
+    the variant's ``v1_ms`` and ``by_cluster_ms``.  With ``clock_lib`` (the
+    build with ``-DLDPC_GF2_PHASE_CLOCKS``; ``--profile``) lane 0's SM
+    clocks by phase at the launcher's cluster: the leader's word in, trips,
+    codes and waits at the cluster barrier, rank 1's pass and waits."""
+    for key, label, osd0, lanes, m, call in turns:
+        want = call()
+        plan = cuda_gf2.cluster_plan(lanes, m, osd0=osd0)
+        errs = {}
+        for name, kw in (("v1", dict(_body="v1")), ("2", dict(_cluster=2)),
+                         ("4", dict(_cluster=4)), ("8", dict(_cluster=8))):
+            errs[name] = max_abs_err(torch, call(**kw), want)
+        ms_a = event_ms(torch, call, 3)
+        v1_a = event_ms(torch, lambda: call(_body="v1"), 3)
+        v1_b = event_ms(torch, lambda: call(_body="v1"), 3)
+        ms_b = event_ms(torch, call, 3)
+        by_cluster = {str(c): event_ms(torch, lambda c=c: call(_cluster=c), 3) for c in (2, 4, 8)}
+        body, first = (ms_a + ms_b) / 2, (v1_a + v1_b) / 2
+        print(f"kernel {key} {label} against the first device-memory body, in turns: "
+              f"{ms_a:.3f} / {v1_a:.3f} / {v1_b:.3f} / {ms_b:.3f} ms (body / first / first / "
+              f"body; {first / body:.1f}x), max_abs_err against the first body and clusters "
+              f"of 2, 4, 8: {errs} (bitwise required) | the launcher's cluster: {plan.size} CTAs "
+              f"of {plan.bytes} B shared memory ({plan.active} such clusters fit the card) | "
+              f"by cluster size: "
+              + ", ".join(f"{c}: {t:.3f} ms" for c, t in by_cluster.items())
+              + f" | B={lanes} | {card}")
+        if any(errs.values()):
+            raise AssertionError(f"{key} {label}: the bodies or cluster sizes differ")
+        entry = kernels[key]["variants"].get(label, kernels[key])  # the first case: the entry
+        entry.update(turns_ms=[ms_a, v1_a, v1_b, ms_b], v1_ms=first, cluster=plan.size,
+                     cluster_smem_bytes=plan.bytes, active_clusters=plan.active,
+                     by_cluster_ms=by_cluster, max_abs_err_v1=errs["v1"])
+        if clock_lib is not None:
+            if max_abs_err(torch, call(_lib=clock_lib), want) != 0:
+                raise AssertionError(f"{key} {label}: the build with phase clocks differs")
+            torch.cuda.synchronize()
+            clk = (ctypes.c_longlong * 8)()
+            if clock_lib.ldpc_gf2_cluster_clocks(clk) != 0:
+                raise AssertionError(f"{key} {label}: the cluster clocks could not be read")
+            panels = max(clk[6], 1)
+            names = ("leader word in", "leader trips", "leader codes", "leader waits",
+                     "rank-1 pass", "rank-1 waits")
+            print(f"phases {key} {label}, lane 0, {plan.size} CTAs, {clk[6]} panels, {clk[7]} SM "
+                  f"clocks: " + ", ".join(f"{nm} {clk[i] / panels:.0f}" for i, nm in enumerate(names))
+                  + f" a panel | {card}")
+            entry["clocks_per_panel"] = {nm: clk[i] / panels for i, nm in enumerate(names)}
 
 
 def stream_detectors(pt, H, b, rounds, p, q, seed):
@@ -663,6 +734,88 @@ def family_paths(torch, pt, drive, dev, card, H, qc):
     graph = pt.TannerGraph.from_pcm(H)
     for path in (path_x, path_y, path_z, path_aa, path_ab, path_ac, path_ad):
         path(torch, pt, drive, dev, card, H, graph, qc)
+
+
+def host_reads(torch, fn):
+    """``fn()`` under torch's sync debug mode: its output and the number of
+    synchronizing calls it made (each a host read of the card's work)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def fused_paths(torch, pt, drive, dev, card, H, graph, syn01, syn20):
+    """(ae), (af): ``fused=True`` BP+OSD-0 on path (a)'s and (b)'s
+    configuration ((1000, 10, 9), 100 iterations, B=1024, per 0.01 and 0.2,
+    the same syndromes), syndromes on the card: every output bitwise the
+    eager decoder's, no host read inside the fused decode (torch's sync
+    debug mode), K1 launched; times of both, launches and device busy of
+    the fused call (``torch.profiler``)."""
+    for path, per, syn in (("ae", 0.01, syn01), ("af", 0.2, syn20)):
+        eager = pt.BeliefPropagationOSDDecoder(graph, per, MAX_ITERS, device=dev)
+        fused = pt.BeliefPropagationOSDDecoder(graph, per, MAX_ITERS, fused=True, device=dev)
+        d = torch.as_tensor(syn, device=dev)
+        want, reads_e = host_reads(torch, lambda: eager.batch_decode_detailed_async(d))
+        fused.batch_decode_detailed_async(d)
+        torch.cuda.synchronize()
+        got, reads_f = drive(path, ["gf2_osd0"], lambda: host_reads(
+            torch, lambda: fused.batch_decode_detailed_async(d)))
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, [*got[:3], got[3]["log_probabs"]],
+                          [*want[:3], want[3]["log_probabs"]])
+        t_e, _ = wall_s(torch, lambda: eager.batch_decode_detailed_async(d), 3)
+        t_f, _ = wall_s(torch, lambda: fused.batch_decode_detailed_async(d), 3)
+        wall_ms, busy, launches, _ = profile_call(
+            torch, f"({path}) fused BP+OSD-0 per {per}", lambda: fused.batch_decode_detailed_async(d),
+            MAX_ITERS)
+        g = got[0].cpu().numpy()
+        assert_consistent(H, g, syn, f"({path}) fused BP+OSD-0 per {per}")
+        conv = got[1].float().mean().item()
+        print(f"main ({path}) fused BP+OSD-0 per {per}: max_abs_err against the eager decode "
+              f"{err} on err/converged/iters/logp (bitwise required), host reads in a decode: "
+              f"fused {reads_f}, eager {reads_e}; converged {conv:.4f}, mean iterations of the "
+              f"eager decode {want[2].float().mean().item():.2f} (the fused one runs "
+              f"{MAX_ITERS}); fused {t_f * 1e3:.2f} ms, eager {t_e * 1e3:.2f} ms a batch "
+              f"({B / t_f:.1f} / {B / t_e:.1f} syndromes/s); fused call: {launches} launches, "
+              f"device busy {busy:.2f} of {wall_ms:.2f} ms | B={B} | {card}")
+        if err != 0 or reads_f != 0:
+            raise AssertionError(f"({path}): the fused decode differs ({err}) or reads the "
+                                 f"host ({reads_f} times)")
+
+
+def past_a_block_paths(torch, pt, drive, dev, card):
+    """(ag) BP+OSD-0 and (ah) BP+OSD-CS (osd_order 10, min-sum inner damping
+    0.4) on the (2400, 6, 3) code at full width through ``batch_decode``, 256
+    syndromes at per 0.08: the failing lanes' OSD takes K1's / K2's
+    device-memory body; every output syndrome-consistent, (ah) 8 lanes
+    bitwise the CPU's."""
+    H24 = pt.parity_check_matrix(2400, 6, 3, rng=0)
+    errs = np.random.default_rng(24).random((256, H24.shape[1])) < 0.08
+    syn = ((errs.astype(np.float32) @ H24.T.astype(np.float32)) % 2).astype(np.uint8)
+    cs_kw = dict(inner="minsum", damping=0.4, osd_method="combination_sweep", osd_order=10)
+    for path, kernel, kw in (("ag", "gf2_osd0_global", {}), ("ah", "gf2_eliminate_global", cs_kw)):
+        dec = pt.BeliefPropagationOSDDecoder(H24, 0.08, 50, device=dev, **kw)
+        t0 = time.perf_counter()
+        g, c = drive(path, [kernel], lambda dec=dec: dec.batch_decode(syn))
+        wall = time.perf_counter() - t0
+        assert_consistent(H24, g, syn, f"({path}) (2400, 6, 3)")
+        same = None
+        if kw:
+            g_c, c_c = pt.BeliefPropagationOSDDecoder(H24, 0.08, 50, device="cpu",
+                                                      **kw).batch_decode(syn[:8])
+            same = np.array_equal(g_c, g[:8]) and np.array_equal(c_c, c[:8])
+        print(f"main ({path}) BeliefPropagationOSDDecoder (2400, 6, 3) {kw or 'OSD-0'}, per 0.08, "
+              f"256 syndromes: converged {c.mean():.4f}, exact recovery "
+              f"{(g.astype(bool) == errs).all(axis=1).mean():.4f}, all syndrome-consistent, "
+              f"{wall:.2f} s (first call), launches by body {drive.last_routes}"
+              + ("" if same is None else f"; 8 lanes card = CPU bitwise {same}") + f" | {card}")
+        if same is False:
+            raise AssertionError(f"({path}): the card differs from the CPU")
 
 
 def harness_paths(torch, pt, drive, dev, card, H):
@@ -1150,7 +1303,8 @@ def main() -> int:
     dem_llr = torch.as_tensor(np.log((1 - dem_pr) / dem_pr), device=dev)
 
     # step 0: K1/K2's device-memory body at the lanes past a block
-    cases += global_body_cases(torch, pt, dev, dem_graph, dem_pr)
+    global_cases, global_turns = global_body_cases(torch, pt, dev, dem_graph, dem_pr)
+    cases += global_cases
 
     # one entry per kernel in the summary: the first case of each name is
     # the main path's (float32; gathered; layered with the baked prior); the
@@ -1200,6 +1354,9 @@ def main() -> int:
                                                  "bound_ms": bound_ms}
             if loose:
                 kernels[key]["variants"][variant]["llr_spacings"] = spacings
+
+    clock_lib = _build.load_library(("LDPC_GF2_PHASE_CLOCKS",)) if want_profile else None
+    global_body_turns(torch, cuda_gf2, global_turns, kernels, card, clock_lib)
 
     # K3/K4 at the bb144 DEM's shape in the forms the staged decoder's
     # iteration launches (check layout): K3's iteration form (the rebuild
@@ -1328,7 +1485,6 @@ def main() -> int:
     # the two eliminations once more: against the plain BLOCKED forms (the
     # kernel's own algorithm in torch), with the launcher's plan, at the 128
     # lanes of path (h), and with the panel capped at 4, 2 and 1 columns
-    clock_lib = _build.load_library(("LDPC_GF2_PHASE_CLOCKS",)) if want_profile else None
     b128 = slice(0, 128)
     gf2_extra = (
         ("gf2_osd0", True,
@@ -1405,12 +1561,14 @@ def main() -> int:
             for w in ws:
                 w.launches = 0
         for w in routed.values():
-            w.routes.update({"shared": 0, "global": 0})
+            w.routes.update({"shared": 0, "global": 0, "global_v1": 0})
         out = fn()
         counts = {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
         for k, w in routed.items():
             counts[k] = w.routes["shared"]
             counts[f"{k}_global"] = w.routes["global"]
+            if w.routes["global_v1"]:
+                raise AssertionError(f"main ({path}) took the first device-memory body")
         drive.last_routes = {k: dict(w.routes) for k, w in routed.items()}
         for k in expect:
             if counts[k] == 0:
@@ -1737,6 +1895,8 @@ def main() -> int:
 
     harness_paths(torch, pt, drive, dev, card, H)
     family_paths(torch, pt, drive, dev, card, H, (base_qc, Hq, qsyn))
+    fused_paths(torch, pt, drive, dev, card, H, graph, syn01, syn20)
+    past_a_block_paths(torch, pt, drive, dev, card)
 
     # in the summary, ``launches`` is the count of the first path that must
     # launch the kernel; ``launches_by_path`` has every path's own count

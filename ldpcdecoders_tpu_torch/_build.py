@@ -99,11 +99,19 @@ def load_library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.ldpc_gf2_eliminate_global.restype = i32
     lib.ldpc_gf2_osd0_global.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
     lib.ldpc_gf2_osd0_global.restype = i32
+    lib.ldpc_gf2_eliminate_cluster.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+    lib.ldpc_gf2_eliminate_cluster.restype = i32
+    lib.ldpc_gf2_osd0_cluster.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.ldpc_gf2_osd0_cluster.restype = i32
+    lib.ldpc_gf2_cluster_plan.argtypes = [i32] * 3 + [ctypes.POINTER(i32)]
+    lib.ldpc_gf2_cluster_plan.restype = i32
     lib.ldpc_gf2_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
     lib.ldpc_gf2_plan.restype = None
     if "LDPC_GF2_PHASE_CLOCKS" in defines:
         lib.ldpc_gf2_phase_clocks.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
         lib.ldpc_gf2_phase_clocks.restype = i32
+        lib.ldpc_gf2_cluster_clocks.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+        lib.ldpc_gf2_cluster_clocks.restype = i32
     i64, f32 = ctypes.c_longlong, ctypes.c_float
     lib.ldpc_minsum_check.argtypes = ([ptr] * 5 + [i32] * 3 + [i64] + [f32] * 3
                                       + [i32, i32, ptr])

@@ -23,7 +23,7 @@ from .css import (
     toric_code_x,
     toric_code_z,
 )
-from .gallager import parity_check_matrix
+from .gallager import load_pcm, parity_check_matrix, save_pcm
 from .graph import TannerGraph
 from .qc import (
     load_base_matrix,
@@ -37,6 +37,8 @@ from .spacetime import detectors_of, spacetime_pcm, spacetime_prior
 
 __all__ = [
     "parity_check_matrix",
+    "save_pcm",
+    "load_pcm",
     "TannerGraph",
     "qc_lift",
     "qc_lift_edges",

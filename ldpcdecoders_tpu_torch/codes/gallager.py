@@ -2,7 +2,8 @@
 
 Counterpart of ``ldpcdecoders_tpu/codes/gallager.py``: the same numpy calls
 in the same order, so the same ``rng`` gives the same ``H`` in both
-packages.  A base block of ``n_equations/wc`` rows with ``wr`` consecutive
+packages; ``save_pcm`` / ``load_pcm`` write and read the same text, so
+either package reads the other's files.  A base block of ``n_equations/wc`` rows with ``wr`` consecutive
 ones per row is stacked with ``wc-1`` column-shuffled copies.
 """
 
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["parity_check_matrix"]
+__all__ = ["parity_check_matrix", "save_pcm", "load_pcm"]
 
 
 def parity_check_matrix(
@@ -45,3 +46,15 @@ def parity_check_matrix(
     for _ in range(wc - 1):
         parts.append(block[:, rng.permutation(n)])
     return np.concatenate(parts, axis=0)
+
+
+def save_pcm(H: np.ndarray, file_path: str) -> None:
+    """Save a parity-check matrix as whitespace-delimited integer text (the
+    format of the original package's ``save_pcm``)."""
+    np.savetxt(file_path, np.asarray(H, dtype=np.int64), fmt="%d")
+
+
+def load_pcm(file_path: str) -> np.ndarray:
+    """Load a parity-check matrix saved by :func:`save_pcm` (int64, 2-D)."""
+    H = np.loadtxt(file_path, dtype=np.int64)
+    return np.atleast_2d(H)

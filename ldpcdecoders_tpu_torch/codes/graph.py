@@ -9,9 +9,10 @@ work on two edge-message layouts:
     neighbour of variable j (ascending check index).
 
 Static gather permutations connect the two, so device code is fixed-shape
-gathers.  Every graph, dense or sparse, is compiled by the vectorized
-:meth:`TannerGraph.from_edges`; it produces the same arrays as the
-reference package's per-entry loop and native compiler.
+gathers.  Graphs are compiled by the vectorized :meth:`TannerGraph.from_edges`
+or, for a large dense matrix, by the native C++ compiler (``native/``), as
+the reference's ``from_pcm`` routes them; both produce the same arrays as
+the reference package's per-entry loop and native compiler.
 """
 
 from __future__ import annotations
@@ -197,7 +198,7 @@ class TannerGraph:
         )
 
     @staticmethod
-    def from_pcm(H, *, degree_multiple: int = 1) -> "TannerGraph":
+    def from_pcm(H, *, degree_multiple: int = 1, use_native: bool | None = None) -> "TannerGraph":
         """Compile a dense or scipy-sparse 0/1 matrix into padded edge-list form.
 
         Args:
@@ -205,6 +206,11 @@ class TannerGraph:
             (duck-typed through ``tocoo``).  Sparse inputs keep a dense H
             attached only when small enough for OSD.
           degree_multiple: round padded degrees up to a multiple of this.
+          use_native: compile a dense H's tables with the native C++
+            compiler (``native.compile_tanner_native``) or not; None (the
+            default) takes it for more than 100,000 entries, as the
+            reference does.  Where the native library cannot be built, numpy
+            compiles them.  The graph is the same on every route.
         """
         if hasattr(H, "tocoo"):
             coo = H.tocoo().astype(np.int64)
@@ -227,6 +233,19 @@ class TannerGraph:
         if H.dtype != np.uint8 or H.max(initial=0) > 1:
             H = (H != 0).astype(np.uint8)
         H = np.ascontiguousarray(H)
+        m, n = H.shape
+        if use_native is None:
+            use_native = m * n > 100_000
+        if use_native:
+            from ..native import compile_tanner_native
+
+            chk_deg = H.sum(axis=1, dtype=np.int64)
+            max_dc = _round_up(max(1, int(chk_deg.max(initial=1))), degree_multiple)
+            max_dv = _round_up(max(1, int(H.sum(axis=0, dtype=np.int64).max(initial=1))),
+                               degree_multiple)
+            out = compile_tanner_native(H, max_dc, max_dv)
+            if out is not None:
+                return TannerGraph.from_arrays(m, n, max_dc, max_dv, int(chk_deg.sum()), H, *out)
         rows, cols = np.nonzero(H)
         return TannerGraph.from_edges(
             rows, cols, H.shape[0], H.shape[1], degree_multiple=degree_multiple, H=H

@@ -78,6 +78,7 @@
 // launcher returns the cudaError_t of its launch; 0 is success.
 
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -270,6 +271,10 @@ __device__ inline void apply_table(uint32_t* ht, const uint32_t* rows, const uin
 // phase.)  Without the flag the reads are the constant 0 and fall away.
 #ifdef LDPC_GF2_PHASE_CLOCKS
 __device__ long long g_phase_clocks[5];
+// gf2_cluster_kernel, lane 0: the leader's word q in (panel q - 1 applied,
+// sliced), its trips, its codes, its waits at the cluster barrier; rank
+// 1's pass and its waits; the panels; the whole elimination
+__device__ long long g_cluster_clocks[8];
 #define LDPC_CLOCK() clock64()
 #else
 #define LDPC_CLOCK() 0LL
@@ -657,18 +662,496 @@ gf2_panel_kernel(const uint32_t* __restrict__ ht_in, const uint32_t* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// gf2_global_kernel: a lane past a block.  Where plan() finds no layout in
+// gf2_cluster_kernel: a lane past a block.  Where plan() finds no layout in
 // shared memory (panel 0: the lane alone, W * m words, is larger than a
 // block's 232,448 bytes, e.g. [75, 1200] for the (2400, 6, 3) code or the
 // [989, 864] lane of the bb144 R=6 DEM), the lane stays in device memory:
 // `work` holds it (K2: the output Ht' itself; K1: a workspace the wrapper
-// allocates).  One block per lane; shared memory keeps one state word per
-// row (pivot column, sentinel n; syndrome bit) and the list of the rows
-// with the trip's bit.  The column trips are the plain forms' exactly
-// (ops/gf2.py gf2_osd0 / gf2_eliminate): the pivot of column j is the first
-// unused row with bit j; OSD-0 stops at the first column at whose entry no
-// residual is left outside the pivot space, and its bp_err[j] stays on the
-// pivot row alone.  A trip is
+// allocates, with one pivot word a row beside it).  The column trips are the
+// plain forms' exactly (ops/gf2.py gf2_osd0 / gf2_eliminate): the pivot of
+// column j is the first unused row with bit j; OSD-0 stops at the first
+// column at whose entry no residual is left outside the pivot space, and its
+// bp_err[j] stays on the pivot row alone.
+//
+// A thread-block cluster of C CTAs (2, 4 or 8) takes a lane, by panels of
+// 32 columns: panel q is word q of every row.
+//   * CTA 0, the leader, makes the trips.  Word q of every row is brought
+//     into its shared memory as 32 bit slices (slice t, chunk c: bit l is
+//     bit t of row 32 c + l) with panel q - 1 applied on the way in, and
+//     warp 0 makes the panel's 32 trips on the slices alone: no device
+//     memory and no block barrier inside a trip.  A trip brings its column
+//     up to date (the XOR of the rows listed by the earlier trips whose
+//     pivot had its bit), takes a warp reduction for the first free row
+//     with the bit, reads the pivot's bits (two ballots), and stores the
+//     listed rows; the free rows and the syndrome bits stay as slices across
+//     panels.  The rows listed in trip t replace slice t (the slice itself
+//     is then known: the pivot's bit alone), and M[t], the pivot row of
+//     trip t as it stood then in terms of
+//     the panel's pivot rows at its start (bit v: row k_v), is M[t] = e_t ^
+//     XOR of M[u] over the earlier trips u whose pivot was XORed into it (a
+//     ballot and a warp XOR reduction).  After the trips every row's code is
+//     XOR of M[t] over the trips t that listed it: the row is then its start
+//     XOR the starts of the pivot rows in its code, in every later word.
+//   * The other C - 1 CTAs apply the panel: each takes every (C - 1)-th word
+//     past the next panel's, copies the codes and pivot rows from the
+//     leader's shared memory (distributed shared memory), and for up to 32
+//     words at a time reads the 32 pivot rows' words, builds eight 16-entry
+//     XOR tables a word (four columns each: the Four Russians method), and
+//     rewrites the rows whose code is not 0 in the words where a pivot row
+//     is not 0, 16 words in flight a thread.
+//     Meanwhile the leader applies the panel to the next panel's word itself
+//     as it slices it, and makes that panel's trips: the trips of panel q + 1
+//     overlap the pass of panel q.  One cluster barrier a panel; the codes,
+//     pivot rows and loop flags are double-buffered by panel parity.
+// The words before the panel's are zero in every pivot row (every earlier
+// column either had a pivot, whose trip cleared that bit in every other
+// row, or had no unused row with the bit), so no pass touches them.
+// What bounds it on the H100 (the phase clocks of -DLDPC_GF2_PHASE_CLOCKS,
+// g_cluster_clocks): the leader's trips, 0.4-1.9 thousand SM clocks a trip,
+// chains of dependent shared-memory loads (the column and the pivot's later
+// bits brought up to date from the earlier trips' listed rows, one load a
+// trip each); and the appliers' pass, bound by the latency of device memory
+// or L2 at 16 words in flight a thread.  At the (2400, 6, 3) lane with 2
+// CTAs the two take about as long, 40-60 thousand clocks a panel each; at
+// the DEM lane with 8 the leader's trips, word and codes set the pace.  The
+// launcher takes the largest C (of 8, 4, 2) whose clusters, by
+// cudaOccupancyMaxActiveClusters, hold all B lanes at once: few lanes (the
+// DEM's 16) spread their passes over 7 CTAs, many (256 of the (2400, 6, 3)
+// code) fill the card with pairs.
+constexpr int kClusterThreads = 512;
+constexpr int kTileWords = 32;  // words a CTA's XOR tables cover at once
+
+// Chunks of 32 rows, at an odd stride: lanes reading slice `lane` of one
+// chunk meet no bank conflict.
+__host__ __device__ inline int chunk_stride(int m) { return ((m + 31) / 32) | 1; }
+
+// Shared memory of gf2_cluster_kernel, in 32-bit words.  The leader's
+// (loop flags, pivot rows, M, its word's starts and tables, slices, free
+// rows, syndrome bits, codes) and an applier's (codes, pivot rows, starts
+// and tables of a tile of words) share the buffer; the appliers read the
+// leader's at these offsets.
+struct ClusterLayout {
+  int ctl, keys, msh, st, tab, x, f, y, codes;  // the leader
+  int acodes, akeys, alive, ast, atab;          // an applier
+  int mr, cs, total;
+};
+
+__host__ __device__ inline ClusterLayout cluster_layout(int m) {
+  ClusterLayout l;
+  l.mr = round4(m);
+  l.cs = chunk_stride(m);
+  int o = 0;
+  l.ctl = o, o += 8;     // [2][4] per parity: pivots made, more panels
+  l.keys = o, o += 64;   // [2][32] pivot row of trip t, kNoKey where none
+  l.msh = o, o += 32;    // [32] M[t]
+  l.st = o, o += 32;     // [32] the pivot rows' starts in the next panel's word
+  l.tab = o, o += 128;   // [8][16] their nibble tables
+  l.x = o, o += round4(32 * l.cs);  // [32][cs] slices
+  l.f = o, o += round4(l.cs);       // [cs] free rows
+  l.y = o, o += round4(l.cs);       // [cs] syndrome bits
+  l.codes = o, o += 2 * l.mr;       // [2][mr] codes by panel parity
+  const int leader = o;
+  o = 0;
+  l.acodes = o, o += l.mr;
+  l.akeys = o, o += 32;
+  l.alive = o, o += 4;
+  l.ast = o, o += 32 * kTileWords;
+  l.atab = o, o += 128 * kTileWords;
+  l.total = leader > o ? leader : o;
+  return l;
+}
+
+// XOR of the starts named by a code, from its eight nibble tables.
+__device__ inline uint32_t lookup(const uint32_t* tab, uint32_t code) {
+  uint32_t x = 0u;
+#pragma unroll
+  for (int g = 0; g < 8; ++g) x ^= tab[g * 16 + ((code >> (4 * g)) & 15u)];
+  return x;
+}
+
+// Entry e of the tables [words][8][16] from starts [words][32].
+__device__ inline uint32_t table_entry(const uint32_t* st, int e) {
+  const uint32_t* s = st + (e >> 7) * 32 + 4 * ((e >> 4) & 7);
+  const int x = e & 15;
+  return ((x & 1) ? s[0] : 0u) ^ ((x & 2) ? s[1] : 0u) ^ ((x & 4) ? s[2] : 0u) ^
+         ((x & 8) ? s[3] : 0u);
+}
+
+// XOR of p[u * stride] over the bits u of `set`.  (Unrolled into 32
+// predicated loads, or four loads a round, it took the trips as long or
+// longer on the H100.)
+__device__ inline uint32_t xor_of(const uint32_t* p, int stride, uint32_t set) {
+  uint32_t x = 0u;
+  for (uint32_t rest = set; rest != 0u; rest &= rest - 1u) x ^= p[(__ffs(rest) - 1) * stride];
+  return x;
+}
+
+// Panel q's trips, by warp 0 of the leader alone, on the slices X.  A
+// column is brought up to date when its trip reaches it, from the trips
+// before whose pivot had its bit: lane u keeps that set of trips (bmask) and
+// reads their listed rows, which replace the slice of each trip with a
+// pivot; so a trip loads, XORs and stores no other column.  Leaves in X the
+// listed rows of each trip with a pivot and the current column of every
+// other trip, the pivot rows in keys, M in msh and the flags in ctl ([0]
+// pivots made, [1] more panels).
+template <bool OSD0>
+__device__ inline void cluster_trips(uint32_t* X, uint32_t* F, uint32_t* Y, uint32_t* keys,
+                                     uint32_t* msh, uint32_t* ctl, int32_t* __restrict__ piv,
+                                     const int32_t* __restrict__ bp, int q, int& rank, int cs,
+                                     int m, int n) {
+  const int lane = threadIdx.x & 31;
+  const int chunks = (m + 31) >> 5;
+  keys[lane] = kNoKey;
+  uint32_t mreg = 0u, found = 0u;
+  uint32_t bmask = 0u;  // lane u: the trips before u whose pivot had bit u
+  bool done = false;    // OSD-0: this lane's answer is fixed
+  // OSD-0: the panel's bp_err bits, read once (not a device-memory load a trip)
+  const int jl = 32 * q + lane;
+  const uint32_t bpbits = OSD0 ? __ballot_sync(kFull, jl < n && bp[jl] != 0) : 0u;
+  int t = 0;
+  for (; t < 32; ++t) {
+    const int j = 32 * q + t;
+    if (j >= n || (!OSD0 && rank >= m)) break;  // uniform
+    __syncwarp();  // the last trip's writes, before this trip's reads
+    if (OSD0) {  // residual left outside the pivot space? (at trip entry)
+      bool rem = false;
+      for (int c = lane; c < chunks; c += 32) rem |= (F[c] & Y[c]) != 0u;
+      if (!__any_sync(kFull, rem)) {
+        done = true;
+        break;
+      }
+    }
+    // column t brought up to date on this lane's chunks, and its first free
+    // row with the bit (chunks ascend along a lane: its first hit is its least)
+    const uint32_t bt = __shfl_sync(kFull, bmask, t);
+    uint32_t best = kNoKey;
+    for (int c = lane; c < chunks; c += 32) {
+      uint32_t x = X[t * cs + c];
+      x ^= xor_of(X + c, cs, bt);
+      X[t * cs + c] = x;
+      const uint32_t h = x & F[c];
+      if (h != 0u && best == kNoKey) best = 32u * (uint32_t)c + (uint32_t)(__ffs(h) - 1);
+    }
+    const uint32_t k = __reduce_min_sync(kFull, best);
+    if (k == kNoKey) continue;  // no free row has bit j
+    const int kc = (int)(k >> 5);
+    const uint32_t kbit = 1u << (k & 31u);
+    // the pivot's bits: of the later columns (up to date through bmask),
+    // and of the earlier trips that were XORed into it (their listed rows)
+    uint32_t xv = X[lane * cs + kc];
+    if (lane > t) xv ^= xor_of(X + kc, cs, bmask);
+    const bool v = (xv & kbit) != 0u;
+    const bool psyn = (Y[kc] & kbit) != 0u;
+    const uint32_t pw = __ballot_sync(kFull, v && lane > t);
+    const uint32_t lc = __ballot_sync(kFull, v && lane < t && ((found >> lane) & 1u));
+    const uint32_t mt = (1u << t) ^ __reduce_xor_sync(kFull, ((lc >> lane) & 1u) ? mreg : 0u);
+    if (lane == t) mreg = mt;
+    if ((pw >> lane) & 1u) bmask |= 1u << t;
+    __syncwarp();  // every read of the pivot's chunk before its writes
+    for (int c = lane; c < chunks; c += 32) {
+      const bool own = c == kc;
+      const uint32_t r = X[t * cs + c] & ~(own ? kbit : 0u);
+      X[t * cs + c] = r;
+      uint32_t y = Y[c] ^ (psyn ? r : 0u);
+      if (own) {
+        // bp_err[j] folds into every row with bit j set; on the rows that
+        // are then eliminated it cancels: the pivot row alone keeps it
+        if (OSD0 && ((bpbits >> t) & 1u)) y ^= kbit;
+        F[c] &= ~kbit;
+        piv[k] = j;
+        keys[t] = k;
+      }
+      Y[c] = y;
+    }
+    ++rank;
+    found |= 1u << t;
+  }
+  __syncwarp();
+  if (!OSD0) {
+    // K2's word: the columns past the last trip made, brought up to date
+    for (int c = 0; c < chunks && lane >= t; ++c) X[lane * cs + c] ^= xor_of(X + c, cs, bmask);
+  }
+  msh[lane] = mreg;
+  if (lane == 0) {
+    ctl[0] = found != 0u;
+    ctl[1] = !done && 32 * (q + 1) < n && (OSD0 || rank < m);
+  }
+}
+
+template <bool OSD0>
+__global__ void __launch_bounds__(kClusterThreads, 2)
+gf2_cluster_kernel(const uint32_t* __restrict__ ht_in, const uint32_t* __restrict__ s_in,
+                   const int32_t* __restrict__ bp, uint32_t* __restrict__ work,
+                   uint32_t* __restrict__ s_out, int32_t* __restrict__ piv_out,
+                   int32_t* __restrict__ corr, int W, int m, int n) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) uint32_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int crank = (int)cluster.block_rank(), csize = (int)cluster.num_blocks();
+  const int napply = csize - 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
+  const size_t b = blockIdx.x / csize;
+  const ClusterLayout L = cluster_layout(m);
+  const int cs = L.cs, mr = L.mr, chunks = (m + 31) >> 5;
+  uint32_t* ht = work + b * W * m;
+  int32_t* piv = piv_out + b * m;
+  const int32_t* bp_lane = OSD0 ? bp + b * n : nullptr;
+  const uint32_t* lead = cluster.map_shared_rank(smem, 0);  // the leader's buffer
+
+  // the lane into the workspace, spread over the cluster
+  const size_t lane_words = (size_t)W * m;
+  for (size_t e = (size_t)crank * nthreads + tid; e < lane_words; e += (size_t)csize * nthreads)
+    ht[e] = ht_in[b * lane_words + e];
+  uint32_t *X = smem + L.x, *F = smem + L.f, *Y = smem + L.y;
+  if (crank == 0) {
+    for (int c = warp; c < chunks; c += nwarps) {
+      const int i = 32 * c + lane;
+      const unsigned f = __ballot_sync(kFull, i < m);  // no row is a pivot yet
+      const unsigned y = __ballot_sync(kFull, i < m && (s_in[b * m + i] & 1u));
+      if (lane == 0) F[c] = f, Y[c] = y;
+    }
+    for (int i = tid; i < m; i += nthreads) piv[i] = n;
+  }
+  cluster.sync();
+
+  int rank = 0;  // warp 0 of the leader: pivots made
+  bool apply_prev = false, trips = true;
+  long long clk[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  const long long c_start = LDPC_CLOCK();
+  for (int q = 0;; ++q) {
+    const int par = q & 1, prev = par ^ 1;
+    const long long c0 = LDPC_CLOCK();
+    long long c1 = c0, c2 = c0;
+    if (crank == 0) {
+      uint32_t* st = smem + L.st;
+      uint32_t* tab = smem + L.tab;
+      const uint32_t* codes_prev = smem + L.codes + prev * mr;
+      if (apply_prev && q < W) {  // the starts of panel q - 1's pivot rows in word q
+        if (tid < 32) {
+          const uint32_t k = smem[L.keys + prev * 32 + tid];
+          st[tid] = k != kNoKey ? ht[(size_t)q * m + k] : 0u;
+        }
+        __syncthreads();
+        for (int e = tid; e < 128; e += nthreads) tab[e] = table_entry(st, e);
+        __syncthreads();
+      }
+      if (trips) {
+        // word q, panel q - 1 applied, into slices
+        for (int c = warp; c < chunks; c += nwarps) {
+          const int i = 32 * c + lane;
+          uint32_t v = 0u;
+          if (i < m) {
+            v = ht[(size_t)q * m + i];
+            if (apply_prev) v ^= lookup(tab, codes_prev[i]);
+          }
+          uint32_t x = 0u;
+#pragma unroll 8
+          for (int t = 0; t < 32; ++t) {
+            const unsigned bits = __ballot_sync(kFull, (v >> t) & 1u);
+            if (lane == t) x = bits;
+          }
+          X[lane * cs + c] = x;
+        }
+        __syncthreads();
+        c1 = LDPC_CLOCK();
+        if (warp == 0)
+          cluster_trips<OSD0>(X, F, Y, smem + L.keys + par * 32, smem + L.msh,
+                              smem + L.ctl + par * 4, piv, bp_lane, q, rank, cs, m, n);
+        __syncthreads();
+        c2 = LDPC_CLOCK();
+        // every row's code (rows listed by a trip with a pivot, through M),
+        // and K2's word q (the trip's pivot alone in its column, or the slice)
+        const uint32_t* keys = smem + L.keys + par * 32;
+        const uint32_t* msh = smem + L.msh;
+        uint32_t* codes = smem + L.codes + par * mr;
+        const bool pivots = smem[L.ctl + par * 4] != 0u;
+        if (pivots || !OSD0) {
+          for (int c = warp; c < chunks; c += nwarps) {
+            const uint32_t kt = keys[lane];
+            const bool ft = kt != kNoKey;
+            const uint32_t xv = X[lane * cs + c];
+            const uint32_t z = ft ? xv : 0u;
+            const uint32_t y = ft ? ((int)(kt >> 5) == c ? 1u << (kt & 31u) : 0u) : xv;
+            uint32_t code = 0u, word = 0u;
+#pragma unroll 8
+            for (int r = 0; r < 32; ++r) {
+              const unsigned bz = __ballot_sync(kFull, (z >> r) & 1u);
+              if (lane == r) code = bz;
+              if (!OSD0) {
+                const unsigned by = __ballot_sync(kFull, (y >> r) & 1u);
+                if (lane == r) word = by;
+              }
+            }
+            const uint32_t cp = xor_of(msh, 1, code);
+            const int i = 32 * c + lane;
+            if (i < m) {
+              codes[i] = cp;
+              if (!OSD0) ht[(size_t)q * m + i] = word;
+            }
+          }
+        }
+      } else {
+        // K2 only: no more trips; the last panel into word q
+        if (apply_prev && q < W) {
+          for (int i = tid; i < m; i += nthreads) {
+            const uint32_t cp = codes_prev[i];
+            if (cp != 0u) ht[(size_t)q * m + i] ^= lookup(tab, cp);
+          }
+        }
+        if (tid == 0) smem[L.ctl + par * 4] = 0u, smem[L.ctl + par * 4 + 1] = 0u;
+      }
+    } else if (apply_prev) {
+      // panel q - 1 into this CTA's words past word q: the words w with
+      // w % (C - 1) == rank - 1, up to kTileWords at a time
+      uint32_t* codes = smem + L.acodes;
+      uint32_t* keys = smem + L.akeys;
+      uint32_t* st = smem + L.ast;
+      uint32_t* tab = smem + L.atab;
+      const uint32_t* lcodes = lead + L.codes + prev * mr;
+      for (int i = tid; i < m; i += nthreads) codes[i] = lcodes[i];
+      if (tid < 32) keys[tid] = lead[L.keys + prev * 32 + tid];
+      __syncthreads();
+      uint32_t* live = smem + L.alive;  // [1] the tile's words with a nonzero start
+      const int r = crank - 1, first = q + 1;
+      const int w0 = first + ((r - first % napply) % napply + napply) % napply;
+      for (int wt = w0; wt < W; wt += napply * kTileWords) {
+        const int nw = min(kTileWords, (W - wt + napply - 1) / napply);
+        if (tid == 0) *live = 0u;
+        for (int e = tid; e < 32 * nw; e += nthreads) {
+          const uint32_t k = keys[e & 31];
+          st[e] = k != kNoKey ? ht[(size_t)(wt + (e >> 5) * napply) * m + k] : 0u;
+        }
+        __syncthreads();
+        // a word whose pivot rows are all zero there changes no row
+        for (int wl = warp; wl < nw; wl += nwarps)
+          if (__any_sync(kFull, st[wl * 32 + lane] != 0u) && lane == 0) atomicOr(live, 1u << wl);
+        for (int e = tid; e < 128 * nw; e += nthreads) tab[e] = table_entry(st, e);
+        __syncthreads();
+        const uint32_t words = *live;
+        for (int i = tid; i < m && words != 0u; i += nthreads) {
+          const uint32_t cp = codes[i];
+          if (cp == 0u) continue;  // no pivot row was XORed into row i
+          uint32_t* col = ht + (size_t)wt * m + i;
+          const size_t stride = (size_t)napply * m;
+#pragma unroll
+          for (int half = 0; half < kTileWords; half += kTileWords / 2) {
+            uint32_t x[kTileWords / 2];
+#pragma unroll
+            for (int u = 0; u < kTileWords / 2; ++u)
+              if ((words >> (half + u)) & 1u) x[u] = col[(half + u) * stride];
+#pragma unroll
+            for (int u = 0; u < kTileWords / 2; ++u)
+              if ((words >> (half + u)) & 1u)
+                col[(half + u) * stride] = x[u] ^ lookup(tab + (half + u) * 128, cp);
+          }
+        }
+        __syncthreads();
+      }
+    }
+    const long long c3 = LDPC_CLOCK();
+    cluster.sync();
+    const long long c4 = LDPC_CLOCK();
+    if (crank == 0) clk[0] += c1 - c0, clk[1] += c2 - c1, clk[2] += c3 - c2, clk[3] += c4 - c3;
+    if (crank == 1) clk[4] += c3 - c0, clk[5] += c4 - c3;
+    ++clk[6];
+    const bool pivots = lead[L.ctl + par * 4] != 0u, more = lead[L.ctl + par * 4 + 1] != 0u;
+    if ((OSD0 && !more) || (!pivots && !more)) break;  // uniform over the cluster
+    apply_prev = pivots;
+    trips = more;
+  }
+
+  if (crank == 0) {
+    if (OSD0) {
+      const size_t col_off = b * n;
+      for (int c = tid; c < n; c += nthreads) corr[col_off + c] = bp[col_off + c];
+      __syncthreads();
+      for (int i = tid; i < m; i += nthreads) {
+        const int p = piv[i];
+        if (p < n) corr[col_off + p] = (int32_t)((Y[i >> 5] >> (i & 31)) & 1u);
+      }
+    } else {
+      for (int i = tid; i < m; i += nthreads) s_out[b * m + i] = (Y[i >> 5] >> (i & 31)) & 1u;
+    }
+  }
+#ifdef LDPC_GF2_PHASE_CLOCKS
+  if (b == 0 && crank <= 1 && tid == 0) {
+    for (int e = 4 * crank; e < (crank == 0 ? 4 : 7); ++e) g_cluster_clocks[e] = clk[e];
+    if (crank == 0) g_cluster_clocks[7] = LDPC_CLOCK() - c_start;
+  }
+#endif
+  cluster.sync();  // no CTA leaves while another may read its shared memory
+}
+
+size_t cluster_smem_bytes(int m) { return 4 * (size_t)cluster_layout(m).total; }
+
+// Clusters of size csize that the card holds at once for this kernel.
+template <bool OSD0>
+int active_clusters(int csize, size_t bytes) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(csize);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = csize, attr.val.clusterDim.y = 1, attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr, cfg.numAttrs = 1;
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, gf2_cluster_kernel<OSD0>, &cfg) != cudaSuccess)
+    return -1;
+  return clusters;
+}
+
+// The largest cluster of 8, 4, 2 CTAs whose clusters hold all B lanes at
+// once (2 where none does); 0 on an error.  out: the size, the clusters
+// the card holds of it.
+template <bool OSD0>
+int pick_cluster(int B, size_t bytes, int* active) {
+  for (int csize = 8; csize >= 2; csize >>= 1) {
+    const int a = active_clusters<OSD0>(csize, bytes);
+    if (a < 0) return 0;
+    *active = a;
+    if (a >= B || csize == 2) return csize;
+  }
+  return 2;
+}
+
+template <bool OSD0>
+cudaError_t launch_cluster(const void* ht_in, const void* s_in, const void* bp, void* work,
+                           void* s_out, void* piv_out, void* corr, int B, int W, int m, int n,
+                           int csize, void* stream) {
+  if ((uint32_t)n > kPivMask || m < 1 || W != (n + 31) / 32) return cudaErrorInvalidValue;
+  const size_t bytes = cluster_smem_bytes(m);
+  if (bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(gf2_cluster_kernel<OSD0>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return err;
+  int active = 0;
+  if (csize == 0) csize = pick_cluster<OSD0>(B, bytes, &active);
+  if (csize != 2 && csize != 4 && csize != 8) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B * (unsigned)csize);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = csize, attr.val.clusterDim.y = 1, attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr, cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, gf2_cluster_kernel<OSD0>, static_cast<const uint32_t*>(ht_in),
+                           static_cast<const uint32_t*>(s_in), static_cast<const int32_t*>(bp),
+                           static_cast<uint32_t*>(work), static_cast<uint32_t*>(s_out),
+                           static_cast<int32_t*>(piv_out), static_cast<int32_t*>(corr), W, m, n);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// gf2_global_kernel: the first device-memory body, one block a lane and the
+// plain forms' trips one by one in device memory; no route takes it (the
+// wrappers reach it with _body="v1", for comparison).  Shared memory keeps
+// one state word per row (pivot column, sentinel n; syndrome bit) and the
+// list of the rows with the trip's bit.  A trip is
 //   (a) a scan of word j/32 of every row: a key (row << 1 | syndrome bit)
 //       for the unused rows with the bit, the least per warp, and the rows
 //       with the bit appended to the list (a warp ballot, one shared atomic
@@ -677,15 +1160,9 @@ gf2_panel_kernel(const uint32_t* __restrict__ ht_in, const uint32_t* __restrict_
 //       itself over the words [j/32, W), the (word, listed row) pairs
 //       spread over all threads, a warp on consecutive list entries of one
 //       word: coalesced while the rows are in runs; one block barrier.
-// The words before j/32 are zero in row k, so the XOR skips them: every
-// earlier column j' either had a pivot, whose trip cleared bit j' in every
-// other row (k among them, being unused then and now), or had no unused row
-// with bit j' set, and k is unused.
-// What bounds it: the trips run in series, each a device-memory pass over
-// one word of every row and the listed rows' words, behind two barriers:
-// latency, not bandwidth, at one lane per SM.  A lane of 365 KB (the
-// (2400, 6, 3) code) stays in L2 beside 131 others (48 MB of the H100's
-// 50 MB); the DEM lane (3.4 MB) does so at 16 lanes.
+// The words before j/32 are zero in row k (the argument above).  Its trips
+// run in series, each a device-memory pass over one word of every row and
+// the listed rows' words, behind two barriers: latency, at one lane per SM.
 template <bool OSD0>
 __global__ void __launch_bounds__(1024, 1)
 gf2_global_kernel(const uint32_t* __restrict__ ht_in, const uint32_t* __restrict__ s_in,
@@ -894,8 +1371,45 @@ int ldpc_gf2_osd0(const void* ht_in, const void* resid, const void* bp, void* co
 }
 
 // Lanes past a block (ops/cuda_gf2.py routes here where launch_plan finds
-// panel 0): the lane in device memory.  The elimination works in ht_out;
-// OSD-0 in `work`, B lanes of W * m words.
+// panel 0): the lane in device memory, a cluster of `cluster` CTAs a lane
+// (0: the launcher's choice).  The elimination works in ht_out; OSD-0 in
+// `work`, B lanes of W * m words, with the pivot columns in `piv_work`,
+// B lanes of m words.
+int ldpc_gf2_eliminate_cluster(const void* ht_in, const void* s_in, void* ht_out, void* s_out,
+                               void* piv_out, int B, int W, int m, int n, int cluster,
+                               void* stream) {
+  return launch_cluster<false>(ht_in, s_in, nullptr, ht_out, s_out, piv_out, nullptr, B, W, m,
+                               n, cluster, stream);
+}
+
+int ldpc_gf2_osd0_cluster(const void* ht_in, const void* resid, const void* bp, void* corr,
+                          void* work, void* piv_work, int B, int W, int m, int n, int cluster,
+                          void* stream) {
+  return launch_cluster<true>(ht_in, resid, bp, work, nullptr, piv_work, corr, B, W, m, n,
+                              cluster, stream);
+}
+
+// What the launcher takes for B lanes of m rows in the cluster body: out[0]
+// the CTAs of a cluster, out[1] the bytes of dynamic shared memory, out[2]
+// the clusters of that size the card holds at once.  Returns the
+// cudaError_t of the queries (the current device's).
+int ldpc_gf2_cluster_plan(int B, int m, int osd0, int* out) {
+  const size_t bytes = cluster_smem_bytes(m);
+  out[0] = 0, out[1] = (int)bytes, out[2] = 0;
+  if (bytes > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  cudaError_t err = osd0 ? cudaFuncSetAttribute(gf2_cluster_kernel<true>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                (int)bytes)
+                         : cudaFuncSetAttribute(gf2_cluster_kernel<false>,
+                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = osd0 ? pick_cluster<true>(B, bytes, &out[2]) : pick_cluster<false>(B, bytes, &out[2]);
+  return out[0] == 0 ? (int)cudaGetLastError() : 0;
+}
+
+// The first device-memory body (one block a lane), for comparison only:
+// the elimination works in ht_out; OSD-0 in `work`, B lanes of W * m words.
 int ldpc_gf2_eliminate_global(const void* ht_in, const void* s_in, void* ht_out, void* s_out,
                               void* piv_out, int B, int W, int m, int n, void* stream) {
   return launch_global<false>(ht_in, s_in, nullptr, ht_out, s_out, piv_out, nullptr, B, W, m,
@@ -926,6 +1440,11 @@ void ldpc_gf2_plan(int W, int m, int osd0, int max_panel, int* out) {
 // all is trips).
 int ldpc_gf2_phase_clocks(long long* out) {
   return (int)cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(g_phase_clocks));
+}
+
+// The cluster body's clocks of lane 0 (g_cluster_clocks above), 8 numbers.
+int ldpc_gf2_cluster_clocks(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_cluster_clocks, sizeof(g_cluster_clocks));
 }
 #endif
 

@@ -752,8 +752,8 @@ def spacetime_logical_sweep(
     ``pipeline`` batches in flight and a ``[6]`` count fetch each; its
     noise comes from a ``torch.Generator`` keyed by the ``(seed, point,
     step)`` derivation.  Otherwise (or ``on_device=False``) the host loop
-    samples numpy streams.  BP+OSD runs eagerly (``fused`` is not set: the
-    compacting OSD gives the outputs the reference's fused program gives).
+    samples numpy streams.  BP+OSD runs eagerly, as the reference's harness
+    runs it (the compacting OSD gives the outputs of ``fused=True``).
     ``device``: where the decoders run (None: the current CUDA card).
 
     Returns ``{per: {"trials", "rounds", "z_logical_rate",
@@ -924,8 +924,8 @@ def dem_logical_sweep(
     ``np.random.default_rng((seed, step))``; with ``circuit=`` (a
     :class:`~.codes.circuit.StabilizerCircuit`) the shots are drawn from the
     circuit itself by :func:`~.codes.circuit.sample_circuit`, the
-    model-independent ground truth.  BP+OSD runs eagerly (``fused`` is not
-    set).  ``device``: where a decoder built here runs (None: the current
+    model-independent ground truth.  BP+OSD runs eagerly, as the reference's
+    harness runs it.  ``device``: where a decoder built here runs (None: the current
     CUDA card).
 
     ``rounds`` is metadata: when given, the summary adds the per-round rate

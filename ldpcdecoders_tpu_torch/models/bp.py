@@ -10,7 +10,10 @@ package's association order, so err / converged / iters agree bitwise.
 Messages live in the slot-major ``[B, slot, node]`` layout, connected by
 static gather tables (codes/graph.py).  The reference's ``while_loop``
 becomes a Python loop that stops once every lane has converged; reading
-that flag costs one host synchronization per iteration on a card.
+that flag costs one host synchronization per iteration on a card.  With
+``early_exit=False`` the loop runs all ``max_iters`` iterations without
+reading it (converged lanes keep their frozen outputs, so the outputs are
+the same).
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ class BPDecode(torch.nn.Module):
     (the counterpart of the reference's ``make_bp_decode_fn``).
 
     ``ratio`` overrides the channel prior (probability-ratio domain,
-    scalar, ``[n]`` or ``[B, n]``) for one call.
+    scalar, ``[n]`` or ``[B, n]``) for one call.  ``early_exit=False``
+    runs every iteration with no host read (the fused BP+OSD).
     """
 
     def __init__(self, graph: TannerGraph, per, max_iters: int, *, device,
@@ -89,7 +93,8 @@ class BPDecode(torch.nn.Module):
         err = (total >= 1.0).to(torch.float32)
         return Q, err, logp
 
-    def forward(self, syndromes: torch.Tensor, ratio: torch.Tensor | None = None):
+    def forward(self, syndromes: torch.Tensor, ratio: torch.Tensor | None = None, *,
+                early_exit: bool = True):
         channel_ratio = self.default_ratio if ratio is None else ratio
         B, n, device = syndromes.shape[0], self.n, syndromes.device
         syn_f = syndromes.to(torch.float32)
@@ -105,7 +110,7 @@ class BPDecode(torch.nn.Module):
         iters = torch.zeros((B,), dtype=torch.int32, device=device)
 
         it = 0
-        while it < self.max_iters and not bool(done.all()):
+        while it < self.max_iters and not (early_exit and bool(done.all())):
             R = self.check_update(Q, syn_sign)
             Q, errn, logpn = self.var_update(R, channel_ratio)
             active = ~done

@@ -28,7 +28,13 @@ Counterpart of ``ldpcdecoders_tpu/models/bposd.py``:
 always syndrome-consistent for OSD-0, and for OSD-w whenever H's rows span
 the syndrome.
 
-Not carried over yet: ``fused=True`` raises ``NotImplementedError``.
+``fused=True`` (the reference's ``make_fused_bposd_fn``) makes one decode
+device work with no host read: the inner decoder runs all ``max_iters``
+iterations (converged lanes freeze their outputs, so these are the eager
+loop's), and the OSD runs on every lane, its output kept where the inner
+decoder failed (OSD-0, OSD-w under ``osd_scope="failed"``: the
+reference's ``lax.cond`` becomes a ``torch.where``) or everywhere (OSD-w
+under ``osd_scope="all"``).
 """
 
 from __future__ import annotations
@@ -208,7 +214,12 @@ class BeliefPropagationOSDDecoder(Decoder):
         body.
       osd_triples: with ``osd_impl="host"`` and OSD-CS, the triple-sweep
         depth (order-3 combinations; 0 disables).
-      fused: not ported (raises ``NotImplementedError``).
+      fused: one device program without a host read: the inner decoder
+        runs all ``max_iters`` iterations (no early exit: at low noise
+        this costs the iterations the eager loop skips) and the OSD runs on
+        every lane, selected by ``converged`` (OSD-0 and ``osd_scope=
+        "failed"``) or kept (OSD-w, ``osd_scope="all"``); the outputs are
+        the eager path's.  Not with ``osd_impl="host"``.
       inner: the soft-output decoder whose LLRs rank the OSD column
         reliabilities: ``"sumproduct"`` (default), ``"minsum"``, or a
         constructed :class:`MinSumDecoder` on the same code and device.
@@ -242,10 +253,6 @@ class BeliefPropagationOSDDecoder(Decoder):
                 f"osd_method must be 'exhaustive' or 'combination_sweep', got {osd_method!r}")
         if osd_impl not in ("device", "host"):
             raise ValueError("osd_impl must be 'device' or 'host'")
-        if fused:
-            raise NotImplementedError(
-                "fused=True: not ported to ldpcdecoders_tpu_torch yet (it waits for the "
-                "fused min-sum iteration; ROADMAP.md)")
         if osd_order < 0:
             raise ValueError("osd_order must be >= 0")
         self.device = resolve_device(device)
@@ -277,6 +284,7 @@ class BeliefPropagationOSDDecoder(Decoder):
                 "combination_sweep extension: set osd_impl='host', "
                 "osd_method='combination_sweep'")
         self.osd_triples = int(osd_triples)
+        self.fused = bool(fused)
         self._Hcols = None
         if osd_impl == "host":
             from ..native import gf2_pack_cols, native_available
@@ -285,6 +293,9 @@ class BeliefPropagationOSDDecoder(Decoder):
                 raise ValueError(
                     "osd_impl='host' supports osd_order=0 (exhaustive) or "
                     "any order with osd_method='combination_sweep'")
+            if self.fused:
+                raise ValueError(
+                    "osd_impl='host' is a host round-trip; fused=True cannot trace it")
             if not native_available():
                 raise RuntimeError(
                     "the host OSD needs the native library (g++); "
@@ -321,8 +332,15 @@ class BeliefPropagationOSDDecoder(Decoder):
 
     def _decode_batch(self, syndromes, seed: int = 0, per=None):
         prior = None if per is None else self.bp.as_prior(per)
-        bp_err, converged, iters, logp = self.bp(syndromes, prior)
+        bp_err, converged, iters, logp = self.bp(syndromes, prior, early_exit=not self.fused)
         aux = {"log_probabs": logp}
+        if self.fused:
+            if self.osd_order > 0 and self.osd_scope == "all":
+                corr = self.osd.osdw_batch(syndromes, bp_err, logp)
+                return corr.to(torch.int8), converged, iters, aux
+            post = self.osd.osd0_batch if self.osd_order == 0 else self.osd.osdw_batch
+            corr = post(syndromes, bp_err, logp).to(torch.int8)
+            return torch.where(converged[:, None], bp_err, corr), converged, iters, aux
         host = self.osd_impl == "host"
         if self.osd_order > 0 and self.osd_scope == "all" and not host:
             corr = self.osd.osdw_batch(syndromes, bp_err, logp)

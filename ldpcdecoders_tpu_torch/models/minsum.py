@@ -23,7 +23,8 @@ outputs an iteration between two checks would freeze are overwritten by the
 next check's.  The reference's ``while_loop`` becomes a Python loop that
 stops once every lane has converged; the host reads that flag (one
 synchronization on a card) at the checks alone: every ``check_every``-th
-iteration and the last.
+iteration and the last.  ``early_exit=False`` runs all ``max_iters``
+iterations with no host read (the outputs of converged lanes are frozen).
 """
 
 from __future__ import annotations
@@ -80,7 +81,8 @@ class MinSumDecode(torch.nn.Module):
     ``make_minsum_decode_fn``).
 
     ``L0`` overrides the channel LLR (scalar, ``[n]`` or ``[B, n]``) for one
-    call.
+    call; ``early_exit=False`` runs every iteration without reading
+    ``done`` on the host (the fused BP+OSD).
 
     ``damping`` in [0, 1) mixes each new variable->check message with the
     previous iteration's (``nu <- damping * nu_old + (1-damping) * nu_new``),
@@ -169,7 +171,8 @@ class MinSumDecode(torch.nn.Module):
         return torch.as_tensor(per_to_llr(per, self.n), dtype=torch.float32,
                                device=self.var_mask.device)
 
-    def forward(self, syndromes: torch.Tensor, L0: torch.Tensor | None = None, gamma=None):
+    def forward(self, syndromes: torch.Tensor, L0: torch.Tensor | None = None, gamma=None, *,
+                early_exit: bool = True):
         if self.lane_damping:
             if gamma is None:
                 raise ValueError("lane_damping decoders take a [B] gamma")
@@ -246,7 +249,7 @@ class MinSumDecode(torch.nn.Module):
                 berr = torch.where(better[:, None], err, berr)
                 bllr = torch.where(better[:, None], llrs.to(torch.float32), bllr)
             # ``done`` changes only where the check ran: read it there alone
-            if bool(done.all()):
+            if early_exit and bool(done.all()):
                 break
         iters = torch.where(done, iters, it).to(torch.int32)
         if self.track_best:

@@ -19,8 +19,8 @@ as the reference's) stay on the decoder's device between windows, with no
 host read of the window's own, and come to the host once at the end.  The
 inner decoders do what they do on their own (BP+OSD's failing-lane
 compaction reads the converged flags once a window).  The reference builds
-its bposd inner ``fused=True``, output-identical to the eager one the port
-runs (``fused=True`` is not ported).  Closed tail decoders are built
+its bposd inner ``fused=True`` and then runs it eagerly (reference
+window.py:72-76); so does the port, output-identical.  Closed tail decoders are built
 lazily per tail length.
 """
 

@@ -29,11 +29,17 @@ where there is no library, and the card's tests hold the two together.
 ``gf2_eliminate_blocked``).
 
 A lane that fits no block (``launch_plan(...).panel == 0``) takes the
-third body, ``gf2_global_kernel``: the lane stays in device memory (the
-elimination works in its output ``Ht'``, OSD-0 in a workspace of its own,
-allocated per chunk of lanes under ``utils/hbm.py``'s budget) and the column
-trips are the plain forms' one by one.  :func:`route` names the body a
-shape takes; ``<wrapper>.routes`` counts the launches of each body.
+device-memory body, ``gf2_cluster_kernel``: the lane stays in device memory
+(the elimination works in its output ``Ht'``, OSD-0 in a workspace of its
+own, allocated per chunk of lanes under ``utils/hbm.py``'s budget) and a
+thread-block cluster takes each lane by panels of 32 columns: one CTA makes
+a panel's trips on bit slices in its shared memory, the others apply the
+panel to the later words through XOR tables.  :func:`cluster_plan` asks the
+built library for its cluster size.  The first device-memory body, one
+block a lane and the plain forms' trips one by one in device memory
+(``gf2_global_kernel``), stays reachable through ``_body="v1"`` for
+comparison; no route takes it.  :func:`route` names the body a shape
+takes; ``<wrapper>.routes`` counts the launches of each body.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ __all__ = [
     "route",
     "body_of",
     "global_smem_bytes",
+    "cluster_plan",
     "row_stride",
     "smem_bytes",
     "MAX_SMEM_BYTES",
@@ -152,11 +159,51 @@ def route(W: int, m: int, *, osd0: bool) -> str:
     return body_of(launch_plan(W, m, osd0=osd0))
 
 
+#: words an applier CTA of the device-memory body tabulates at once
+_TILE_WORDS = 32
+
+
 def global_smem_bytes(m: int) -> int:
-    """Shared memory of the device-memory body for ``m`` rows: a state word
-    and a list entry per row (each part rounded to 4), 64 words of warp
-    slots and two counts (``global_smem_bytes`` in ``csrc/gf2_elim.cu``)."""
+    """Shared memory of a CTA of the device-memory body for ``m`` rows
+    (``cluster_smem_bytes`` in ``csrc/gf2_elim.cu``): the larger of the
+    leader's (8 words of loop flags, 64 of pivot rows, 32 of M, 32 + 128 of
+    the next word's starts and tables, 32 bit slices and the free rows and
+    syndrome bits over ``(m + 31) // 32`` chunks at an odd stride, and two
+    code words a row) and an applier's (a code word a row, 32 pivot rows,
+    a word of live flags, and the starts and tables of 32 words)."""
+    mr, cs = _round4(m), ((m + 31) // 32) | 1
+    leader = 8 + 64 + 32 + 32 + 128 + _round4(32 * cs) + 2 * _round4(cs) + 2 * mr
+    applier = mr + 32 + 4 + 32 * _TILE_WORDS + 128 * _TILE_WORDS
+    return 4 * max(leader, applier)
+
+
+def _v1_smem_bytes(m: int) -> int:
+    """Shared memory of the first device-memory body: a state word and a
+    list entry per row, 64 words of warp slots and two counts."""
     return 4 * (2 * _round4(m) + 64 + 4)
+
+
+class ClusterPlan(NamedTuple):
+    """What the launcher of the device-memory body takes for B lanes."""
+
+    size: int  #: CTAs of a cluster (2, 4 or 8)
+    bytes: int  #: dynamic shared memory of each CTA
+    active: int  #: clusters of that size the card holds at once
+
+
+def cluster_plan(B: int, m: int, *, osd0: bool, lib=None) -> ClusterPlan:
+    """The cluster the built library's launcher takes for ``B`` lanes of
+    ``m`` rows in the device-memory body: the largest of 8, 4 and 2 CTAs
+    whose clusters the card holds all at once (2 where none does), by
+    ``cudaOccupancyMaxActiveClusters`` on the current card."""
+    import ctypes
+
+    from .._build import load_library
+
+    lib = lib or load_library()
+    out = (ctypes.c_int * 3)()
+    _raise_on(lib, lib.ldpc_gf2_cluster_plan(B, m, int(osd0), out), "gf2 cluster plan")
+    return ClusterPlan(out[0], out[1], out[2])
 
 
 def smem_bytes(W: int, m: int, *, osd0: bool) -> int:
@@ -187,7 +234,7 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _prepare(Ht, n, osd0, panel, lib):
+def _prepare(Ht, n, osd0, panel, lib, body, cluster):
     """Validate the packed system; return ``(lib, B, W, m, stream, plan)``."""
     from .._build import load_library
 
@@ -204,11 +251,15 @@ def _prepare(Ht, n, osd0, panel, lib):
                          f"got [{m}, {n}]")
     if panel not in (1, 2, 4, 8):
         raise ValueError(f"panel must be 1, 2, 4 or 8, got {panel}")
+    if body not in ("cluster", "v1") or cluster not in (0, 2, 4, 8):
+        raise ValueError(f"body must be 'cluster' or 'v1' and cluster 0, 2, 4 or 8, "
+                         f"got {body!r}, {cluster}")
     lib = lib or load_library()
     plan = launcher_plan(W, m, osd0=osd0, panel=panel, lib=lib)
-    if body_of(plan) == "global" and global_smem_bytes(m) > MAX_SMEM_BYTES:
-        raise ValueError(f"a lane of {m} rows takes {global_smem_bytes(m)} bytes of shared "
-                         f"memory in the device-memory body; a block holds {MAX_SMEM_BYTES}")
+    need = (_v1_smem_bytes if body == "v1" else global_smem_bytes)(m)
+    if body_of(plan) == "global" and need > MAX_SMEM_BYTES:
+        raise ValueError(f"a lane of {m} rows takes {need} bytes of shared memory in the "
+                         f"device-memory body; a block holds {MAX_SMEM_BYTES}")
     stream = torch.cuda.current_stream(Ht.device).cuda_stream
     return lib, B, W, m, stream, plan
 
@@ -218,7 +269,8 @@ def _raise_on(lib, rc, what):
         raise RuntimeError(f"{what} launch failed: {lib.ldpc_cuda_error_string(rc).decode()}")
 
 
-def gf2_osd0_cuda(Ht, resid, bp_err, n, *, _max_panel=8, _lib=None):
+def gf2_osd0_cuda(Ht, resid, bp_err, n, *, _max_panel=8, _lib=None, _body="cluster",
+                  _cluster=0):
     """Batched OSD-0 elimination; returns the ``[B, n]`` int32 correction.
 
     Args:
@@ -227,34 +279,44 @@ def gf2_osd0_cuda(Ht, resid, bp_err, n, *, _max_panel=8, _lib=None):
       bp_err: ``[B, n]`` int32 0/1 BP hard decisions (sorted order).
       n: column count.
 
-    ``_max_panel`` (8, 4, 2 or 1) caps the launcher's panel width and
-    ``_lib`` names another build of the library: for the tests and timings
-    of every instantiation; the result depends on neither.
+    ``_max_panel`` (8, 4, 2 or 1) caps the launcher's panel width, ``_lib``
+    names another build of the library, and for a lane past a block
+    ``_body="v1"`` takes the first device-memory body and ``_cluster`` (2,
+    4 or 8; 0 the launcher's choice) sets the cluster: for the tests and
+    timings of every instantiation; the result depends on none of them.
     """
     if Ht.device.type == "cpu":
         return gf2_osd0_ref(Ht, resid, bp_err, n)
-    lib, B, W, m, stream, plan = _prepare(Ht, n, True, _max_panel, _lib)
+    lib, B, W, m, stream, plan = _prepare(Ht, n, True, _max_panel, _lib, _body, _cluster)
     _check("resid", resid, (B, m), Ht.device)
     _check("bp_err", bp_err, (B, n), Ht.device)
     corr = torch.empty((B, n), dtype=torch.int32, device=Ht.device)
     if B == 0:
         return corr
     if body_of(plan) == "global":
-        # the device-memory body works in a copy of each lane: by chunks of
-        # lanes whose workspace the memory budget admits
+        # the device-memory body works in a copy of each lane (and its pivot
+        # columns): by chunks of lanes whose workspace the memory budget admits
         from ..utils.hbm import gf2_workspace_lanes
 
         chunk = min(B, gf2_workspace_lanes(W, m, device=Ht.device))
         work = torch.empty((chunk, W, m), dtype=torch.int32, device=Ht.device)
+        pivw = torch.empty((chunk, m), dtype=torch.int32, device=Ht.device)
+        route = "global_v1" if _body == "v1" else "global"
         for b0 in range(0, B, chunk):
             b = min(chunk, B - b0)
             with torch.cuda.device(Ht.device):
-                rc = lib.ldpc_gf2_osd0_global(Ht[b0].data_ptr(), resid[b0].data_ptr(),
-                                              bp_err[b0].data_ptr(), corr[b0].data_ptr(),
-                                              work.data_ptr(), b, W, m, n, stream)
+                if _body == "v1":
+                    rc = lib.ldpc_gf2_osd0_global(Ht[b0].data_ptr(), resid[b0].data_ptr(),
+                                                  bp_err[b0].data_ptr(), corr[b0].data_ptr(),
+                                                  work.data_ptr(), b, W, m, n, stream)
+                else:
+                    rc = lib.ldpc_gf2_osd0_cluster(Ht[b0].data_ptr(), resid[b0].data_ptr(),
+                                                   bp_err[b0].data_ptr(), corr[b0].data_ptr(),
+                                                   work.data_ptr(), pivw.data_ptr(), b, W, m, n,
+                                                   _cluster, stream)
             _raise_on(lib, rc, "gf2_osd0 (device-memory body)")
             gf2_osd0_cuda.launches += 1
-            gf2_osd0_cuda.routes["global"] += 1
+            gf2_osd0_cuda.routes[route] += 1
         return corr
     with torch.cuda.device(Ht.device):  # the launch goes to the current device
         rc = lib.ldpc_gf2_osd0(Ht.data_ptr(), resid.data_ptr(), bp_err.data_ptr(),
@@ -265,7 +327,7 @@ def gf2_osd0_cuda(Ht, resid, bp_err, n, *, _max_panel=8, _lib=None):
     return corr
 
 
-def gf2_eliminate_cuda(Ht, s, n, *, _max_panel=8, _lib=None):
+def gf2_eliminate_cuda(Ht, s, n, *, _max_panel=8, _lib=None, _body="cluster", _cluster=0):
     """Batched Gauss–Jordan RREF of packed columns.
 
     Args:
@@ -275,11 +337,12 @@ def gf2_eliminate_cuda(Ht, s, n, *, _max_panel=8, _lib=None):
 
     Returns ``(Ht' [B, W, m], s' [B, m], pivcol [B, m])`` (int32) with
     ``pivcol[b, i]`` = row i's pivot column or the sentinel ``n``.
-    ``_max_panel``, ``_lib``: as in :func:`gf2_osd0_cuda`.
+    ``_max_panel``, ``_lib``, ``_body``, ``_cluster``: as in
+    :func:`gf2_osd0_cuda`.
     """
     if Ht.device.type == "cpu":
         return gf2_eliminate_ref(Ht, s, n)
-    lib, B, W, m, stream, plan = _prepare(Ht, n, False, _max_panel, _lib)
+    lib, B, W, m, stream, plan = _prepare(Ht, n, False, _max_panel, _lib, _body, _cluster)
     _check("s", s, (B, m), Ht.device)
     Ht2 = torch.empty_like(Ht)
     s2 = torch.empty_like(s)
@@ -288,10 +351,15 @@ def gf2_eliminate_cuda(Ht, s, n, *, _max_panel=8, _lib=None):
         return Ht2, s2, piv
     body = body_of(plan)
     with torch.cuda.device(Ht.device):
-        if body == "global":  # the lane in device memory: the kernel works in Ht2
+        if body == "global" and _body == "v1":
+            body = "global_v1"
             rc = lib.ldpc_gf2_eliminate_global(Ht.data_ptr(), s.data_ptr(), Ht2.data_ptr(),
                                                s2.data_ptr(), piv.data_ptr(), B, W, m, n,
                                                stream)
+        elif body == "global":  # the lane in device memory: the kernel works in Ht2
+            rc = lib.ldpc_gf2_eliminate_cluster(Ht.data_ptr(), s.data_ptr(), Ht2.data_ptr(),
+                                                s2.data_ptr(), piv.data_ptr(), B, W, m, n,
+                                                _cluster, stream)
         else:
             rc = lib.ldpc_gf2_eliminate(Ht.data_ptr(), s.data_ptr(), Ht2.data_ptr(),
                                         s2.data_ptr(), piv.data_ptr(), B, W, m, n, _max_panel,
@@ -304,6 +372,7 @@ def gf2_eliminate_cuda(Ht, s, n, *, _max_panel=8, _lib=None):
 
 gf2_osd0_cuda.launches = 0
 gf2_eliminate_cuda.launches = 0
-#: launches per body: "shared" (a block holds the lane), "global" (device memory)
-gf2_osd0_cuda.routes = {"shared": 0, "global": 0}
-gf2_eliminate_cuda.routes = {"shared": 0, "global": 0}
+#: launches per body: "shared" (a block holds the lane), "global" (device
+#: memory, the cluster body), "global_v1" (device memory, the first body)
+gf2_osd0_cuda.routes = {"shared": 0, "global": 0, "global_v1": 0}
+gf2_eliminate_cuda.routes = {"shared": 0, "global": 0, "global_v1": 0}

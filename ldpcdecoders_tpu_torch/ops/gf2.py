@@ -37,6 +37,7 @@ __all__ = [
     "gf2_eliminate_blocked",
     "osdw_sweep",
     "osd_cs_sweep",
+    "gf2_osdw",
     "gf2_osd_cs",
 ]
 
@@ -464,6 +465,15 @@ def osd_cs_sweep(Ht, s, pivcol, r, bp_err, lam: int, n: int):
     for c in (c1, c2):  # the sentinel n lands in the dropped column
         err = err.scatter(1, c[:, None], 1 - err0.gather(1, c.clamp(max=n - 1)[:, None]))
     return scatter_pivots(err[:, :n], pivcol, base_vals ^ flip, n)
+
+
+def gf2_osdw(Ht, bp_err, s, osd_order: int, n: int):
+    """OSD-w: Gauss–Jordan RREF + the 2^w candidate sweep (batched plain
+    form of the reference's ``gf2_osdw``, taking the transposed packed rows
+    as :func:`gf2_osd_cs` does); ``Ht [B, W, m]`` int32, ``bp_err [B, n]``
+    and ``s [B, m]`` 0/1.  Returns the ``[B, n]`` int32 solution."""
+    Ht2, s2, piv, r = gf2_eliminate(Ht, s, n)
+    return osdw_sweep(Ht2, s2, piv, r, bp_err, osd_order, n)
 
 
 def gf2_osd_cs(Ht, bp_err, s, lam: int, n: int):

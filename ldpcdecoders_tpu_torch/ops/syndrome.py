@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["syndrome_of", "SyndromeCheck"]
+__all__ = ["syndrome_of", "syndrome_matches", "SyndromeCheck"]
 
 # Dense-H cutoff: 16M entries is a 64 MB float32 H^T, small beside the
 # card's memory and the [B, E] message state, while the matmul replaces a
@@ -26,6 +26,11 @@ def syndrome_of(err: torch.Tensor, Ht: torch.Tensor) -> torch.Tensor:
     """``(err @ H^T) mod 2`` for a ``[B, n]`` float 0/1 batch; ``Ht`` is the
     ``[n, m]`` float 0/1 transpose of H.  Returns ``[B, m]`` float 0/1."""
     return torch.remainder(err @ Ht, 2.0)
+
+
+def syndrome_matches(err: torch.Tensor, Ht: torch.Tensor, syndrome: torch.Tensor) -> torch.Tensor:
+    """Per-lane ``all((err @ H^T) % 2 == syndrome)``: ``[B]`` bool."""
+    return (syndrome_of(err, Ht) == syndrome).all(dim=-1)
 
 
 class SyndromeCheck(torch.nn.Module):

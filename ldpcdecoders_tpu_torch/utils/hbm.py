@@ -16,7 +16,8 @@ from the card's memory instead of fixed constants:
     fraction admits;
   * :func:`gf2_workspace_lanes`: how many lanes of the OSD-0 elimination's
     device-memory body one workspace may hold (``ops/cuda_gf2.py``: a lane
-    past a block is copied into device memory, ``4 * W * m`` bytes).
+    past a block is copied into device memory, ``4 * W * m`` bytes, beside
+    a pivot column a row, ``4 * m``).
 """
 
 from __future__ import annotations

@@ -335,8 +335,9 @@ def test_bposd_damped_minsum_inner_small_case():
 def test_bposd_options_and_validation():
     H = lt.parity_check_matrix(60, 6, 3, rng=19)
     make = lambda *a, **kw: pt.BeliefPropagationOSDDecoder(*a, device="cpu", **kw)  # noqa: E731
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make(H, 0.1, 10, fused=True)
+    assert make(H, 0.1, 10, fused=True).fused  # builds, as the reference's does
+    with pytest.raises(ValueError, match="fused=True cannot trace it"):
+        make(H, 0.1, 10, fused=True, osd_impl="host")
     cs = make(H, 0.1, 10, osd_method="combination_sweep", osd_order=500)
     assert cs.osd_order == H.shape[1] and cs.osd is not None  # no rank clamp
     assert make(H, 0.1, 10, osd_impl="host").osd is None  # the host OSD packs its own

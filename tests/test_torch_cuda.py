@@ -940,6 +940,114 @@ def test_device_memory_body_matches_plain_forms(dev, shape):
     assert torch.equal(got0, cuda_gf2.gf2_osd0_ref(Ht.to(dev), resid.to(dev), bp.to(dev), n))
 
 
+def cluster_direct(Ht, s, n, *, cluster, bp=None):
+    """The cluster body launched through the library at any shape (the
+    wrappers route only lanes past a block to it): ``(Ht', s', pivcol)``,
+    or OSD-0's correction where ``bp`` is given."""
+    from ldpcdecoders_tpu_torch._build import load_library
+
+    lib = load_library()
+    B, W, m = Ht.shape
+    stream = torch.cuda.current_stream().cuda_stream
+    if bp is None:
+        Ht2, s2 = torch.empty_like(Ht), torch.empty_like(s)
+        piv = torch.empty((B, m), dtype=torch.int32, device=Ht.device)
+        rc = lib.ldpc_gf2_eliminate_cluster(Ht.data_ptr(), s.data_ptr(), Ht2.data_ptr(),
+                                            s2.data_ptr(), piv.data_ptr(), B, W, m, n, cluster,
+                                            stream)
+        out = (Ht2, s2, piv)
+    else:
+        corr = torch.empty((B, n), dtype=torch.int32, device=Ht.device)
+        work = torch.empty_like(Ht)
+        pivw = torch.empty((B, m), dtype=torch.int32, device=Ht.device)
+        rc = lib.ldpc_gf2_osd0_cluster(Ht.data_ptr(), s.data_ptr(), bp.data_ptr(),
+                                       corr.data_ptr(), work.data_ptr(), pivw.data_ptr(), B, W,
+                                       m, n, cluster, stream)
+        out = corr
+    assert rc == 0, lib.ldpc_cuda_error_string(rc).decode()
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("B,m,n,dens", SHAPES + [(3, 70, 50, 0.3), (2, 1500, 64, 0.05)])
+def test_cluster_body_at_small_lanes_and_every_cluster_size(dev, B, m, n, dens):
+    """The cluster body at lanes a block would hold (ragged words, rows past
+    1024, more rows than columns, dependent rows), launched directly with 2,
+    4 and 8 CTAs a cluster: bitwise the plain forms."""
+    rng = np.random.default_rng(m + n)
+    H, Ht = systems(rng, B, m, n, dens)
+    s = torch.as_tensor((rng.random((B, m)) < 0.5).astype(np.int32))
+    resid, bp = osd0_inputs(rng, H, B, m, n)
+    want = gf2.gf2_eliminate(Ht, s, n)[:3]
+    want0 = gf2.gf2_osd0(Ht, resid, bp, n)
+    for cluster in (2, 4, 8):
+        got = cluster_direct(Ht.to(dev), s.to(dev), n, cluster=cluster)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        got0 = cluster_direct(Ht.to(dev), resid.to(dev), n, cluster=cluster, bp=bp.to(dev))
+        assert torch.equal(got0.cpu(), want0)
+
+
+@pytest.mark.parametrize("shape", ["gallager_2400", "bb144_dem"])
+def test_cluster_body_against_the_first_body(dev, shape):
+    """Past a block: every cluster size and the first device-memory body
+    (``_body="v1"``, counted apart) give the same bits; the launcher's
+    cluster plan is one of 2, 4, 8 with the shared memory of
+    ``global_smem_bytes``."""
+    if shape == "gallager_2400":
+        Hs, Ht = permuted_lanes(pt.parity_check_matrix(2400, 6, 3, rng=0), 3, 11)
+    else:
+        Hs, Ht = dem_lanes(2, 12)
+    B, m, n = Hs.shape
+    rng = np.random.default_rng(13)
+    s = torch.as_tensor((rng.random((B, m)) < 0.5).astype(np.int32)).to(dev)
+    resid, bp = osd0_inputs(rng, Hs, B, m, n)
+    Ht, resid, bp = Ht.to(dev), resid.to(dev), bp.to(dev)
+    for osd0 in (False, True):
+        plan = cuda_gf2.cluster_plan(B, m, osd0=osd0)
+        assert plan.size in (2, 4, 8) and plan.active >= 1
+        assert plan.bytes == cuda_gf2.global_smem_bytes(m)
+    want = cuda_gf2.gf2_eliminate_cuda(Ht, s, n)
+    want0 = cuda_gf2.gf2_osd0_cuda(Ht, resid, bp, n)
+    before = dict(cuda_gf2.gf2_eliminate_cuda.routes), dict(cuda_gf2.gf2_osd0_cuda.routes)
+    for kw in (dict(_body="v1"), dict(_cluster=2), dict(_cluster=4), dict(_cluster=8)):
+        for a, b in zip(cuda_gf2.gf2_eliminate_cuda(Ht, s, n, **kw), want):
+            assert torch.equal(a, b), kw
+        assert torch.equal(cuda_gf2.gf2_osd0_cuda(Ht, resid, bp, n, **kw), want0), kw
+    assert cuda_gf2.gf2_eliminate_cuda.routes["global_v1"] == before[0]["global_v1"] + 1
+    assert cuda_gf2.gf2_osd0_cuda.routes["global_v1"] == before[1]["global_v1"] + 1
+    assert cuda_gf2.gf2_eliminate_cuda.routes["global"] == before[0]["global"] + 3
+    with pytest.raises(ValueError, match="body must be"):
+        cuda_gf2.gf2_eliminate_cuda(Ht, s, n, _cluster=3)
+
+
+@pytest.mark.parametrize("inner", ["sumproduct", "minsum"])
+@pytest.mark.parametrize("order,scope", [(0, "all"), (2, "all"), (2, "failed")])
+def test_fused_bposd_on_card_is_the_eager_decode_without_a_host_read(dev, order, scope, inner):
+    """``fused=True`` on the card: no synchronizing call inside the decode
+    (``torch.cuda.set_sync_debug_mode("error")`` raises on one), and every
+    output bitwise the eager decoder's."""
+    H = pt.parity_check_matrix(240, 8, 4, rng=17)
+    rng = np.random.default_rng(17)
+    syn = torch.as_tensor((((rng.random((64, 240)) < 0.06) @ H.T) % 2).astype(np.uint8),
+                          device=dev)
+    kw = dict(osd_order=order, osd_scope=scope, inner=inner, device=dev)
+    fused = pt.BeliefPropagationOSDDecoder(H, 0.06, 20, fused=True, **kw)
+    eager = pt.BeliefPropagationOSDDecoder(H, 0.06, 20, **kw)
+    want = eager.batch_decode_detailed_async(syn)
+    fused.batch_decode_detailed_async(syn)  # builds the kernels before the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fused.batch_decode_detailed_async(syn)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not bool(want[1].all()) and bool(want[1].any())
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[3]["log_probabs"], want[3]["log_probabs"])
+
+
 def test_device_memory_osd0_by_chunks_of_lanes(dev, monkeypatch):
     """K1's device-memory body with a workspace of two lanes: five lanes
     run in three launches (2, 2, 1) at lane offsets 0, 2 and 4, bitwise the

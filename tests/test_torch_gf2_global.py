@@ -2,16 +2,22 @@
 
 A lane whose packed system does not fit one Hopper block of the
 elimination kernels (``cuda_gf2.launch_plan(...).panel == 0``) takes the
-device-memory body of ``csrc/gf2_elim.cu`` (``gf2_global_kernel``), whose
-plain versions are the column-by-column forms ``ops/gf2.py::gf2_osd0`` /
+device-memory body of ``csrc/gf2_elim.cu`` (``gf2_cluster_kernel``; the
+first such body, ``gf2_global_kernel``, stays for comparison), whose plain
+versions are the column-by-column forms ``ops/gf2.py::gf2_osd0`` /
 ``gf2_eliminate``.  Here, on the CPU:
 
   * those plain forms at such a lane (``parity_check_matrix(2000, 10, 5)``,
     1000 x 2000, 252,000 bytes a lane) are bitwise the JAX package's
     ``gf2_osd0`` / ``gf2_eliminate``;
-  * a numpy model of the body's trips (the pivot by the least key, the
-    listed rows, the XOR from the pivot's word on) is bitwise the plain
+  * a numpy model of the first body's trips (the pivot by the least key,
+    the listed rows, the XOR from the pivot's word on) is bitwise the plain
     forms: the words before the pivot's word are zero in the pivot row;
+  * a numpy model of the cluster body (``gf2_cluster_kernel``): panels of
+    32 columns, the trips on bit slices with the listed rows replacing
+    their slice, M by XOR reductions, every row's code in terms of the
+    panel's pivot rows at its start, and the pass over the later words
+    through eight 16-entry XOR tables a word, is bitwise the plain forms;
   * :func:`cuda_gf2.route` picks the body exactly where ``launch_plan``
     finds no panel;
   * BP+OSD-0, OSD-2 and OSD-CS at that size construct and decode equal to
@@ -141,6 +147,159 @@ def test_global_body_model_matches_plain_forms(H_big, osd0):
                 Hm, sm, pm = global_body_model(Hs[b], s[b], n)
                 packed = np.asarray(ref_gf2.pack_bits(jnp.asarray(Hm.astype(np.uint32))))
                 assert np.array_equal(packed.T, Ht2[b].numpy().view(np.uint32))
+                assert np.array_equal(sm, s2[b].numpy())
+                assert np.array_equal(pm, piv[b].numpy())
+
+
+U32 = np.uint32
+
+
+def to_slices(word, chunks):
+    """``[m]`` words -> ``[32, chunks]`` bit slices: bit l of slice t, chunk
+    c is bit t of row 32 c + l (the cluster body's layout)."""
+    bits = np.zeros((chunks * 32, 32), np.uint64)
+    bits[: word.shape[0]] = (word[:, None].astype(np.uint64) >> np.arange(32, dtype=np.uint64)) & 1
+    return (bits.reshape(chunks, 32, 32) << np.arange(32, dtype=np.uint64)[None, :, None]).sum(
+        1).T.astype(U32)
+
+
+def from_slices(X, m):
+    """The transpose of :func:`to_slices`: ``[32, chunks]`` -> ``[m]`` words."""
+    bits = (X[:, :, None].astype(np.uint64) >> np.arange(32, dtype=np.uint64)) & 1
+    words = (bits << np.arange(32, dtype=np.uint64)[:, None, None]).sum(0)
+    return words.reshape(-1)[:m].astype(U32)
+
+
+def cluster_body_model(Ht, s, n, bp=None):
+    """One lane ``[W, m]`` as ``gf2_cluster_kernel`` computes it, step for
+    step: per panel q (word q), the leader's trips on the slices X of word
+    q (column t brought up to date from the listed rows of the earlier
+    trips whose pivot had bit t; the first free row with the bit; the
+    listed rows take the syndrome bit and replace slice t; M[t] = e_t ^ XOR
+    of M[u] over the earlier trips u listing the pivot row), every row's code
+    XOR of M[t] over the trips listing it, K2's word q (the pivot's bit
+    alone in a column with a pivot, else the slice), and the pass ``row ^=
+    XOR of the starts of the pivot rows in its code`` over the words past q
+    through eight 16-entry tables a word.  Returns ``(Ht, s, pivcol)`` or,
+    for OSD-0, the correction."""
+    osd0 = bp is not None
+    W, m = Ht.shape
+    Ht = Ht.astype(U32).copy()
+    chunks = (m + 31) // 32
+    F = to_slices(np.ones(m, U32), chunks)[0].copy()  # free rows
+    Y = to_slices(np.asarray(s, U32) & 1, chunks)[0].copy()  # syndrome bits
+    piv = np.full(m, n, np.int64)
+    rank = 0
+    for q in range(W):
+        X = to_slices(Ht[q], chunks)
+        M = np.zeros(32, U32)
+        bmask = [[] for _ in range(32)]  # column u: the trips whose pivot had bit u
+        keys = [None] * 32
+        found, done, t_end = 0, False, 32
+        for t in range(32):
+            j = 32 * q + t
+            if j >= n or (not osd0 and rank >= m):
+                t_end = t
+                break
+            if osd0 and not (F & Y).any():
+                done, t_end = True, t
+                break
+            for u in bmask[t]:  # column t brought up to date
+                X[t] ^= X[u]
+            hit = X[t] & F
+            nz = np.flatnonzero(hit)
+            if nz.size == 0:
+                continue
+            kc = int(nz[0])
+            kl = (int(hit[kc]) & -int(hit[kc])).bit_length() - 1
+            col = X[:, kc].copy()  # the pivot's chunk, later columns up to date
+            for u in range(t + 1, 32):
+                for w in bmask[u]:
+                    col[u] ^= X[w, kc]
+            v = (col >> U32(kl)) & 1
+            mt = 1 << t
+            for u in range(t):
+                if (found >> u) & 1 and v[u]:
+                    mt ^= int(M[u])
+            M[t] = mt
+            for u in range(t + 1, 32):
+                if v[u]:
+                    bmask[u].append(t)
+            own = np.zeros(chunks, U32)
+            own[kc] = U32(1 << kl)
+            r = X[t] & ~own
+            X[t] = r
+            if (int(Y[kc]) >> kl) & 1:
+                Y ^= r
+            if osd0 and bp[j]:
+                Y[kc] ^= U32(1 << kl)
+            F[kc] &= ~U32(1 << kl)
+            piv[32 * kc + kl] = j
+            keys[t] = 32 * kc + kl
+            rank += 1
+            found |= 1 << t
+        for u in range(t_end, 32):  # the columns past the last trip made
+            for w in bmask[u]:
+                X[u] ^= X[w]
+        made = np.array([(found >> t) & 1 for t in range(32)], bool)
+        code = from_slices(np.where(made[:, None], X, U32(0)).astype(U32), m)
+        codes = np.zeros(m, U32)
+        for t in range(32):
+            codes ^= np.where((code >> U32(t)) & 1 == 1, M[t], U32(0)).astype(U32)
+        if not osd0:
+            word = X.copy()
+            for t in np.flatnonzero(made):
+                word[t] = 0
+                word[t, keys[t] // 32] = U32(1 << (keys[t] % 32))
+            Ht[q] = from_slices(word, m)
+        if found:
+            starts = np.zeros((32, W), U32)
+            for v_ in np.flatnonzero(made):
+                starts[v_] = Ht[:, keys[v_]]
+            upd = np.zeros((W, m), U32)
+            for g in range(8):
+                table = np.zeros((16, W), U32)  # table[e]: XOR of starts 4g + b, b in e
+                for e in range(16):
+                    for b in range(4):
+                        if (e >> b) & 1:
+                            table[e] ^= starts[4 * g + b]
+                upd ^= table[(codes >> U32(4 * g)) & 15].T
+            upd[: q + 1] = 0  # the panel's and earlier words: zero in the pivot rows
+            Ht ^= upd
+        if done or 32 * (q + 1) >= n or (not osd0 and rank >= m):
+            break
+    sbits = np.array([(int(Y[i >> 5]) >> (i & 31)) & 1 for i in range(m)], np.int64)
+    if not osd0:
+        return Ht, sbits, piv
+    corr = np.asarray(bp).astype(np.int64).copy()
+    corr[piv[piv < n]] = sbits[piv < n]
+    return corr
+
+
+@pytest.mark.parametrize("osd0", [False, True])
+def test_cluster_body_model_matches_plain_forms(H_big, osd0):
+    """The cluster body's panels (slices, codes through M, nibble tables)
+    give the plain forms' bits: at a small lane, at lanes with more rows
+    than columns and with dependent columns, and at the lane past a block."""
+    rng = np.random.default_rng(8)
+    for H, B, seed in ((lt.parity_check_matrix(120, 6, 3, rng=5), 2, 4),
+                       ((rng.random((70, 50)) < 0.3).astype(np.int64), 2, 3),
+                       ((rng.random((40, 100)) < 0.2).astype(np.int64), 2, 2), (H_big, 1, 6)):
+        m, n = H.shape
+        Hs, Ht = systems(H, B, seed)
+        Ht = np.asarray(Ht)
+        rng_s = np.random.default_rng(seed)
+        s = (rng_s.random((B, m)) < 0.5).astype(np.uint32)
+        bp = (rng_s.random((B, n)) < 0.05).astype(np.uint32)
+        if osd0:
+            want = port_gf2.gf2_osd0(i32(Ht), i32(s), i32(bp), n).numpy()
+            for b in range(B):
+                assert np.array_equal(cluster_body_model(Ht[b], s[b], n, bp[b]), want[b])
+        else:
+            Ht2, s2, piv, _ = port_gf2.gf2_eliminate(i32(Ht), i32(s), n)
+            for b in range(B):
+                Hm, sm, pm = cluster_body_model(Ht[b], s[b], n)
+                assert np.array_equal(Hm, Ht2[b].numpy().view(np.uint32))
                 assert np.array_equal(sm, s2[b].numpy())
                 assert np.array_equal(pm, piv[b].numpy())
 
