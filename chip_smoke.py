@@ -103,6 +103,32 @@ public decoder API on ``cuda:0`` and prints, in order:
      (torch's sync debug mode), times, launches; (ag) BP+OSD-0 and (ah)
      BP+OSD-CS on the (2400, 6, 3) code through ``batch_decode`` (the
      device-memory body), syndrome-consistent, (ah) 8 lanes card = CPU;
+     then (PR 12) the command line and ``parallel/``: (ai) ``cli.main`` in
+     this process, each JSON line printed: ``bench`` on (1000, 10, 9) at
+     B=1024 with BP+OSD-0 at per 0.2 (K1) and min-sum at per 0.01 (K3/K4),
+     ``bench --code qc:24,6,3,128 --decoder qc_minsum --schedule layered``
+     (K5), and a 2048-trial ``sweep`` at per 0.01 with ``--checkpoint`` and
+     ``--profile``, whose trace must name the command's annotated region;
+     (aj) on a one-rank NCCL group that ``make_mesh`` sets up itself,
+     ``sharded_batch_decode`` and ``decode_with_stats`` with BP+OSD-0 at per
+     0.2 (K1) and ``sharded_mixed_decode`` at (ad)'s configuration (erasure
+     0.38, 256 lanes: K1's device-memory body), each bitwise the unsharded
+     decoder; (ak) the check-sharded min-sum (K3's check-layout iteration,
+     K4) and sum-product (plain torch) at per 0.01, B=1024, 100 iterations
+     (model axis 1): min-sum's flags and converged estimates equal to
+     ``MinSumDecoder``'s, sum-product's converged lanes consistent and at
+     least 90% converged; (al) ``make_qc_sharded_decode_fn`` at (j)'s
+     decoder, one K5 launch, bitwise ``batch_decode_detailed``; (am)
+     ``sharded_staged_decode`` on 2048 records of (p)'s fast tier, bitwise
+     ``batch_decode``, and ``staged_local_eval`` over (p)'s 4096 shots with
+     ``run_eval``'s counts on the seed it folds; (an) two ranks on this card
+     under gloo (NCCL refuses two ranks on one device), started as child
+     processes of this script from a ``FileStore``: ``FERSweep`` (multi-
+     process, BP+OSD-0 at per 0.01 and 0.2, 2048 trials a point, the same
+     global counts on both ranks, a ``max_seconds`` stop agreed by both) and
+     the check-sharded min-sum on a ``(data 1, model 2)`` mesh over 256 of
+     (ak)'s lanes, its flags equal to (ak)'s; a child that fails or outlives
+     its deadline fails the run;
   5. steady-state rates;
   6. a JSON line with each kernel's numbers, the card line again, and last
      ``{"ok": true, "device": {...}}``.
@@ -121,7 +147,9 @@ line.  It needs a CUDA device and the package beside it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import io
 import json
 import warnings
 import subprocess
@@ -155,6 +183,12 @@ Z_SHOTS = 512  # (z) of demwindow_bb144_r5.jsonl's 2048 (cut for the time limit)
 AB_STEPS, AB_TRIALS = 400, 4096  # (ab) neural_toric_r2.json's training steps, trials a point
 AC_TRIALS = 2048  # (ac) erasure_threshold_r2.json's trials a point
 AD_TRIALS = 2048  # (ad) mixed_channel_r2.json's trials a point
+# the command line and parallel/, paths (ai)-(an)
+AI_TRIALS = 2048  # (ai) the sweep's trials
+AJ_MIXED_LANES = 256  # (aj) lanes of the sharded mixed decode
+AM_RECORDS = 2048  # (am) records of the sharded staged decode
+AN_PERS, AN_TRIALS, AN_LANES = (0.01, 0.2), 2048, 256  # (an) the two-rank sweep and check shards
+AN_COLLECTIVE_S, AN_DEADLINE_S = 240, 300  # (an) a rank's collective timeout; both ranks' deadline
 RESULTS = ROOT / "benchmarks/results"
 FAMILY_MINSUM = ["minsum_check", "minsum_var"]
 # published peaks of one H100 SXM: device memory rate, and the float32 rate
@@ -816,6 +850,378 @@ def past_a_block_paths(torch, pt, drive, dev, card):
               + ("" if same is None else f"; 8 lanes card = CPU bitwise {same}") + f" | {card}")
         if same is False:
             raise AssertionError(f"({path}): the card differs from the CPU")
+
+
+def cli_json(cli, argv):
+    """``cli.main(argv)`` in this process; its JSON output, printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"ldpcdecoders_tpu_torch {' '.join(argv)} returned {rc}")
+    return json.loads(buf.getvalue())
+
+
+def path_ai(torch, pt, drive, dev, card):
+    """(ai) the command line in this process (``cli.main``): ``bench`` with
+    BP+OSD-0 at per 0.2 (K1), min-sum at per 0.01 (K3/K4) and the QC decoder
+    layered at per 0.04 (K5), and a ``sweep`` with ``--checkpoint`` and
+    ``--profile`` whose trace must name the command's annotated region."""
+    import os
+    import tempfile
+
+    from ldpcdecoders_tpu_torch import cli
+
+    on = ["--batch", str(B), "--device", str(dev)]
+    gal = ["--code", "gallager:1000,10,9"] + on
+    for tag, argv, expect in (
+            ("ai bposd", ["bench", *gal, "--decoder", "bposd", "--per", "0.2"], ["gf2_osd0"]),
+            ("ai minsum", ["bench", *gal, "--decoder", "minsum", "--per", "0.01"],
+             FAMILY_MINSUM),
+            ("ai qc", ["bench", "--code", "qc:24,6,3,128", *on, "--decoder", "qc_minsum",
+                       "--schedule", "layered", "--per", "0.04"], ["qc_minsum"])):
+        out = drive(tag, expect, lambda argv=argv: cli_json(cli, argv))
+        print(f"main ({tag}) python -m ldpcdecoders_tpu_torch {' '.join(argv)}: "
+              f"{json.dumps(out)} | {card}")
+        if not out["syndromes_per_s"] > 0 or out["reps"] != 5:
+            raise AssertionError(f"({tag}): {out}")
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, prof = os.path.join(tmp, "ck.json"), os.path.join(tmp, "prof")
+        argv = ["sweep", *gal, "--pers", "0.01", "--trials", str(AI_TRIALS), "--checkpoint", ck,
+                "--profile", prof]
+        t0 = time.perf_counter()
+        out = drive("ai sweep", [], lambda: cli_json(cli, argv))
+        wall = time.perf_counter() - t0
+        traces = os.listdir(prof)
+        text = "".join(Path(prof, t).read_text() for t in traces)
+        saved = json.loads(Path(ck).read_text())["points"][0]["trials"]
+        pt_ = out["0.01"]
+        print(f"main (ai sweep) python -m ldpcdecoders_tpu_torch {' '.join(argv)}: {pt_['trials']} "
+              f"trials, LER {pt_['ler']:.4e} {pt_['ler_ci95']}, syndrome match "
+              f"{pt_['syndrome_match_rate']}, {pt_['throughput_syndromes_per_s']:.1f} syndromes/s "
+              f"under the profiler, {wall:.2f} s; checkpoint {saved} trials; trace files {traces} "
+              f"({len(text)} B) | {card}")
+        if (pt_["trials"] != AI_TRIALS or saved != AI_TRIALS or pt_["syndrome_match_rate"] != 1.0
+                or "ldpcdecoders_tpu_torch.sweep" not in text):
+            raise AssertionError("(ai sweep): counts, checkpoint or trace wrong")
+
+
+def path_aj(torch, pt, drive, dev, card, graph, syn20):
+    """(aj) the batch-sharded decodes on a one-rank NCCL group that
+    ``make_mesh()`` sets up itself: BP+OSD-0 on (1000, 10, 9) at per 0.2
+    through ``sharded_batch_decode`` and ``decode_with_stats`` (K1), and
+    ``sharded_mixed_decode`` at path (ad)'s configuration (erasure 0.38,
+    where BP fails and OSD-0 takes K1's device-memory body); each bitwise the
+    unsharded decoder on the card.  Returns the mesh."""
+    import torch.distributed as dist
+
+    from ldpcdecoders_tpu_torch import parallel as par
+    from ldpcdecoders_tpu_torch.utils.noise import sample_mixed_channel
+
+    mesh = par.make_mesh(device=dev)
+    if mesh.device_type != dev.type or dist.get_backend() != {"cuda": "nccl"}.get(dev.type, "gloo"):
+        raise AssertionError(f"(aj): mesh {mesh} on {dist.get_backend()}")
+    dec = pt.BeliefPropagationOSDDecoder(graph, 0.2, MAX_ITERS, device=dev)
+    want = dec.batch_decode(syn20)
+    for tag, fn in (("aj batch", lambda: par.sharded_batch_decode(dec, syn20, mesh)),
+                    ("aj stats", lambda: par.decode_with_stats(dec, syn20, mesh))):
+        t0 = time.perf_counter()
+        got = drive(tag, ["gf2_osd0"], fn)
+        wall = time.perf_counter() - t0
+        same = all(np.array_equal(g, w) for g, w in zip(got[:2], want))
+        print(f"main ({tag}) {mesh}, BP+OSD-0 per 0.2: bitwise the unsharded decode {same}, "
+              f"{wall * 1e3:.1f} ms ({B / wall:.1f} syndromes/s)"
+              + (f", stats {got[2]}" if len(got) == 3 else "") + f" | B={B} | {card}")
+        if not same or (len(got) == 3 and got[2]["converged_fraction"] != want[1].mean()):
+            raise AssertionError(f"({tag}): differs from the unsharded decode")
+    H24 = pt.parity_check_matrix(2400, 6, 3, rng=0)
+    mdec = pt.MixedChannelDecoder(H24, 0.002, 60, osd_order=0, device=dev)
+    eps, e = sample_mixed_channel(np.random.default_rng(38), AJ_MIXED_LANES, 2400, 0.002, 0.38)
+    syn = ((e.astype(np.float32) @ H24.T.astype(np.float32)) % 2).astype(np.uint8)
+    want = mdec.batch_decode(syn, eps)
+    t0 = time.perf_counter()
+    got = drive("aj mixed", ["gf2_osd0_global"] + FAMILY_MINSUM,
+                lambda: par.sharded_mixed_decode(mdec, syn, eps, mesh))
+    wall = time.perf_counter() - t0
+    same = all(np.array_equal(g, w) for g, w in zip(got, want))
+    print(f"main (aj mixed) sharded_mixed_decode (2400, 6, 3), p_flip 0.002, erasure 0.38: ok "
+          f"{got[1].mean():.4f}, bitwise the unsharded decode {same}, {wall * 1e3:.1f} ms "
+          f"({AJ_MIXED_LANES / wall:.1f} decodes/s), K1's launches by body {drive.last_routes} | "
+          f"B={AJ_MIXED_LANES} | {card}")
+    if not same:
+        raise AssertionError("(aj mixed): differs from the unsharded decode")
+    return mesh
+
+
+def path_ak(torch, pt, drive, dev, card, H, graph, syn01):
+    """(ak) the check-sharded decodes on the one-rank group (model axis 1)
+    on (1000, 10, 9) at per 0.01, B=1024, 100 iterations: min-sum through
+    K3's check-layout iteration and K4, its flags equal to ``MinSumDecoder``'s
+    and its estimates on converged lanes; sum-product (plain torch): every
+    converged lane reproduces its syndrome, at least 90% converge.  Returns
+    min-sum's outputs."""
+    from ldpcdecoders_tpu_torch import parallel as par
+
+    mesh = par.make_mesh(axis_names=("data", "model"), device=dev)
+    e0, c0, i0, _, _ = pt.MinSumDecoder(H, 0.01, MAX_ITERS, device=dev).batch_decode_detailed(
+        syn01)
+    out = {}
+    for form, expect in (("minsum", FAMILY_MINSUM), ("sumproduct", [])):
+        make = getattr(par, f"make_check_sharded_{form}_fn")
+        fn = make(graph, 0.01, MAX_ITERS, mesh)
+        fn(syn01[:64])  # warm-up
+        t0 = time.perf_counter()
+        e, c, i = drive(f"ak {form}", expect, lambda fn=fn: fn(syn01))
+        wall = time.perf_counter() - t0
+        assert_consistent(H, e[c], syn01[c], f"(ak) {form} converged lanes")
+        same = np.array_equal(c, c0) and np.array_equal(e[c], e0[c0])
+        held = (f"flags and converged estimates equal to MinSumDecoder's {same} (iterations "
+                f"equal {np.array_equal(i, i0)})" if form == "minsum" else
+                "converged lanes syndrome-consistent")
+        print(f"main (ak {form}) make_check_sharded_{form}_fn {mesh}, per 0.01: converged "
+              f"{c.mean():.4f}, mean iterations {i.mean():.2f}, {held}, "
+              f"{wall * 1e3:.1f} ms ({B / wall:.1f} syndromes/s, "
+              f"{B * int(i.max()) * graph.n_edges / wall:.4e} edge-iterations/s) | B={B} | {card}")
+        if (form == "minsum" and not same) or c.mean() < 0.9:
+            raise AssertionError(f"(ak {form}): flags differ or too few lanes converge")
+        out[form] = (e, c, i)
+    return out["minsum"]
+
+
+def path_al(torch, pt, drive, dev, card, qdec, qsyn, mesh, path_launches):
+    """(al) ``make_qc_sharded_decode_fn`` at path (j)'s decoder, B=1024: one
+    K5 launch a call, bitwise ``batch_decode_detailed``."""
+    from ldpcdecoders_tpu_torch import parallel as par
+
+    fn = par.make_qc_sharded_decode_fn(qdec, mesh)
+    want = qdec.batch_decode_detailed(qsyn)
+    fn(qsyn)
+    t0 = time.perf_counter()
+    got = drive("al", ["qc_minsum"], lambda: fn(qsyn))
+    wall = time.perf_counter() - t0
+    same = all(np.array_equal(g, w) for g, w in zip(got, (*want[:3], want[3]["llrs"])))
+    print(f"main (al) make_qc_sharded_decode_fn, (j)'s decoder: bitwise batch_decode_detailed "
+          f"{same} (err, converged, iters, llrs), {path_launches['al']['qc_minsum']} K5 launch, "
+          f"{wall * 1e3:.3f} ms from and to numpy ({B / wall:.1f} syndromes/s) | B={B} | {card}")
+    if not same or path_launches["al"]["qc_minsum"] != 1:
+        raise AssertionError("(al): differs from the unsharded decode or not one launch")
+
+
+def path_am(torch, pt, drive, dev, card, fast, dem_det, mesh):
+    """(am) ``sharded_staged_decode`` on 2048 records of path (p)'s fast
+    tier, bitwise ``StagedDemDecoder.batch_decode``; ``staged_local_eval``
+    at world size 1 over (p)'s shots, its counts equal to ``run_eval``'s on
+    the seed it folds (``seed * 1000003 + rank``, seed 0)."""
+    from ldpcdecoders_tpu_torch import parallel as par
+
+    det = dem_det[:AM_RECORDS].to(torch.uint8).cpu().numpy()
+    want = fast.batch_decode(det)
+    t0 = time.perf_counter()
+    got = drive("am decode", FAMILY_MINSUM, lambda: par.sharded_staged_decode(fast, det, mesh))
+    wall = time.perf_counter() - t0
+    same = all(np.array_equal(g, w) for g, w in zip(got, want))
+    print(f"main (am decode) sharded_staged_decode, (p)'s fast tier: solved {got[1].mean():.4f}, "
+          f"bitwise batch_decode {same}, {wall:.3f} s ({AM_RECORDS / wall:.1f} records/s) | "
+          f"B={AM_RECORDS} | {card}")
+    ev = fast.run_eval(P_SHOTS, seed=0, batch=BDEM)
+    t0 = time.perf_counter()
+    loc = drive("am eval", FAMILY_MINSUM,
+                lambda: par.staged_local_eval(fast, P_SHOTS, mesh, seed=0, batch=BDEM))
+    wall = time.perf_counter() - t0
+    keys = ("shots", "fails", "deep_shots", "osd_shots")
+    got_c = tuple(loc[k] for k in keys)
+    want_c = (ev["shots"], ev["fails"], ev["profile"]["deep_shots"], ev["profile"]["osd_shots"])
+    print(f"main (am eval) staged_local_eval, (p)'s fast tier, world 1: {dict(zip(keys, got_c))} "
+          f"(run_eval {dict(zip(keys, want_c))}), LER {loc['logical_rate']:.4e} "
+          f"{loc['logical_ci95']}, processes {loc['processes']}, {wall:.3f} s "
+          f"({loc['shots'] / wall:.1f} shots/s) | {card}")
+    if not same or got_c != want_c or loc["processes"] != 1:
+        raise AssertionError("(am): differs from the single-device staged decoder")
+
+
+def an_child(rank: int, tmp: str) -> int:
+    """One of (an)'s two ranks on ``cuda:0`` under gloo (NCCL refuses two
+    ranks on one card), meeting at a ``FileStore`` in ``tmp``: the
+    multi-process ``FERSweep`` (BP+OSD-0 on (1000, 10, 9) at per 0.01 and
+    0.2, then a stop vote with rank 1's time budget spent at once) and the
+    check-sharded min-sum on a ``(data 1, model 2)`` mesh over (ak)'s first
+    lanes.  Its configuration is the parent's, in ``tmp/config.json``;
+    it writes its outputs and launch counts into ``tmp``."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import ldpcdecoders_tpu_torch as pt
+    from ldpcdecoders_tpu_torch import parallel as par
+    from ldpcdecoders_tpu_torch.harness import FERSweep
+
+    cfg = json.loads(Path(tmp, "config.json").read_text())
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=AN_COLLECTIVE_S))
+    dev = torch.device(cfg["device"])
+    batch, pers, trials, iters = cfg["batch"], cfg["pers"], cfg["trials"], cfg["max_iters"]
+    H = pt.parity_check_matrix(1000, 10, 9, rng=42)
+    wrappers, routed = launch_wrappers()
+    out = {"rank": rank}
+
+    def factory(per):
+        return pt.BeliefPropagationOSDDecoder(H, per, iters, device=dev)
+
+    zero_counts(wrappers, routed)
+    t0 = time.perf_counter()
+    sweep = FERSweep(H, factory, pers, batch=batch, seed=0)
+    res = sweep.run(trials_per_point=trials)
+    out["sweep_s"] = time.perf_counter() - t0
+    out["multihost"] = sweep.multihost
+    out["sweep"] = {str(p): {k: v for k, v in r.items() if k != "throughput_syndromes_per_s"}
+                    for p, r in res.items()}
+    out["sweep_launches"] = read_counts(wrappers, routed, "an")
+    stop = FERSweep(H, factory, pers, batch=batch, seed=0).run(
+        trials_per_point=trials, max_seconds=1e9 if rank == 0 else 0.0)
+    out["stopped_trials"] = [r["trials"] for r in stop.values()]
+    mesh = par.make_mesh(axis_names=("data", "model"), shape=(1, 2), device=dev)
+    fn = par.make_check_sharded_minsum_fn(pt.TannerGraph.from_pcm(H), 0.01, iters, mesh)
+    syn = np.load(os.path.join(tmp, "syn.npy"))
+    zero_counts(wrappers, routed)
+    t0 = time.perf_counter()
+    e, c, i = fn(syn)
+    out["check_s"] = time.perf_counter() - t0
+    out["check_launches"] = read_counts(wrappers, routed, "an")
+    np.savez(os.path.join(tmp, f"out{rank}.npz"), err=e, conv=c, iters=i)
+    Path(tmp, f"out{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
+def path_an(torch, card, syn01, ak, path_launches):
+    """(an) two ranks on the one card (``an_child``), started here and
+    waited for with a deadline: both must report the same global counts and
+    stop together, and the check-sharded flags on ``(data 1, model 2)``
+    must equal (ak)'s on those lanes.  A child that fails or outlives the
+    deadline fails the run (both are stopped)."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "syn.npy"), syn01[:AN_LANES])
+        Path(tmp, "config.json").write_text(json.dumps(
+            {"device": DEVICE, "batch": B, "pers": AN_PERS, "trials": AN_TRIALS,
+             "max_iters": MAX_ITERS}))
+        logs = [open(os.path.join(tmp, f"log{r}.txt"), "w") for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--an-rank",
+                                   str(r), tmp], stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(2)]
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break
+                if time.perf_counter() - t0 > AN_DEADLINE_S:
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for f in logs:
+                f.close()
+        wall = time.perf_counter() - t0
+        if any(p.returncode != 0 for p in procs):
+            for r in range(2):
+                print(f"(an) rank {r} exit {procs[r].returncode}:\n"
+                      + Path(tmp, f"log{r}.txt").read_text()[-4000:], file=sys.stderr)
+            raise AssertionError("(an): a rank failed or outlived its deadline")
+        outs = [json.loads(Path(tmp, f"out{r}.json").read_text()) for r in range(2)]
+        flags = [dict(np.load(os.path.join(tmp, f"out{r}.npz"))) for r in range(2)]
+    counts = {k: sum(o[part][k] for o in outs for part in ("sweep_launches", "check_launches"))
+              for k in outs[0]["sweep_launches"]}
+    path_launches["an"] = counts
+    print(f"main (an) launches (both ranks): {counts}")
+    # two shards sum a variable's messages in another order than one: the
+    # flags and the converged estimates agree, an iteration count may not
+    e, c, i = (a[:AN_LANES] for a in ak)
+    same_flags = all(np.array_equal(f["conv"], c) and np.array_equal(f["err"][c], e[c])
+                     for f in flags)
+    same_iters = all(np.array_equal(f["iters"], i) for f in flags)
+    for o in outs:
+        for p, r in o["sweep"].items():
+            print(f"main (an) rank {o['rank']} FERSweep(multihost={o['multihost']}) BP+OSD-0 per "
+                  f"{p}: {r['trials']} trials, LER {r['ler']:.4e} {r['ler_ci95']}, syndrome match "
+                  f"{r['syndrome_match_rate']}, converged {r['converged_fraction']:.4f}")
+        print(f"main (an) rank {o['rank']}: sweep {o['sweep_s']:.2f} s "
+              f"({len(AN_PERS) * AN_TRIALS / o['sweep_s']:.1f} syndromes/s over both ranks), "
+              f"stopped sweep's trials {o['stopped_trials']}, check-sharded min-sum (data 1, "
+              f"model 2) on {AN_LANES} lanes {o['check_s'] * 1e3:.1f} ms | {card}")
+    print(f"main (an) two ranks on one card under gloo: {wall:.1f} s with the children's start; "
+          f"counts equal on both ranks {outs[0]['sweep'] == outs[1]['sweep']}, check-sharded "
+          f"flags and converged estimates equal to (ak)'s {same_flags} (iteration counts "
+          f"{same_iters})")
+    if outs[0]["sweep"] != outs[1]["sweep"] or not all(o["multihost"] for o in outs):
+        raise AssertionError("(an): the ranks' global counts differ")
+    if any(r["trials"] != AN_TRIALS or r["syndrome_match_rate"] != 1.0
+           for r in outs[0]["sweep"].values()):
+        raise AssertionError("(an): a point's trials or syndromes are wrong")
+    if outs[0]["stopped_trials"] != outs[1]["stopped_trials"] or any(outs[0]["stopped_trials"]):
+        raise AssertionError("(an): the max_seconds stop was not agreed")
+    if not same_flags:
+        raise AssertionError("(an): the check-sharded flags differ from (ak)'s")
+    for k in ("gf2_osd0", "minsum_check", "minsum_var"):
+        if counts[k] == 0:
+            raise AssertionError(f"main (an) never launched {k}")
+
+
+def parallel_paths(torch, pt, drive, dev, card, H, graph, syn01, syn20, qdec, qsyn, fast,
+                   dem_det, path_launches):
+    """Paths (ai)-(an): the command line, and parallel/ on one card."""
+    import torch.distributed as dist
+
+    path_ai(torch, pt, drive, dev, card)
+    mesh = path_aj(torch, pt, drive, dev, card, graph, syn20)
+    ak = path_ak(torch, pt, drive, dev, card, H, graph, syn01)
+    path_al(torch, pt, drive, dev, card, qdec, qsyn, mesh, path_launches)
+    path_am(torch, pt, drive, dev, card, fast, dem_det, mesh)
+    dist.destroy_process_group()
+    path_an(torch, card, syn01, ak, path_launches)
+
+
+def launch_wrappers():
+    """``(wrappers, routed)``: each kernel's wrappers (K3 and K4 have two
+    forms each), and K1/K2's, which count their launches by body: the
+    shared-memory kernels under their own names, the device-memory body
+    (lanes past a block) apart."""
+    from ldpcdecoders_tpu_torch.ops import cuda_gf2, cuda_minsum, cuda_qc
+
+    wrappers = {"gf2_osd0": [cuda_gf2.gf2_osd0_cuda],
+                "gf2_eliminate": [cuda_gf2.gf2_eliminate_cuda],
+                "minsum_check": [cuda_minsum.minsum_check_cuda,
+                                 cuda_minsum.minsum_check_iter_cuda],
+                "minsum_var": [cuda_minsum.minsum_var_cuda, cuda_minsum.minsum_var_iter_cuda],
+                "qc_minsum": [cuda_qc.qc_minsum_cuda]}
+    routed = {"gf2_osd0": cuda_gf2.gf2_osd0_cuda, "gf2_eliminate": cuda_gf2.gf2_eliminate_cuda}
+    return wrappers, routed
+
+
+def zero_counts(wrappers, routed):
+    for ws in wrappers.values():
+        for w in ws:
+            w.launches = 0
+    for w in routed.values():
+        w.routes.update({"shared": 0, "global": 0, "global_v1": 0})
+
+
+def read_counts(wrappers, routed, path):
+    """Each kernel's launches since :func:`zero_counts`; K1/K2 by body."""
+    counts = {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
+    for k, w in routed.items():
+        counts[k] = w.routes["shared"]
+        counts[f"{k}_global"] = w.routes["global"]
+        if w.routes["global_v1"]:
+            raise AssertionError(f"main ({path}) took the first device-memory body")
+    return counts
 
 
 def harness_paths(torch, pt, drive, dev, card, H):
@@ -1540,35 +1946,15 @@ def main() -> int:
         kernels[key]["variants"]["B=128"] = {"ms": ms128}
         kernels[key]["variants"]["by_panel_ms"] = by_panel
 
-    # each kernel's wrappers (K3 and K4 have two forms each)
-    wrappers = {"gf2_osd0": [cuda_gf2.gf2_osd0_cuda],
-                "gf2_eliminate": [cuda_gf2.gf2_eliminate_cuda],
-                "minsum_check": [cuda_minsum.minsum_check_cuda,
-                                 cuda_minsum.minsum_check_iter_cuda],
-                "minsum_var": [cuda_minsum.minsum_var_cuda, cuda_minsum.minsum_var_iter_cuda],
-                "qc_minsum": [cuda_qc.qc_minsum_cuda]}
-
+    wrappers, routed = launch_wrappers()
     path_launches = {}
-
-    # K1/K2 count their launches by body: the shared-memory kernels under
-    # their own names, the device-memory body (lanes past a block) apart
-    routed = {"gf2_osd0": cuda_gf2.gf2_osd0_cuda, "gf2_eliminate": cuda_gf2.gf2_eliminate_cuda}
 
     def drive(path, expect, fn):
         """Run one main path with every count set to 0 just before it and
         read just after it; a kernel of ``expect`` never launched fails."""
-        for ws in wrappers.values():
-            for w in ws:
-                w.launches = 0
-        for w in routed.values():
-            w.routes.update({"shared": 0, "global": 0, "global_v1": 0})
+        zero_counts(wrappers, routed)
         out = fn()
-        counts = {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
-        for k, w in routed.items():
-            counts[k] = w.routes["shared"]
-            counts[f"{k}_global"] = w.routes["global"]
-            if w.routes["global_v1"]:
-                raise AssertionError(f"main ({path}) took the first device-memory body")
+        counts = read_counts(wrappers, routed, path)
         drive.last_routes = {k: dict(w.routes) for k, w in routed.items()}
         for k in expect:
             if counts[k] == 0:
@@ -1897,6 +2283,8 @@ def main() -> int:
     family_paths(torch, pt, drive, dev, card, H, (base_qc, Hq, qsyn))
     fused_paths(torch, pt, drive, dev, card, H, graph, syn01, syn20)
     past_a_block_paths(torch, pt, drive, dev, card)
+    parallel_paths(torch, pt, drive, dev, card, H, graph, syn01, syn20, qdec, qsyn, fast, dem_det,
+                   path_launches)
 
     # in the summary, ``launches`` is the count of the first path that must
     # launch the kernel; ``launches_by_path`` has every path's own count
@@ -1998,4 +2386,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--an-rank"]:
+        sys.exit(an_child(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -11,9 +11,12 @@ evaluations: the degeneracy-aware logical error rate of a CSS code pair
 bit-flip channel over erasure rates (:func:`mixed_fer_sweep`).
 
 Every batch of a point draws from its own counted streams, derived from
-``(seed, point, step)``.  Host sampling uses the reference's numpy streams,
-so a host-sampled sweep gives the JAX package's counts wherever the decoder
-is bitwise, and a checkpoint written by either package resumes in the other.
+``(seed, point, step, rank)``: the rank is 0 in one process, and under a
+``torch.distributed`` group of several :class:`FERSweep` splits each batch
+over the processes and sums their counts (parallel/multihost.py).  Host
+sampling uses the reference's numpy streams, so a host-sampled sweep gives
+the JAX package's counts wherever the decoder is bitwise, and a checkpoint
+written by either package resumes in the other.
 Device sampling draws from a ``torch.Generator`` seeded by the same
 derivation: statistically equivalent to the reference's ``jax.random``
 draws, not bitwise.
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from .models.base import Decoder
+from .parallel.multihost import allreduce_counts, broadcast_from_host0, world
 from .utils.io import atomic_write_json, read_json
 from .utils.metrics import wilson_interval
 from .utils.noise import (sample_errors, sample_errors_device, sample_mixed_channel,
@@ -54,10 +58,6 @@ _DEVICE_SWEEP_MAX_DENSE = 50_000_000
 SAMPLER_KEY = "sampler"
 HOST_SAMPLER = "numpy.random.default_rng"
 DEVICE_SAMPLER = "torch.Generator"
-
-_MULTIHOST = ("multi-host sweeps need parallel/, which is not ported to "
-              "ldpcdecoders_tpu_torch yet (ROADMAP.md queue 1 item 10)")
-
 
 def _dense_f32(H, device) -> torch.Tensor:
     """``H`` (dense or scipy.sparse 0/1) as a float32 tensor on ``device``."""
@@ -128,8 +128,14 @@ class FERSweep:
         plus ``sampler``, which the JAX package ignores.
       seed: base seed; each (point, batch) pair derives its own stream, so
         resumed runs reproduce the uninterrupted run exactly.
-      multihost: None or False (one process).  True raises
-        ``NotImplementedError``: multi-host sweeps are not ported.
+      multihost: None (the default) decides at :meth:`run`: True where a
+        ``torch.distributed`` group of more than one process is set up (the
+        group may be set up after ``__init__``).  Then each process decodes
+        a disjoint slice of every batch on streams keyed by its rank, the
+        counts are summed over the processes after every batch (one batch
+        in flight), only rank 0 writes the checkpoint, every rank adopts
+        rank 0's resumed state, and ``max_seconds`` is decided by a vote of
+        all processes.
       pipeline: batches in flight.  Each is dispatched with
         :meth:`~.models.base.Decoder.batch_decode_detailed_async` and its
         counts fetched in dispatch order, so the results are those of the
@@ -156,8 +162,6 @@ class FERSweep:
         pipeline: int = 4,
         sample_on_device: bool = False,
     ):
-        if multihost:
-            raise NotImplementedError(_MULTIHOST)
         # keep scipy.sparse H as-is: syndromes_of handles it natively, and
         # densifying a from_edges-scale code here would allocate gigabytes
         self.H = H if hasattr(H, "toarray") else np.asarray(H)
@@ -165,7 +169,7 @@ class FERSweep:
         self.batch = int(batch)
         self.checkpoint_path = checkpoint_path
         self.seed = int(seed)
-        self.multihost = False
+        self.multihost: bool | None = None if multihost is None else bool(multihost)
         self.pipeline = max(1, int(pipeline))
         self.sample_on_device = bool(sample_on_device)
         if self.sample_on_device and self.H.shape[0] * self.H.shape[1] > _DEVICE_SWEEP_MAX_DENSE:
@@ -203,6 +207,8 @@ class FERSweep:
     def _save_checkpoint(self):
         if not self.checkpoint_path:
             return
+        if self.multihost and world()[1] != 0:
+            return  # rank 0 writes; the others adopt its state on resume
         atomic_write_json(
             self.checkpoint_path,
             {
@@ -213,6 +219,20 @@ class FERSweep:
                 SAMPLER_KEY: DEVICE_SAMPLER if self.sample_on_device else HOST_SAMPLER,
             },
         )
+
+    def _sync_points_from_host0(self):
+        """Every rank takes rank 0's point state (its checkpoint is the
+        authoritative one)."""
+        pers = sorted(self.points)
+        state = np.asarray(
+            [[pt.trials, pt.steps, pt.exact_failures, pt.syndrome_mismatches,
+              pt.non_converged, pt.total_iters, pt.wall_seconds]
+             for pt in (self.points[p] for p in pers)], dtype=np.float64)
+        for p, row in zip(pers, broadcast_from_host0(state)):
+            self.points[p] = SweepPoint(
+                per=p, trials=int(row[0]), steps=int(row[1]), exact_failures=int(row[2]),
+                syndrome_mismatches=int(row[3]), non_converged=int(row[4]),
+                total_iters=int(row[5]), wall_seconds=float(row[6]))
 
     # -- running ----------------------------------------------------------
 
@@ -252,16 +272,26 @@ class FERSweep:
         Returns ``{per: summary_dict}``.  Safe to interrupt and re-run.
         """
         t_start = time.perf_counter()
+        procs, rank = world()
+        if self.multihost is None:
+            self.multihost = procs > 1
+        if self.multihost:
+            # only rank 0 writes checkpoints, so on a filesystem that is not
+            # shared only its loaded state counts: adopt it everywhere
+            self._sync_points_from_host0()
+        else:
+            procs, rank = 1, 0
         n = self.H.shape[1]
         dense = not hasattr(self.H, "tocsr")
         shared_decoder = None  # serves every point where per= overrides work
-        depth = self.pipeline
+        # one batch in flight across processes: the collectives keep order
+        depth = 1 if self.multihost else self.pipeline
         stopping = False
         for per, pt in self.points.items():
             decoder = None
             per_kw = {}
             per_hash = int(per * 1e9) & 0x7FFFFFFF
-            inflight: list = []  # (kind, payload, b)
+            inflight: list = []  # (kind, payload, b_local, b)
             inflight_trials = 0
             step_cursor = pt.steps  # dispatch stream index; pt.steps counts
             # finalized batches, so a crash re-runs in-flight batches on
@@ -270,19 +300,25 @@ class FERSweep:
 
             def finalize_one():
                 nonlocal inflight_trials, mark
-                kind, payload, b = inflight.pop(0)
+                kind, payload, b_local, b = inflight.pop(0)
                 if kind == "dev":
                     v = _host_ints(payload)  # one [4] fetch
                     counts = dict(exact_failures=v[0], syndrome_mismatches=v[1],
                                   non_converged=v[2], total_iters=v[3])
-                else:
+                elif kind == "host":
                     (guesses, conv, iters, _aux), errs, syns = payload
                     exact, smatch = verify_decodes(self.H, errs, guesses.cpu().numpy(), syns)
-                    counts = dict(exact_failures=int(b - exact.sum()),
-                                  syndrome_mismatches=int(b - smatch.sum()),
-                                  non_converged=int(b - int(conv.sum())),
+                    counts = dict(exact_failures=int(b_local - exact.sum()),
+                                  syndrome_mismatches=int(b_local - smatch.sum()),
+                                  non_converged=int(b_local - int(conv.sum())),
                                   total_iters=int(iters.sum()))
-                pt.trials += b
+                else:  # this rank's slice of the batch is empty
+                    counts = dict(exact_failures=0, syndrome_mismatches=0, non_converged=0,
+                                  total_iters=0)
+                counts["trials"] = b_local
+                if self.multihost:
+                    counts = allreduce_counts(counts)
+                pt.trials += counts["trials"]
                 pt.steps += 1
                 pt.exact_failures += counts["exact_failures"]
                 pt.syndrome_mismatches += counts["syndrome_mismatches"]
@@ -299,10 +335,16 @@ class FERSweep:
                     not stopping
                     and pt.trials + inflight_trials < trials_per_point
                 )
-                if want_more and max_seconds is not None and (
-                        time.perf_counter() - t_start > max_seconds):
-                    stopping = True
-                    want_more = False
+                if want_more and max_seconds is not None:
+                    over = time.perf_counter() - t_start > max_seconds
+                    if self.multihost:
+                        # a vote: the processes' clocks differ, and a rank
+                        # that stopped alone would leave the others waiting
+                        # in the next collective
+                        over = allreduce_counts({"stop": int(over)})["stop"] > 0
+                    if over:
+                        stopping = True
+                        want_more = False
                 if stopping and not inflight:
                     break
                 if not want_more or len(inflight) >= depth:
@@ -324,16 +366,21 @@ class FERSweep:
                 # disjoint from the injected noise
                 step = step_cursor
                 b = min(self.batch, trials_per_point - pt.trials - inflight_trials)
-                rng = np.random.default_rng((self.seed, per_hash, step, 0))
+                # this rank's disjoint slice of the batch; its streams are
+                # keyed by (seed, point, step, rank)
+                b_local = b // procs + (1 if rank < b % procs else 0)
+                rng = np.random.default_rng((self.seed, per_hash, step, rank))
                 decode_seed = int(np.random.default_rng(
-                    (self.seed, per_hash, step, 0, 0xDEC0DE)).integers(1 << 31))
-                if self.sample_on_device:
+                    (self.seed, per_hash, step, rank, 0xDEC0DE)).integers(1 << 31))
+                if b_local == 0:
+                    rec = ("none", None)
+                elif self.sample_on_device:
                     noise_seed = int(np.random.default_rng(
-                        (self.seed, per_hash, step, 0, 0x5A3D)).integers(1 << 31))
-                    rec = ("dev", self._device_step(decoder, per_kw, per, b, noise_seed,
+                        (self.seed, per_hash, step, rank, 0x5A3D)).integers(1 << 31))
+                    rec = ("dev", self._device_step(decoder, per_kw, per, b_local, noise_seed,
                                                     decode_seed))
                 else:
-                    errs = sample_errors(rng, b, n, per)
+                    errs = sample_errors(rng, b_local, n, per)
                     syns = syndromes_of(self.H, errs)
                     handles = decoder.batch_decode_detailed_async(syns, seed=decode_seed,
                                                                   **per_kw)
@@ -343,7 +390,7 @@ class FERSweep:
                                                           handles[2]))
                     else:
                         rec = ("host", (handles, errs, syns))
-                inflight.append((*rec, b))
+                inflight.append((*rec, b_local, b))
                 inflight_trials += b
                 step_cursor += 1
             if stopping:

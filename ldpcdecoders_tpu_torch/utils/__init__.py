@@ -1,3 +1,4 @@
+from .debug import check_decode_invariants, validate_inputs
 from .io import (
     atomic_write_json,
     load_code_npz,
@@ -23,6 +24,7 @@ from .noise import (
     syndromes_of,
     verify_decodes,
 )
+from .profiling import annotate, trace
 
 __all__ = [
     "sample_errors",
@@ -44,4 +46,8 @@ __all__ = [
     "load_graph_npz",
     "atomic_write_json",
     "read_json",
+    "validate_inputs",
+    "check_decode_invariants",
+    "trace",
+    "annotate",
 ]

@@ -1219,3 +1219,42 @@ def test_device_error_draws_on_card(dev):
     assert a.device.type == "cuda" and torch.equal(a, sample_errors_device(4, 4096, 1000, 0.01,
                                                                             device=dev))
     assert abs(a.float().mean().item() - 0.01) < 0.0005
+
+
+@pytest.fixture
+def nccl_group(dev):
+    """A one-rank NCCL group, set up by ``make_mesh`` itself and torn down
+    after the test."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already set up")
+    yield
+    dist.destroy_process_group()
+
+
+def test_one_rank_nccl_sharded_decodes_launch_k1_and_k3(dev, nccl_group):
+    from ldpcdecoders_tpu_torch import parallel as par
+
+    H = pt.parity_check_matrix(1000, 10, 9, rng=42)
+    rng = np.random.default_rng(12)
+    syn20 = (((rng.random((128, 1000)) < 0.2) @ H.T) % 2).astype(np.uint8)
+    syn01 = (((rng.random((128, 1000)) < 0.01) @ H.T) % 2).astype(np.uint8)
+    mesh = par.make_mesh()
+    assert mesh.device_type == "cuda" and par.mesh.mesh_device(mesh) == dev
+    dec = pt.BeliefPropagationOSDDecoder(H, 0.2, 50, device=dev)
+    want = dec.batch_decode(syn20)
+    before = cuda_gf2.gf2_osd0_cuda.launches
+    got = par.sharded_batch_decode(dec, syn20, mesh)
+    assert cuda_gf2.gf2_osd0_cuda.launches > before
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+    mesh2 = par.make_mesh(axis_names=("data", "model"))
+    ms = pt.MinSumDecoder(H, 0.01, 100, device=dev)
+    e0, c0, i0, _, _ = ms.batch_decode_detailed(syn01)
+    before = cuda_minsum.minsum_check_iter_cuda.launches, cuda_minsum.minsum_var_cuda.launches
+    e, c, i = par.make_check_sharded_minsum_fn(ms.graph, 0.01, 100, mesh2)(syn01)
+    assert cuda_minsum.minsum_check_iter_cuda.launches > before[0]
+    assert cuda_minsum.minsum_var_cuda.launches > before[1]
+    assert np.array_equal(c, c0) and np.array_equal(i, i0)
+    assert np.array_equal(e[c], e0[c])

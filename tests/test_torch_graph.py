@@ -147,6 +147,10 @@ def test_port_imports_without_jax():
         "import ldpcdecoders_tpu_torch.models.demwindow, ldpcdecoders_tpu_torch.models.neural\n"
         "import ldpcdecoders_tpu_torch.models.peeling, ldpcdecoders_tpu_torch.models.mixed\n"
         "import ldpcdecoders_tpu_torch.models.minsum_q, ldpcdecoders_tpu_torch.models.bucketed\n"
+        "import ldpcdecoders_tpu_torch.parallel, ldpcdecoders_tpu_torch.cli\n"
+        "import ldpcdecoders_tpu_torch.utils, ldpcdecoders_tpu_torch.utils.debug\n"
+        "import ldpcdecoders_tpu_torch.utils.profiling, ldpcdecoders_tpu_torch.__main__\n"
+        "import ldpcdecoders_tpu_torch.parallel.staged, ldpcdecoders_tpu_torch.parallel.spmd\n"
         "assert ldpcdecoders_tpu_torch.native.native_available()\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'ldpcdecoders_tpu.'))"
         " or k == 'ldpcdecoders_tpu']\n"

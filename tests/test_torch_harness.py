@@ -103,12 +103,6 @@ def test_mismatch_refusals(tmp_path):
                    sample_on_device=True)
 
 
-def test_multihost_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        h.FERSweep(H, FACTORIES["bp"][1], [0.01], multihost=True)
-    assert h.FERSweep(H, FACTORIES["bp"][1], [0.01], multihost=None).multihost is False
-
-
 def test_device_sampled_sweep_repeats_and_resumes(tmp_path):
     f = FACTORIES["minsum"][1]
     kw = dict(pers=[0.04], batch=32, seed=21, sample_on_device=True)

@@ -1,5 +1,5 @@
 """Port parity: the reference's public names that the port carries since
-the last slice (ROADMAP.md's fault 6, but for ``parallel``), on the CPU.
+the last slices (ROADMAP.md's fault 6), on the CPU.
 
   * ``save_pcm`` / ``load_pcm``: a file written by either package is read
     back by the other, bitwise;
@@ -100,11 +100,13 @@ def test_from_pcm_routes_give_the_reference_graph(use_native, shape):
 
 
 def test_fault_6_probe_returns_in_the_port(tmp_path):
-    """ROADMAP.md's fault-6 probe, every name but ``parallel`` (a module
-    port of its own)."""
+    """ROADMAP.md's fault-6 probe, every name, ``parallel`` and its 14
+    names among them."""
     H = pt.parity_check_matrix(60, 3, 4, rng=1)
     assert pt.TannerGraph.from_pcm(H, use_native=False).n_edges == 240
     pt.save_pcm(H, str(tmp_path / "H.txt"))
     from ldpcdecoders_tpu_torch.ops import gf2, syndrome
 
     assert callable(syndrome.syndrome_matches) and callable(gf2.gf2_osdw)
+    assert pt.parallel.__all__ == lt.parallel.__all__ and len(pt.parallel.__all__) == 14
+    assert all(callable(getattr(pt.parallel, name)) for name in pt.parallel.__all__)
