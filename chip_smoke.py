@@ -128,8 +128,20 @@ public decoder API on ``cuda:0`` and prints, in order:
      global counts on both ranks, a ``max_seconds`` stop agreed by both) and
      the check-sharded min-sum on a ``(data 1, model 2)`` mesh over 256 of
      (ak)'s lanes, its flags equal to (ak)'s; a child that fails or outlives
-     its deadline fails the run;
-  5. steady-state rates;
+     its deadline fails the run; then (PR 15) K5's flooding body, the QC
+     decoder's default schedule: (ao) ``QCMinSumDecoder(random_qc_base_matrix(
+     24, 6, 3, 128, rng=7), 128, 0.04, 32)`` with its default schedule in
+     float32, bfloat16 and sum-product, B=1024, through
+     ``batch_decode_detailed_async`` on a card tensor, and (ap)
+     ``SpaceTimeDecoder.for_bicycle("bb144", "x", 6, 0.003, 60,
+     schedule="flooding")`` on (k)'s 2048 records (multi-term blocks): one
+     K5 launch each, of the body its form takes (two-min states or
+     messages), every lane against ``qc_minsum_ref`` on the same inputs
+     (min-sum: all four outputs bitwise; sum-product: flags and sweeps
+     bitwise, LLRs within 2**13 float32 spacings), converged lanes
+     reproducing their input;
+  5. steady-state rates (the QC paths' whole-decode kernel, layered and
+     flooding, beside the lifted backend);
   6. a JSON line with each kernel's numbers, the card line again, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -1188,6 +1200,80 @@ def parallel_paths(torch, pt, drive, dev, card, H, graph, syn01, syn20, qdec, qs
     path_an(torch, card, syn01, ak, path_launches)
 
 
+def flooding_paths(torch, pt, drive, dev, card, qc, st_data):
+    """Paths (ao), (ap): K5's flooding body, the QC decoder's default
+    schedule, through the public API on card tensors at full width; each
+    lane bitwise against ``qc_minsum_ref`` on the same inputs (sum-product:
+    flags and sweeps bitwise, LLRs within 2**13 float32 spacings).  Returns
+    the two float32 decoders for the rates."""
+    from ldpcdecoders_tpu_torch.ops.qc_minsum import qc_minsum_ref
+
+    base_qc, Hq, qsyn = qc
+    st_det, st_pri = st_data
+
+    def against_plain(path, inner, d, got, priors, llrs):
+        t = inner.qc_terms
+        kw = dict(alpha=inner.alpha, beta=inner.beta, schedule=inner.schedule,
+                  algorithm=inner.algorithm, dtype=inner.dtype, priors=priors)
+        want = qc_minsum_ref(d, t, inner.L0, inner.max_iters, **kw)
+        torch.cuda.synchronize()
+        flags = max_abs_err(torch, got, want[:3])
+        spacings = max_abs_err(torch, [llrs], want[3:])
+        sumprod = inner.algorithm == "sumproduct"
+        allowed = "2**13 allowed: tanhf/log1pf at the clamp" if sumprod else "bitwise required"
+        body = "flooding_messages" if sumprod else "flooding_two_min"
+        n = drive.counts_of(path)
+        print(f"main ({path}) against qc_minsum_ref on all {d.shape[0]} lanes: err/converged/"
+              f"iters max_abs_err {flags} (bitwise required), llrs {spacings} float32 spacings "
+              f"apart ({allowed}); {n['qc_minsum']} K5 launch, body {body} "
+              f"{n[f'qc_minsum_{body}']} | {card}")
+        if flags or spacings > (2**13 if sumprod else 0):
+            raise AssertionError(f"({path}): the flooding body differs from qc_minsum_ref")
+        if n["qc_minsum"] != 1 or n[f"qc_minsum_{body}"] != 1:
+            raise AssertionError(f"({path}): {n} (one launch of the {body} body expected)")
+
+    # (ao) QCMinSumDecoder with its default schedule (flooding), float32,
+    # bfloat16 and sum-product, B=1024 through batch_decode_detailed_async
+    dq = torch.as_tensor(qsyn, device=dev)
+    decs = {}
+    for what, kw in (("f32", {}), ("bf16", dict(dtype=torch.bfloat16)),
+                     ("sumproduct", dict(algorithm="sumproduct"))):
+        path = f"ao {what}"
+        dec = pt.QCMinSumDecoder(base_qc, 128, 0.04, 32, device=dev, **kw)
+        if dec.schedule != "flooding":
+            raise AssertionError(f"({path}): the default schedule is {dec.schedule}")
+        e, c, i, aux = drive(path, ["qc_minsum"],
+                             lambda dec=dec: dec.batch_decode_detailed_async(dq))
+        torch.cuda.synchronize()
+        e_np, c_np = e.cpu().numpy(), c.cpu().numpy()
+        assert_consistent(Hq, e_np[c_np], qsyn[c_np], f"({path}) converged lanes")
+        print(f"main ({path}) QCMinSumDecoder flooding per 0.04, 32 sweeps, B={B}: converged "
+              f"{c_np.mean():.4f}, sweeps mean {i.float().mean():.2f} max {int(i.max())} | {card}")
+        against_plain(path, dec, dq, [e, c, i], None, aux["llrs"])
+        decs[what] = dec
+
+    # (ap) the bb144 six-round space-time decoder, flooding, on (k)'s 2048
+    # records: the multi-term flooding case
+    st = pt.SpaceTimeDecoder.for_bicycle("bb144", "x", 6, 0.003, 60, schedule="flooding",
+                                         device=dev)
+    dk = torch.as_tensor(st_det, device=dev)
+    cum, c, i, aux = drive("ap", ["qc_minsum"], lambda: st.batch_decode_detailed_async(dk))
+    torch.cuda.synchronize()
+    bk = dk.shape[0]
+    full = torch.cat([aux["data_rounds"].reshape(bk, -1), aux["meas"].reshape(bk, -1)], dim=1)
+    full_np, c_np = full.cpu().numpy(), c.cpu().numpy()
+    rec = np.asarray((st.A.astype(np.int32) @ full_np.T.astype(np.int32)).T % 2, np.uint8)
+    if not (rec[c_np] == st_det[c_np]).all():
+        raise AssertionError("(ap): converged lanes do not reproduce their detector record")
+    print(f"main (ap) SpaceTimeDecoder.for_bicycle bb144 x R=6 per 0.003, 60 sweeps, flooding, "
+          f"{bk} records: converged {c_np.mean():.4f}, sweeps mean {i.float().mean():.2f} max "
+          f"{int(i.max())} | {card}")
+    if c_np.mean() < 0.99:
+        raise AssertionError(f"(ap): converged {c_np.mean():.4f}")
+    against_plain("ap", st.inner, dk, [full, c, i], st_pri, aux["inner"]["llrs"])
+    return decs["f32"], st
+
+
 def launch_wrappers():
     """``(wrappers, routed)``: each kernel's wrappers (K3 and K4 have two
     forms each), and K1/K2's, which count their launches by body: the
@@ -1211,16 +1297,21 @@ def zero_counts(wrappers, routed):
             w.launches = 0
     for w in routed.values():
         w.routes.update({"shared": 0, "global": 0, "global_v1": 0})
+    qc = wrappers["qc_minsum"][0]
+    qc.routes.update(dict.fromkeys(qc.routes, 0))
 
 
 def read_counts(wrappers, routed, path):
-    """Each kernel's launches since :func:`zero_counts`; K1/K2 by body."""
+    """Each kernel's launches since :func:`zero_counts`; K1/K2 and K5 also
+    by body."""
     counts = {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
     for k, w in routed.items():
         counts[k] = w.routes["shared"]
         counts[f"{k}_global"] = w.routes["global"]
         if w.routes["global_v1"]:
             raise AssertionError(f"main ({path}) took the first device-memory body")
+    for body, n in wrappers["qc_minsum"][0].routes.items():
+        counts[f"qc_minsum_{body}"] = n
     return counts
 
 
@@ -1434,7 +1525,8 @@ def main() -> int:
     from ldpcdecoders_tpu_torch.models.priors import per_to_llr
     from ldpcdecoders_tpu_torch.ops import cuda_gf2, cuda_minsum, cuda_qc, gf2
     from ldpcdecoders_tpu_torch.ops import minsum as plain_minsum
-    from ldpcdecoders_tpu_torch.ops.qc_minsum import qc_launch_shape, qc_minsum_ref
+    from ldpcdecoders_tpu_torch.ops.qc_minsum import (qc_flooding_state, qc_launch_shape,
+                                                      qc_minsum_ref, qc_smem_bytes)
 
     # float32 products here are 0/1 sums; keep them in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1623,6 +1715,11 @@ def main() -> int:
     st_det = np.asarray((st.A.astype(np.int32) @ st_x.T.astype(np.int32)).T % 2, np.uint8)
     st_pri = torch.as_tensor(per_to_llr(st._prior, st.n_cols), dtype=torch.float32, device=dev)
     qc_src = "ldpcdecoders_tpu_torch/csrc/qc_minsum.cu"
+    st_flood = pt.SpaceTimeDecoder.for_bicycle("bb144", "x", 6, 0.003, 60, schedule="flooding",
+                                               device=dev)
+    base_wide = pt.random_qc_base_matrix(60, 30, 3, 128, rng=7)
+    wide_dec = pt.QCMinSumDecoder(base_wide, 128, 0.003, 32, device=dev)
+    _, wide_syn = syndromes(pt.qc_lift(base_wide, 128), 0.003, np.random.default_rng(4))
 
     # operations per edge position and sweep that the function needs, counted
     # from the decode's body.  Check rule: min-sum 14 (as the min-sum check
@@ -1651,22 +1748,37 @@ def main() -> int:
         f_ops = (17 if sumprod else 14) + (5 if layered else 3)
         i_ops = qc_int_ops(t)
         size = 4 if dec.dtype == torch.float32 else 2
-        threads, smem = qc_launch_shape(t, size, layered, sumprod)
+        threads, smem = qc_launch_shape(t, size, layered, sumprod, prior=priors is not None)
         # the layered sweep's rows: one phase where the row's block columns
         # are distinct, two (through the float32 row buffer) where one repeats
         two = sum(t.two_phase_rows)
-        phases = (f"{t.mb - two} rows in one phase, {two} in two" if layered
-                  else "flooding: no row phases")
-        # shared-memory bytes per lane and sweep, over the rows' edge
-        # positions: a one-phase row reads the total and the message once,
-        # writes each once, and the syndrome check reads the total again (5
-        # stored values; fewer where a violated check ends the check early);
-        # a two-phase row adds the row buffer's float32 write and read and
-        # reads the total and message again (7 stored values and 8 bytes);
-        # flooding touches 5 stored values and a decision byte
-        traffic = sum(len(r) * t.Z * (5 * size + 1 if not layered else
-                                      7 * size + 8 if rep else 5 * size)
-                      for r, rep in zip(t.row_edges, t.two_phase_rows))
+        state = qc_flooding_state(t, sumprod)
+        on_chip = (not layered and priors is not None
+                   and smem > qc_smem_bytes(t, threads, size, False, sumprod))
+        phases = (f"{t.mb - two} rows in one phase, {two} in two" if layered else
+                  f"flooding: {state}, prior {'on chip' if on_chip else 'not on chip'}")
+        # shared-memory bytes per lane and sweep.  Layered, over the rows'
+        # edge positions: a one-phase row reads the total and the message
+        # once, writes each once, and the syndrome check reads the total
+        # again (5 stored values; fewer where a violated check ends the
+        # check early); a two-phase row adds the row buffer's float32 write
+        # and read and reads the total and message again (7 stored values
+        # and 8 bytes).  Flooding: the check pass reads each edge's float32
+        # total, and a check position's syndrome byte; two-min states are
+        # read and written once a check position (2 magnitudes and a word)
+        # and read again an edge by the variable pass, messages read and
+        # written an edge and read again by the variable pass; the variable
+        # pass writes each float32 total and reads its prior from shared
+        # memory where it is on chip
+        Ec, Mc, Nc = t.Eb * t.Z, t.mb * t.Z, t.nb * t.Z
+        if layered:
+            traffic = sum(len(r) * t.Z * (7 * size + 8 if rep else 5 * size)
+                          for r, rep in zip(t.row_edges, t.two_phase_rows))
+        elif state == "two_min":
+            traffic = (4 * Ec + Mc * (1 + 2 * (2 * size + 4)) + Ec * (2 * size + 4)
+                       + Nc * (4 + 4 * on_chip))
+        else:
+            traffic = 4 * Ec + Mc + 3 * size * Ec + Nc * (4 + 4 * on_chip)
 
         def bounds(got):
             # this batch's work: each lane's own sweeps
@@ -1696,6 +1808,15 @@ def main() -> int:
         qc_case("flooding f32 sumproduct", qc_dec(algorithm="sumproduct"), qsyn, None, shape_qc),
         qc_case("bb144 R=6 layered f32 prior vector", st.inner, st_det, st_pri,
                 f"B={BK} mb=6 nb=17 Eb=46 Z=72 (12x6) sweeps<=60"),
+        # the flooding body (PR 15): the default schedule's other forms, the
+        # multi-term case, and rows past the two-min word's 27 signs (a
+        # (30, 3)-regular nb=60 code: every message kept)
+        qc_case("flooding bf16", qc_dec(dtype=torch.bfloat16), qsyn, None, shape_qc),
+        qc_case("flooding f32 per-lane priors", qc_dec(), qsyn_e, pri_e, shape_qc),
+        qc_case("bb144 R=6 flooding f32 prior vector", st_flood.inner, st_det, st_pri,
+                f"B={BK} mb=6 nb=17 Eb=46 Z=72 (12x6) sweeps<=60"),
+        qc_case("flooding f32 rows of 30", wide_dec, wide_syn, None,
+                f"B={B} mb=6 nb=60 Eb=180 Z=128 sweeps<=32 per 0.003"),
     ]
 
     # the bb144 R=6 circuit-level DEM (864 checks x 31,648 mechanisms, check
@@ -1964,6 +2085,8 @@ def main() -> int:
         path_launches[path] = counts
         print(f"main ({path}) launches: {counts}")
         return out
+
+    drive.counts_of = path_launches.__getitem__
 
     # 4. the main paths, through the public API, each with its own counts
     dec2 = pt.BeliefPropagationOSDDecoder(graph, 0.01, MAX_ITERS, osd_order=2, device=dev)
@@ -2285,6 +2408,8 @@ def main() -> int:
     past_a_block_paths(torch, pt, drive, dev, card)
     parallel_paths(torch, pt, drive, dev, card, H, graph, syn01, syn20, qdec, qsyn, fast, dem_det,
                    path_launches)
+    qflood, st_flood = flooding_paths(torch, pt, drive, dev, card, (base_qc, Hq, qsyn),
+                                      (st_det, st_pri))
 
     # in the summary, ``launches`` is the count of the first path that must
     # launch the kernel; ``launches_by_path`` has every path's own count
@@ -2294,6 +2419,13 @@ def main() -> int:
         kernels[k]["launches"] = path_launches[path][k]
         kernels[k]["launches_path"] = path
         kernels[k]["launches_by_path"] = {p: c[k] for p, c in path_launches.items()}
+    # K5's other forms that a main path runs: that path's launches
+    for variant, path in (("bb144 R=6 layered f32 prior vector", "k"),
+                          ("flooding f32", "ao f32"), ("flooding bf16", "ao bf16"),
+                          ("flooding f32 sumproduct", "ao sumproduct"),
+                          ("bb144 R=6 flooding f32 prior vector", "ap")):
+        kernels["qc_minsum"]["variants"][variant].update(
+            launches=path_launches[path]["qc_minsum"], launches_path=path)
 
     # 5. steady-state rates (host clock around calls that end in a sync)
     tag = f"| B={B} | {card}"
@@ -2331,7 +2463,9 @@ def main() -> int:
                                               backend="lifted", device=dev)
     dq, dk = torch.as_tensor(qsyn, device=dev), torch.as_tensor(st_det, device=dev)
     for what, fused, lifted, d in (("(j) QC per 0.04", qdec, q_lift, dq),
-                                   ("(k) bb144 R=6 per 0.003", st, st_lift, dk)):
+                                   ("(ao) QC per 0.04", qflood, q_lift, dq),
+                                   ("(k) bb144 R=6 per 0.003", st, st_lift, dk),
+                                   ("(ap) bb144 R=6 per 0.003", st_flood, st_lift, dk)):
         inner = getattr(fused, "inner", fused)
         for how, dec in ((f"{inner.schedule} whole-decode kernel", fused),
                          ("lifted backend, flooding float32", lifted)):

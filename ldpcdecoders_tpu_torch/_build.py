@@ -126,6 +126,8 @@ def load_library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.ldpc_minsum_stage_plan.restype = None
     lib.ldpc_qc_minsum.argtypes = [ptr] * 7 + [i32] * 13 + [f32] * 3 + [i64, i32, ptr]
     lib.ldpc_qc_minsum.restype = i32
+    lib.ldpc_qc_smem_bytes.argtypes = [i32] * 12
+    lib.ldpc_qc_smem_bytes.restype = i64
     lib.ldpc_cuda_error_string.argtypes = [i32]
     lib.ldpc_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -6,7 +6,10 @@ kernel lives in ``csrc/qc_minsum.cu`` (built by ``_build.py``):
 freeze and the early exit of a decode in one launch, with the messages in
 shared memory throughout.  For tensors on the CPU it runs the plain torch
 version (ops/qc_minsum.py ``qc_minsum_ref``); for CUDA tensors it launches
-the kernel or raises.  ``qc_minsum_cuda.launches`` counts the launches.
+the kernel or raises.  ``qc_minsum_cuda.launches`` counts the launches, and
+``qc_minsum_cuda.routes`` counts them by the kernel's body: ``"layered"``,
+``"flooding_two_min"`` and ``"flooding_messages"`` (ops/qc_minsum.py
+:func:`qc_flooding_state`).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from .cuda_minsum import _check
-from .qc_minsum import QCTerms, qc_launch_shape, qc_minsum_ref, qc_modes
+from .qc_minsum import QCTerms, qc_flooding_state, qc_launch_shape, qc_minsum_ref, qc_modes
 
 __all__ = ["qc_minsum_cuda"]
 
@@ -63,7 +66,8 @@ def qc_minsum_cuda(syndromes, terms: QCTerms, table, L0: float, max_iters: int, 
         return qc_minsum_ref(syndromes, terms, L0, max_iters, alpha=alpha, beta=beta,
                              schedule=schedule, algorithm=algorithm, dtype=dtype, priors=priors)
 
-    threads, smem = qc_launch_shape(terms, 4 if dtype == torch.float32 else 2, layered, sumprod)
+    threads, smem = qc_launch_shape(terms, 4 if dtype == torch.float32 else 2, layered, sumprod,
+                                    prior=priors is not None)
     _check("table", table, (4 * terms.Eb + terms.mb + terms.nb + 2,), torch.int32, device)
     syn = syndromes if syndromes.dtype == torch.bool else syndromes != 0
     syn = syn.contiguous()
@@ -91,7 +95,10 @@ def qc_minsum_cuda(syndromes, terms: QCTerms, table, L0: float, max_iters: int, 
     if rc != 0:
         raise RuntimeError(f"qc_minsum launch failed: {lib.ldpc_cuda_error_string(rc).decode()}")
     qc_minsum_cuda.launches += 1
+    body = "layered" if layered else f"flooding_{qc_flooding_state(terms, sumprod)}"
+    qc_minsum_cuda.routes[body] += 1
     return err, conv, iters, llrs
 
 
 qc_minsum_cuda.launches = 0
+qc_minsum_cuda.routes = {"layered": 0, "flooding_two_min": 0, "flooding_messages": 0}

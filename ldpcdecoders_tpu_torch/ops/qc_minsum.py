@@ -49,20 +49,28 @@ __all__ = [
     "qc_term_adjacency",
     "qc_smem_bytes",
     "qc_launch_shape",
+    "qc_flooding_state",
     "qc_minsum_ref",
     "qc_modes",
     "SMEM_LIMIT",
     "HELD_EDGES",
+    "SIGN_BITS",
 ]
 
 #: dynamic shared memory one block can be given on an H100 (227 KB)
 SMEM_LIMIT = 232_448
 #: most threads of one block
 MAX_THREADS = 1024
+#: most threads of a flooding block that runs its base rows in groups
+FLOOD_THREADS = 512
 #: edges of a base row whose positions and values the kernel keeps in
 #: registers (csrc/qc_minsum.cu kHeld); sum-product keeps the suffix
 #: products of a heavier row's later edges in shared memory
 HELD_EDGES = 8
+#: sign bits of the flooding two-min state's word (csrc/qc_minsum.cu
+#: kSignBits; idx1 takes the word's other 5 bits): min-sum rows of at most
+#: this many edges keep two-min states, heavier ones their messages
+SIGN_BITS = 27
 
 
 def qc_term_adjacency(terms, mb: int, nb: int):
@@ -154,36 +162,69 @@ class QCTerms:
         return np.concatenate([j, a, b, row_ptr, col_ptr, col_idx]).astype(np.int32)
 
 
+def qc_flooding_state(terms: QCTerms, sumproduct: bool) -> str:
+    """How the kernel's flooding sweep keeps the check-to-variable messages:
+    ``"two_min"`` (min-sum rows of at most :data:`SIGN_BITS` edges: per check
+    position the two outgoing magnitudes and a word of signs and idx1, from
+    which each edge's message is rebuilt bit for bit) or ``"messages"``
+    (sum-product, or a heavier row: every edge's message)."""
+    two_min = not sumproduct and terms.max_row_weight <= SIGN_BITS
+    return "two_min" if two_min else "messages"
+
+
 def qc_smem_bytes(terms: QCTerms, threads: int, itemsize: int, layered: bool,
-                  sumproduct: bool) -> int:
+                  sumproduct: bool, prior: bool = False) -> int:
     """Dynamic shared memory (bytes) of one block of the kernel, which holds
-    one lane on ``threads`` threads: the term table in the kernel's form
-    (four words per edge, the row and column pointers, the column edge
-    list, a flag per base row); two message arrays in the storage type
-    (layered: edge messages and totals; flooding: both directions' edge
-    messages), the syndrome bytes, and for layered the new messages of one
-    two-phase row in float32 (none when every row is one-phase), for
-    flooding the decisions; for sum-product one float32 per thread and row
-    slot past :data:`HELD_EDGES` (the suffix products of a heavy row)."""
-    Eb, mb, nb, Z, rw = terms.Eb, terms.mb, terms.nb, terms.Z, terms.max_row_weight
-    ints = 5 * Eb + 2 * mb + nb + 4
-    tail = max(rw - HELD_EDGES, 0)
-    floats = (terms.buffered_row_weight * Z if layered else 0) + (
-        tail * threads if sumproduct else 0)
-    stored = (Eb + (nb if layered else Eb)) * Z
-    flags = (mb + (0 if layered else nb)) * Z
-    return 4 * ints + 4 * floats + itemsize * stored + flags
+    one lane on ``threads`` threads; for sum-product one float32 per thread
+    and row slot past :data:`HELD_EDGES` (the suffix products of a heavy
+    row) in either schedule.
 
+    Layered: the term table in the kernel's form (four words per edge, the
+    row and column pointers, the column edge list, a flag per base row), the
+    edge messages and the block columns' totals in the storage type, the
+    syndrome bytes, and the new messages of one two-phase row in float32
+    (none when every row is one-phase).
 
-def qc_launch_shape(terms: QCTerms, itemsize: int, layered: bool, sumproduct: bool):
-    """``(threads per block, shared-memory bytes)`` of the kernel's launch:
-    one lane per block on ``min(Z, 1024)`` threads (the launcher takes fewer
-    where the kernel's registers do not allow that many, and strides the
-    positions over them).  Raises when the lane does not fit a block's
-    shared memory.
+    Flooding: two tables of four words per edge (row order; column order
+    with the inverse shifts), the row and column pointers, the float32
+    totals (and with ``prior`` the lane's float32 prior), the messages as
+    :func:`qc_flooding_state` keeps them (two-min: two magnitudes in the
+    storage type and a 32-bit word per check position; else every edge's
+    message in the storage type) and the syndrome bytes.
     """
-    threads = min(terms.Z, MAX_THREADS)
-    need = qc_smem_bytes(terms, threads, itemsize, layered, sumproduct)
+    Eb, mb, nb, Z, rw = terms.Eb, terms.mb, terms.nb, terms.Z, terms.max_row_weight
+    tail = max(rw - HELD_EDGES, 0) * threads if sumproduct else 0
+    if layered:
+        ints = 5 * Eb + 2 * mb + nb + 4
+        floats = terms.buffered_row_weight * Z + tail
+        return 4 * ints + 4 * floats + itemsize * (Eb + nb) * Z + mb * Z
+    ints = 8 * Eb + mb + nb + 2
+    floats = nb * Z * (2 if prior else 1) + tail
+    two_min = qc_flooding_state(terms, sumproduct) == "two_min"
+    state = (2 * itemsize + 4) * mb * Z if two_min else itemsize * Eb * Z
+    return 4 * ints + 4 * floats + state + mb * Z
+
+
+def qc_launch_shape(terms: QCTerms, itemsize: int, layered: bool, sumproduct: bool,
+                    prior: bool = False):
+    """``(threads per block, shared-memory bytes)`` of the kernel's launch:
+    one lane per block.  Layered: ``min(Z, 1024)`` threads (the launcher
+    takes fewer where the kernel's registers do not allow that many, and
+    strides the positions over them).  Flooding: ``G`` groups of ``Z``
+    threads, each group on its share of the base rows and block columns,
+    with ``G`` the most that keeps the block at :data:`FLOOD_THREADS`
+    threads and within the base graph's rows or columns (1 past
+    ``FLOOD_THREADS // 2`` positions); with a ``prior``, the room to keep
+    it on chip where that fits.  Raises when the lane does not fit a
+    block's shared memory.
+    """
+    groups = 1 if layered else max(1, min(FLOOD_THREADS // terms.Z, max(terms.mb, terms.nb)))
+    while True:  # sum-product slots grow with the threads
+        threads = min(terms.Z * groups, MAX_THREADS)
+        need = qc_smem_bytes(terms, threads, itemsize, layered, sumproduct)
+        if groups == 1 or need <= SMEM_LIMIT:
+            break
+        groups -= 1
     if need > SMEM_LIMIT:
         raise ValueError(
             f"one lane needs {need} B of shared memory, over the {SMEM_LIMIT} B a block can "
@@ -191,6 +232,10 @@ def qc_launch_shape(terms: QCTerms, itemsize: int, layered: bool, sumproduct: bo
             f"{'layered' if layered else 'flooding'}, {itemsize} B messages): "
             "use dtype=torch.bfloat16, the layered schedule, or backend='lifted' "
             "(messages in device memory) for codes this large")
+    if prior and not layered:
+        with_prior = qc_smem_bytes(terms, threads, itemsize, False, sumproduct, prior=True)
+        if with_prior <= SMEM_LIMIT:
+            need = with_prior
     return threads, need
 
 

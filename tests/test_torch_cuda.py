@@ -8,6 +8,7 @@ imports no JAX, so it also runs on a machine without it:
 (``--noconftest`` skips tests/conftest.py, which configures JAX.)
 """
 
+import itertools
 from pathlib import Path
 
 import numpy as np
@@ -17,7 +18,8 @@ import torch
 import ldpcdecoders_tpu_torch as pt
 from ldpcdecoders_tpu_torch.ops import cuda_gf2, cuda_minsum, cuda_qc, gf2
 from ldpcdecoders_tpu_torch.ops import minsum as plain_minsum
-from ldpcdecoders_tpu_torch.ops.qc_minsum import QCTerms, qc_minsum_ref
+from ldpcdecoders_tpu_torch.ops.qc_minsum import (QCTerms, qc_flooding_state, qc_minsum_ref,
+                                                  qc_smem_bytes)
 
 pytestmark = pytest.mark.cuda
 REPO = Path(__file__).resolve().parent.parent
@@ -496,6 +498,89 @@ def test_qc_kernel_sumproduct(dev, schedule):
     torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=0.024)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("code", ["distinct", "bb72", "odd_Z", "mixed"])
+def test_qc_flooding_body_matches_plain_version(dev, code, dtype):
+    """The flooding sweep bitwise against the plain version: two-min states
+    (rows of at most 27 edges; "mixed" has rows of 11 edges, past the 8
+    held in registers, and of 40, past the sign word, so it keeps every
+    message), a prior vector, per-lane priors and priors that decide bits 1
+    before the first sweep; lane 0 (syndrome 0) stops after one sweep, lane
+    1 runs all ``max_iters``; no sweep at ``max_iters`` 0."""
+    terms = sweep_codes(code)
+    want_state = "messages" if code == "mixed" else "two_min"
+    assert qc_flooding_state(terms, False) == want_state
+    rng = np.random.default_rng(terms.Z + terms.Eb)
+    table = torch.as_tensor(terms.table(), device=dev)
+    syn, pri = qc_inputs(rng, terms, 12, 0.02)
+    syn[0] = 0
+    syn[1] = torch.as_tensor(rng.random(syn.shape[1]) < 0.5)
+    neg = pri.clone()
+    neg[2:, 1::13] *= -1.0
+    for priors, knobs, iters in ((None, dict(alpha=0.8125, beta=0.15625), 14),
+                                 (pri, dict(alpha=0.75), 14), (pri[0].contiguous(), {}, 14),
+                                 (neg, dict(beta=0.5), 14), (pri, {}, 0)):
+        kw = dict(dtype=dtype, **knobs)
+        want = qc_minsum_ref(syn, terms, 3.0, iters, priors=priors, **kw)
+        before = dict(cuda_qc.qc_minsum_cuda.routes)
+        got = cuda_qc.qc_minsum_cuda(syn.to(dev), terms, table, 3.0, iters,
+                                     priors=None if priors is None else priors.to(dev), **kw)
+        torch.cuda.synchronize()
+        assert cuda_qc.qc_minsum_cuda.routes[f"flooding_{want_state}"] == (
+            before[f"flooding_{want_state}"] + 1)
+        for a, b in zip(got[:3], want[:3]):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+        assert torch.equal(bits(got[3].cpu()), bits(want[3]))
+        if iters:
+            assert want[2][0] == 1 and want[1][0] and want[2][1] == iters and not want[1][1]
+        else:
+            assert not want[1].any() and not want[2].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("code", ["distinct", "bb72", "mixed"])
+def test_qc_flooding_sumproduct_matches_plain_version(dev, code, dtype):
+    """Flooding sum-product (every message kept), with and without per-lane
+    priors: flags and sweeps bitwise, LLRs within 2**13 float32 spacings
+    (the same tanhf / log1pf as torch's kernels on the card; near the clamp
+    one spacing of a tanh product moves a message 1e5 times as much)."""
+    terms = sweep_codes(code)
+    rng = np.random.default_rng(terms.Eb)
+    table = torch.as_tensor(terms.table(), device=dev)
+    syn, pri = qc_inputs(rng, terms, 12, 0.02)
+    syn[0] = 0
+    for priors in (None, pri.to(dev)):
+        kw = dict(algorithm="sumproduct", dtype=dtype, priors=priors)
+        want = qc_minsum_ref(syn.to(dev), terms, 3.5, 15, **kw)
+        got = cuda_qc.qc_minsum_cuda(syn.to(dev), terms, table, 3.5, 15, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got[:3], want[:3]):
+            assert torch.equal(a, b)
+        assert (bits(got[3]) - bits(want[3])).abs().max() <= 2**13
+
+
+def test_qc_launcher_smem_is_qc_smem_bytes(dev):
+    """The launcher's own shared-memory sum (``ldpc_qc_smem_bytes``) and its
+    Python mirror agree on every mode and size over random codes."""
+    from ldpcdecoders_tpu_torch import _build
+
+    lib = _build.load_library()
+    rng = np.random.default_rng(11)
+    for case in range(60):
+        mb, nb = int(rng.integers(1, 6)), int(rng.integers(2, 12))
+        l, m = int(rng.integers(1, 40)), int(rng.choice([1, 1, 3, 6]))
+        per_row = min(int(rng.integers(1, 45)), nb * l * m)
+        terms = random_terms(rng, mb, nb, l, m, per_row, bool(case % 2) and mb > 1)
+        for threads, size, layered, sumprod, prior in itertools.product(
+                (terms.Z, 32), (4, 2), (0, 1), (0, 1), (0, 1)):
+            got = lib.ldpc_qc_smem_bytes(terms.l, terms.m, terms.mb, terms.nb, terms.Eb,
+                                         terms.max_row_weight, terms.buffered_row_weight,
+                                         threads, size, layered, sumprod, prior)
+            want = qc_smem_bytes(terms, threads, size, bool(layered), bool(sumprod),
+                                 prior=bool(prior) and not layered)
+            assert got == want, (case, threads, size, layered, sumprod, prior)
+
+
 def test_qc_wrapper_edges_and_refusal(dev):
     rng = np.random.default_rng(1)
     terms = random_terms(rng, 2, 4, 8, 1, 3)
@@ -517,14 +602,19 @@ def test_qc_wrapper_edges_and_refusal(dev):
     with pytest.raises(TypeError, match="float32"):
         cuda_qc.qc_minsum_cuda(syn, terms, table, 3.0, 5,
                                priors=torch.zeros(32, dtype=torch.float64, device=dev))
-    # (6, 3)-regular nb=24 at Z=512: float32 layered fits a block alone,
-    # float32 flooding does not, bfloat16 flooding does
+    # (6, 3)-regular nb=24: at Z=512 float32 fits a block in either schedule
+    # (flooding with its two-min states); at Z=1024 float32 flooding does
+    # not, bfloat16 flooding does
     base = pt.random_qc_base_matrix(24, 6, 3, 512, rng=7)
     zeros = np.zeros((2, 12 * 512), np.uint8)
-    pt.QCMinSumDecoder(base, 512, 0.04, 4, schedule="layered").batch_decode(zeros)
+    for schedule in ("layered", "flooding"):
+        g, c = pt.QCMinSumDecoder(base, 512, 0.04, 4, schedule=schedule).batch_decode(zeros)
+        assert c.all() and not g.any()
+    base = pt.random_qc_base_matrix(24, 6, 3, 1024, rng=7)
+    zeros = np.zeros((2, 12 * 1024), np.uint8)
     with pytest.raises(ValueError, match="shared memory"):
-        pt.QCMinSumDecoder(base, 512, 0.04, 4)
-    g, c = pt.QCMinSumDecoder(base, 512, 0.04, 4, dtype=torch.bfloat16).batch_decode(zeros)
+        pt.QCMinSumDecoder(base, 1024, 0.04, 4)
+    g, c = pt.QCMinSumDecoder(base, 1024, 0.04, 4, dtype=torch.bfloat16).batch_decode(zeros)
     assert c.all() and not g.any()
 
 

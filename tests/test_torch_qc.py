@@ -56,8 +56,10 @@ from ldpcdecoders_tpu_torch.ops import cuda_qc
 from ldpcdecoders_tpu_torch.ops.clamps import TANH_CLAMP
 from ldpcdecoders_tpu_torch.ops.qc_minsum import (
     HELD_EDGES,
+    SIGN_BITS,
     SMEM_LIMIT,
     QCTerms,
+    qc_flooding_state,
     qc_launch_shape,
     qc_minsum_ref,
     qc_smem_bytes,
@@ -183,15 +185,24 @@ def test_shared_memory_estimate_and_refusal():
     232,448 B (the card is not needed to compute them)."""
     bench = _terms_of(qc.random_qc_base_matrix(24, 6, 3, 128, rng=7), 128)
     assert (bench.mb, bench.nb, bench.Eb, bench.max_row_weight) == (12, 24, 72, 6)
-    # messages + totals 49,152 B; both message directions 73,728 B; the rest
-    # is the table in the kernel's form (1,648 B: four words an edge, the
-    # pointers, the column edge list, a flag a row, two sweep flags),
-    # syndromes and
-    # decisions.  Every row has distinct block columns: no row buffer, and
-    # rows of weight 6 <= HELD_EDGES need no sum-product slots
+    # layered: messages + totals 49,152 B and the table in the kernel's form
+    # (1,648 B: four words an edge, the pointers, the column edge list, a
+    # flag a row, two sweep flags) and the syndromes.  Flooding: two tables
+    # of four words an edge and the pointers (2,456 B), the float32 totals
+    # (12,288 B), the two-min states (two float32 magnitudes and a word a
+    # check position, 18,432 B; bfloat16 magnitudes 12,288 B) or, for
+    # sum-product, every edge's message (36,864 B), the syndromes (1,536 B);
+    # a prior on chip adds 12,288 B.  Every row has distinct block columns:
+    # no row buffer, and rows of weight 6 <= HELD_EDGES need no sum-product
+    # slots
     assert not any(bench.two_phase_rows) and bench.buffered_row_weight == 0
     assert qc_smem_bytes(bench, 128, 4, True, False) == 49_152 + 1_648 + 1_536
-    assert qc_smem_bytes(bench, 128, 4, False, False) == 73_728 + 1_648 + 1_536 + 3_072
+    assert qc_smem_bytes(bench, 128, 4, False, False) == 2_456 + 12_288 + 18_432 + 1_536
+    assert qc_smem_bytes(bench, 128, 2, False, False) == 2_456 + 12_288 + 12_288 + 1_536
+    assert qc_smem_bytes(bench, 128, 4, False, True) == 2_456 + 12_288 + 36_864 + 1_536
+    assert qc_smem_bytes(bench, 128, 4, False, False, prior=True) == 34_712 + 12_288
+    assert qc_flooding_state(bench, False) == "two_min"
+    assert qc_flooding_state(bench, True) == "messages"
     assert qc_smem_bytes(bench, 128, 2, True, False) == 24_576 + 1_648 + 1_536
     assert qc_smem_bytes(bench, 128, 4, True, True) == qc_smem_bytes(bench, 128, 4, True, False)
     assert qc_launch_shape(bench, 4, True, False) == (128, 52_336)
@@ -206,20 +217,38 @@ def test_shared_memory_estimate_and_refusal():
     heavy = QCTerms.build([(0, j, 0, 0) for j in range(11)], 1, 11, (5, 1))
     assert qc_smem_bytes(heavy, 5, 4, True, True) - qc_smem_bytes(
         heavy, 5, 4, True, False) == (11 - HELD_EDGES) * 5 * 4
-    # one lane per block, a thread per position of the lift, however small
+    # one lane per block, a thread per position of the lift, however small;
+    # flooding takes a group of Z threads per base row or column, up to 512
+    # threads (here 6 block columns: 6 groups), layered one group
     small = _terms_of(qc.random_qc_base_matrix(6, 3, 2, 16, rng=5), 16)
-    assert qc_launch_shape(small, 4, False, False)[0] == 16
+    assert (small.mb, small.nb) == (4, 6)
+    assert qc_launch_shape(small, 4, False, False)[0] == 6 * 16
+    assert qc_launch_shape(small, 4, True, False)[0] == 16
+    assert qc_launch_shape(bench, 4, False, False) == (4 * 128, 34_712)
+    assert qc_launch_shape(bench, 4, False, False, prior=True) == (4 * 128, 34_712 + 12_288)
+    # a row of 80 keeps 72 sum-product slots a thread: four groups would
+    # need 233,072 B, so the launch takes three
+    slots = QCTerms.build([(0, j, 0, 0) for j in range(80)] + [(1, 0, 1, 0)], 2, 80, (128, 1))
+    assert qc_smem_bytes(slots, 4 * 128, 4, False, True) == 233_072
+    assert qc_launch_shape(slots, 4, False, True) == (3 * 128, 196_208)
+    assert qc_launch_shape(slots, 4, False, False)[0] == 4 * 128
     # Z above 1024: positions strided over 1024 threads
     assert qc_launch_shape(_terms_of([[0, 5]], 1100), 4, True, False)[0] == 1024
-    # the same base graph at Z=512: layered float32 fits alone, flooding
-    # float32 does not, flooding bfloat16 does
+    # the same base graph at Z=512: layered float32 fits alone, and so does
+    # flooding float32 with its two-min states (131,480 B); at Z=1024
+    # flooding float32 does not (260,504 B), flooding bfloat16 does, and a
+    # prior that does not fit beside the lane stays in device memory
     big = _terms_of(qc.random_qc_base_matrix(24, 6, 3, 512, rng=7), 512)
     assert 196_608 < qc_launch_shape(big, 4, True, False)[1] <= SMEM_LIMIT
+    assert qc_launch_shape(big, 4, False, False) == (512, 131_480)
+    assert qc_launch_shape(big, 4, False, False, prior=True) == (512, 131_480 + 49_152)
+    huge = _terms_of(qc.random_qc_base_matrix(24, 6, 3, 1024, rng=7), 1024)
     with pytest.raises(ValueError, match="shared memory.*bfloat16.*backend='lifted'"):
-        qc_launch_shape(big, 4, False, False)
-    assert qc_launch_shape(big, 2, False, False)[1] <= SMEM_LIMIT
+        qc_launch_shape(huge, 4, False, False)
+    assert qc_launch_shape(huge, 2, False, False) == (1024, 211_352)
+    assert qc_launch_shape(huge, 2, False, False, prior=True) == (1024, 211_352)
     # a CPU decoder runs the plain version, which has no such limit
-    pt.QCMinSumDecoder(qc.random_qc_base_matrix(24, 6, 3, 512, rng=7), 512, 0.04, 2,
+    pt.QCMinSumDecoder(qc.random_qc_base_matrix(24, 6, 3, 1024, rng=7), 1024, 0.04, 2,
                        device="cpu")
 
 
@@ -259,6 +288,29 @@ def test_two_phase_rows_match_a_numpy_recount(case):
     assert sum(terms.two_phase_rows) == want_two, name
 
 # ---- the decoder against the reference's fused kernel ------------------------
+
+
+@pytest.mark.parametrize("case", range(8))
+def test_flooding_bytes_match_a_numpy_recount(case):
+    """The flooding sweep's shared memory against counts of the lifted
+    matrix: its nonzeros (``Eb * Z`` edges), rows, columns and heaviest row
+    (which decides between two-min states and messages, and the
+    sum-product slots past :data:`HELD_EDGES`), on ``Z`` threads."""
+    name, terms, H = list(_two_phase_cases())[case]
+    H = np.asarray(H)
+    Z, (checks, bits), edges = terms.Z, H.shape, int(H.sum())
+    rw = int(H.sum(axis=1).max())
+    assert edges % Z == 0 and checks % Z == 0 and bits % Z == 0, name
+    tables = 4 * (8 * edges // Z + checks // Z + bits // Z + 2)
+    for size in (4, 2):
+        for sumprod in (False, True):
+            two_min = not sumprod and rw <= SIGN_BITS
+            state = (2 * size + 4) * checks if two_min else size * edges
+            slots = 4 * max(rw - HELD_EDGES, 0) * Z if sumprod else 0
+            want = tables + 4 * bits + state + checks + slots
+            assert qc_smem_bytes(terms, Z, size, False, sumprod) == want, (name, size, sumprod)
+            assert qc_smem_bytes(terms, Z, size, False, sumprod, prior=True) == want + 4 * bits
+            assert qc_flooding_state(terms, sumprod) == ("two_min" if two_min else "messages")
 
 
 @pytest.fixture(scope="module")
