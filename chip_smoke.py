@@ -139,7 +139,20 @@ public decoder API on ``cuda:0`` and prints, in order:
      messages), every lane against ``qc_minsum_ref`` on the same inputs
      (min-sum: all four outputs bitwise; sum-product: flags and sweeps
      bitwise, LLRs within 2**13 float32 spacings), converged lanes
-     reproducing their input;
+     reproducing their input; then (aq) the reference's six
+     functional cores, the port's builders, on bench.py's own inputs (its
+     ``default_rng(0)`` per-0.5 "hard" and per-0.01 "real" syndromes, B=1024,
+     100 iterations): ``make_bp_decode_fn`` in float32 and bfloat16 on both,
+     ``make_minsum_decode_fn`` in float32 and bfloat16 and damped (0.4, check
+     layout, ``check_every`` 8) on the hard ones (K3 and K4 100 launches
+     each), ``make_layered_minsum_fn`` at per 0.04, ``make_minsum_q_decode_fn``
+     on the hard ones, ``make_fused_bposd_fn`` OSD-0 at per 0.2 (K1) and OSD-2
+     at per 0.01 (K2), no host read: each output bitwise its decoder class's
+     on the same card tensors, every OSD output syndrome-consistent;
+     ``make_syndrome_fn`` on the Gallager code (dense) and the bb144 R=6 DEM
+     (gather) bitwise ``(err @ H.T) % 2``; each builder on 64 lanes against
+     itself with ``device="cpu"``; and bench.py's cells through the builders
+     with its formulas, each line with the card's name and power limit;
   5. steady-state rates (the QC paths' whole-decode kernel, layered and
      flooding, beside the lifted backend);
   6. a JSON line with each kernel's numbers, the card line again, and last
@@ -1272,6 +1285,240 @@ def flooding_paths(torch, pt, drive, dev, card, qc, st_data):
         raise AssertionError(f"(ap): converged {c_np.mean():.4f}")
     against_plain("ap", st.inner, dk, [full, c, i], st_pri, aux["inner"]["llrs"])
     return decs["f32"], st
+
+
+def builder_paths(torch, pt, drive, dev, card, H, graph, syn20, dem):
+    """Path (aq): the reference's six functional cores (the port's builders)
+    through the entry points ``bench.py`` calls, on the card at the main
+    path's full width: the (1000, 10, 9) code, 100 iterations, B=1024, on
+    bench.py's own draws (``default_rng(0)``: per-0.5 "hard" syndromes, then
+    per-0.01 "real" ones), (b)'s per-0.2 syndromes and (x)'s per-0.04 ones.
+    Each builder's outputs bitwise its decoder class's on the same card
+    tensors, each case under ``drive`` (its own launch counts): the min-sum
+    builder launches K3 and K4 once each an iteration, the fused builder K1
+    (OSD-0) or K2 (OSD-2) with no host read (sync debug mode "error"); BP,
+    layered, int8 and the syndrome launch none of K1-K5.  The syndrome
+    builder on both routes: the dense matmul on the Gallager code, the
+    O(edges) gather on the bb144 R=6 DEM ``dem = (graph, A, errors)``.  Then
+    each builder on 64 lanes against the same builder with ``device="cpu"``,
+    and bench.py's cells through the builders with its formulas, each with
+    the card's name and power limit."""
+    from ldpcdecoders_tpu_torch.models.bp import make_bp_decode_fn
+    from ldpcdecoders_tpu_torch.models.bposd import make_fused_bposd_fn
+    from ldpcdecoders_tpu_torch.models.layered import make_layered_minsum_fn
+    from ldpcdecoders_tpu_torch.models.minsum import make_minsum_decode_fn
+    from ldpcdecoders_tpu_torch.models.minsum_q import make_minsum_q_decode_fn
+    from ldpcdecoders_tpu_torch.ops.syndrome import SyndromeCheck, make_syndrome_fn
+
+    E = graph.n_edges
+    rng = np.random.default_rng(0)  # bench.py:41-49's draws, in its order
+    _, hard = syndromes(H, 0.5, rng)
+    _, real = syndromes(H, 0.01, rng)
+    _, syn04 = syndromes(H, 0.04, np.random.default_rng(40))  # (x)'s
+    host = {"hard": hard, "real": real, "per 0.2": syn20, "per 0.04": syn04}
+    on_card = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    lanes = {k: v[:64] for k, v in host.items()}
+    plain = ["gf2_osd0", "gf2_eliminate", "minsum_check", "minsum_var", "qc_minsum"]
+    f32, bf16 = torch.float32, torch.bfloat16
+    bp_kw = {"f32": (0.01, MAX_ITERS, f32), "bf16": (0.01, MAX_ITERS, bf16)}
+    ms_kw = {"f32": dict(dtype=f32), "bf16": dict(dtype=bf16),
+             "damped": dict(damping=0.4, layout="check", check_every=8)}
+    fused_kw = {"osd0": (0.2, MAX_ITERS, 0), "osd2": (0.01, MAX_ITERS, 2)}
+    # (case, builder, its arguments, the decoder class's call, syndromes,
+    # kernels it must launch, and how many times each)
+    cases = []
+    for what, (per, its, dt) in bp_kw.items():
+        dec = pt.BeliefPropagationDecoder(graph, per, its, dtype=dt, device=dev)
+        for which in ("hard", "real"):
+            cases.append((f"bp {what} {which}", make_bp_decode_fn, (graph, per, its, dt), {},
+                          dec.batch_decode_detailed_async, which, {}))
+    for what, kw in ms_kw.items():
+        if what == "damped":  # no decoder class takes check_every: the module
+            mod = pt.MinSumDecode(graph, 0.01, MAX_ITERS, device=dev, **kw)
+
+            def call(d, mod=mod):
+                e, c, i, llrs = mod(d)
+                return e, c, i, {"llrs": llrs}
+        else:
+            call = pt.MinSumDecoder(graph, 0.01, MAX_ITERS, device=dev,
+                                    **kw).batch_decode_detailed_async
+        cases.append((f"minsum {what} hard", make_minsum_decode_fn, (graph, 0.01, MAX_ITERS), kw,
+                      call, "hard", dict.fromkeys(FAMILY_MINSUM, MAX_ITERS)))
+    lay = pt.LayeredMinSumDecoder(graph, 0.04, MAX_ITERS, alpha=1.0, device=dev)
+    cases.append(("layered per 0.04", make_layered_minsum_fn, (graph, 0.04, MAX_ITERS), {},
+                  lay.batch_decode_detailed_async, "per 0.04", {}))
+    q8 = pt.QuantizedMinSumDecoder(graph, 0.01, MAX_ITERS, device=dev)
+    cases.append(("int8 hard", make_minsum_q_decode_fn, (graph, 0.01, MAX_ITERS), {},
+                  q8.batch_decode_detailed_async, "hard", {}))
+    for what, (per, its, order) in fused_kw.items():
+        dec = pt.BeliefPropagationOSDDecoder(graph, per, its, osd_order=order, fused=True,
+                                             device=dev)
+        kernel = "gf2_osd0" if order == 0 else "gf2_eliminate"
+        cases.append((f"fused {what}", make_fused_bposd_fn, (graph, per, its, order), {},
+                      dec.batch_decode_detailed_async, "per 0.2" if order == 0 else "real",
+                      {kernel: None}))
+
+    built = {}
+    for case, builder, args, kw, call, which, launches in cases:
+        path = f"aq {case}"
+        fn = builder(*args, device=dev, **kw)
+        built[case] = (builder, args, kw, which)
+        d = on_card[which]
+        fused = case.startswith("fused")
+        if fused:  # a synchronizing call inside the decode raises
+            fn(d)
+            torch.cuda.synchronize()
+            got = drive(path, list(launches), lambda: without_host_reads(torch, lambda: fn(d)))
+        else:
+            got = drive(path, list(launches), lambda: fn(d))
+        torch.cuda.synchronize()
+        counts = drive.counts_of(path)
+        want = call(d)
+        err = max_abs_err(torch, got, [*want[:3], *want[3].values()])
+        e, c, i = (t.cpu().numpy() for t in got[:3])
+        if fused:
+            assert_consistent(H, e, host[which], f"(aq) {case}")
+        else:
+            assert_consistent(H, e[c], host[which][c], f"(aq) {case} (converged lanes)")
+        print(f"main ({path}) {builder.__name__}{args[1:]}{' ' + str(kw) if kw else ''} on "
+              f"the {which} syndromes: max_abs_err against the decoder class {err} on all four "
+              f"outputs (bitwise required); converged {c.mean():.4f}, iterations mean "
+              f"{i.mean():.2f} max {i.max()}"
+              + (", no host read in the decode (sync debug mode 'error')" if fused else "")
+              + f" | B={B} | {card}")
+        if err:
+            raise AssertionError(f"({path}): the builder differs from its decoder class")
+        # None: at least once (drive checked it); the Gallager lanes fit a
+        # block, so the device-memory body runs for none of them
+        for k in plain:
+            want_n = launches.get(k, 0)
+            if (want_n is not None and counts[k] != want_n) or counts.get(f"{k}_global", 0):
+                raise AssertionError(f"({path}): {k} launched {counts[k]} times, {want_n} "
+                                     f"expected")
+
+    # the syndrome builder: the dense route on the Gallager code, the gather
+    # route on the bb144 DEM (27.3M entries, past the 16M-entry cutoff)
+    dem_graph, dem_A, dem_x = dem
+    errs = (np.random.default_rng(43).random((B, graph.n)) < 0.5).astype(np.float32)
+    for what, g, x, A in (("Gallager (1000, 10, 9)", graph, errs, H),
+                          ("bb144 R=6 DEM", dem_graph, dem_x[:B], dem_A)):
+        route = "dense" if SyndromeCheck(g, torch.device("cpu")).dense else "gather"
+        path = f"aq syndrome {route}"
+        fn = make_syndrome_fn(g, device=dev)
+        dx = torch.as_tensor(x, device=dev)
+        got = drive(path, [], lambda: fn(dx)).cpu().numpy()
+        want = (np.asarray(A @ x.T.astype(np.float64)).T % 2).astype(np.float32)
+        cpu = make_syndrome_fn(g, device="cpu")(x[:64]).numpy()
+        same = np.array_equal(got, want) and np.array_equal(cpu, want[:64])
+        t = event_ms(torch, lambda: fn(dx), 20)
+        print(f"main ({path}) make_syndrome_fn on the {what} ({g.m} x {g.n}, {route} route), "
+              f"{x.shape[0]} error patterns: bitwise (err @ H.T) % 2 {same}, 64 lanes of the "
+              f"CPU builder bitwise; {t:.3f} ms a call | {card}")
+        if not same or any(drive.counts_of(path)[k] for k in plain):
+            raise AssertionError(f"({path}): the syndrome differs or a kernel was launched")
+        if route != ("dense" if g is graph else "gather"):
+            raise AssertionError(f"({path}): the {what} took the {route} route")
+
+    # each builder on 64 lanes against the same builder on the CPU: BP's
+    # err / converged / iters bitwise and logp within rtol 1e-5, atol 1e-6
+    # (float32 log may differ by an ulp; in bfloat16 that ulp rounds to at
+    # most one bfloat16 spacing, rtol 2**-7); min-sum, layered and int8
+    # bitwise, but that any NaN matches any NaN: layered min-sum at alpha 1
+    # (the builder's default) overflows on lanes that never converge, and
+    # inf - inf is a NaN of another sign on the host's CPU than on the card;
+    # the fused decode bitwise on the lanes whose reliability order agrees
+    # (exp may differ by an ulp), at least 3/4 of them
+    for case, (builder, args, kw, which) in built.items():
+        want = builder(*args, device="cpu", **kw)(lanes[which])
+        got = builder(*args, device=dev, **kw)(torch.as_tensor(lanes[which], device=dev))
+        got = [t.cpu() for t in got]
+        flags = all(torch.equal(a, b) for a, b in zip(got[1:3], want[1:3]))
+        if case.startswith("bp") or case.startswith("fused"):
+            tol = dict(rtol=2.0**-7 if "bf16" in case else 1e-5, atol=1e-6)
+            soft = torch.allclose(got[3].float(), want[3].float(), **tol)
+            agree = torch.ones(got[0].shape[0], dtype=torch.bool)
+            if case.startswith("fused"):
+                agree = (reliability_order(torch, got[3])
+                         == reliability_order(torch, want[3])).all(dim=1)
+            flags = flags and torch.equal(got[0][agree], want[0][agree])
+            ok = flags and soft and agree.float().mean() >= 0.75
+            note = (f"err/converged/iters bitwise {flags}, logp within {tol}: {soft}"
+                    + (f" (err on the {int(agree.sum())} lanes whose reliability order agrees)"
+                       if case.startswith("fused") else ""))
+        else:
+            ok = flags and torch.equal(got[0], want[0]) and bitwise_but_nan(torch, got[3], want[3])
+            nan = int(got[3].isnan().sum()) if got[3].is_floating_point() else 0
+            note = (f"err/converged/iters/llrs bitwise {ok}"
+                    + (f" ({nan} NaN LLRs on both, any NaN matching any NaN)" if nan else ""))
+        print(f"main (aq {case}) card against the CPU builder, 64 lanes of the {which} "
+              f"syndromes: {note}")
+        if not ok:
+            raise AssertionError(f"(aq {case}): the card differs from the CPU")
+
+    # bench.py's cells through the builders, with its formulas: each behind
+    # torch.cuda.synchronize(), each with the card's name and power limit
+    def edge_rate(what, fn, d):
+        t, out = wall_s(torch, lambda: fn(d), 3)
+        iters = int(out[2].max()) or MAX_ITERS
+        print(f"rate (aq) {what}: {B * iters * E / t:.4e} edge-iterations/s ({iters} "
+              f"iterations, {t * 1e3:.2f} ms/batch) | B={B} | {card_line()}")
+
+    def pipelined(what, fn, d, k=8):
+        fn(d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [fn(d) for _ in range(k)]
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        print(f"rate (aq) {what}, {k} batches in flight: {k * B / t:.1f} syndromes/s "
+              f"(converged {outs[-1][1].float().mean():.4f}) | B={B} | {card_line()}")
+
+    bp32 = make_bp_decode_fn(graph, 0.01, MAX_ITERS, device=dev)
+    edge_rate("make_bp_decode_fn float32 per 0.5", bp32, on_card["hard"])
+    t, out = wall_s(torch, lambda: bp32(on_card["real"]), 3)
+    print(f"rate (aq) make_bp_decode_fn float32 per 0.01: {B / t:.1f} syndromes/s "
+          f"({t * 1e3:.2f} ms/batch, converged {out[1].float().mean():.4f}) | B={B} | "
+          f"{card_line()}")
+    pipelined("make_bp_decode_fn float32 per 0.01", bp32, on_card["real"])
+    edge_rate("make_minsum_q_decode_fn int8 per 0.5",
+              make_minsum_q_decode_fn(graph, 0.01, MAX_ITERS, device=dev), on_card["hard"])
+    edge_rate("make_minsum_decode_fn bfloat16 per 0.5",
+              make_minsum_decode_fn(graph, 0.01, MAX_ITERS, dtype=bf16, device=dev),
+              on_card["hard"])
+    edge_rate("make_bp_decode_fn bfloat16 per 0.5",
+              make_bp_decode_fn(graph, 0.01, MAX_ITERS, bf16, device=dev), on_card["hard"])
+    pipelined("make_fused_bposd_fn OSD-0 per 0.01",
+              make_fused_bposd_fn(graph, 0.01, MAX_ITERS, 0, device=dev), on_card["real"])
+
+
+def bitwise_but_nan(torch, a, b):
+    """``a`` and ``b`` bit for bit, but that a NaN matches any NaN (at the
+    same places)."""
+    if a.is_floating_point():
+        nan = a.isnan()
+        if not torch.equal(nan, b.isnan()):
+            return False
+        a, b = a[~nan], b[~nan]
+    return max_abs_err(torch, [a], [b]) == 0
+
+
+def without_host_reads(torch, fn):
+    """``fn()`` under torch's sync debug mode "error": a synchronizing call
+    (a host read of the card's work) raises.  (The "warn" mode of
+    :func:`host_reads` also counts one call at its first use in a process
+    that "error" does not raise on.)"""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def reliability_order(torch, logp):
+    """The OSD's column order of each lane: ``max(p, 1 - p)``, ``p =
+    exp(logp)``, stable descending."""
+    p = torch.exp(logp.float())
+    return torch.argsort(-torch.maximum(p, 1 - p), dim=1, stable=True)
 
 
 def launch_wrappers():
@@ -2410,6 +2657,7 @@ def main() -> int:
                    path_launches)
     qflood, st_flood = flooding_paths(torch, pt, drive, dev, card, (base_qc, Hq, qsyn),
                                       (st_det, st_pri))
+    builder_paths(torch, pt, drive, dev, card, H, graph, syn20, (dem_graph, dem_A, dem_x))
 
     # in the summary, ``launches`` is the count of the first path that must
     # launch the kernel; ``launches_by_path`` has every path's own count

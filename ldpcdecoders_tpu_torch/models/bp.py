@@ -27,7 +27,7 @@ from ..ops.syndrome import SyndromeCheck
 from .base import Decoder, resolve_device
 from .priors import per_to_ratio
 
-__all__ = ["BeliefPropagationDecoder", "BPDecode"]
+__all__ = ["BeliefPropagationDecoder", "BPDecode", "make_bp_decode_fn"]
 
 
 def as_graph(H) -> TannerGraph:
@@ -40,7 +40,8 @@ class BPDecode(torch.nn.Module):
     (the counterpart of the reference's ``make_bp_decode_fn``).
 
     ``ratio`` overrides the channel prior (probability-ratio domain,
-    scalar, ``[n]`` or ``[B, n]``) for one call.  ``early_exit=False``
+    scalar, ``[n]`` or ``[B, n]``; a number, numpy array or tensor) for one
+    call.  ``early_exit=False``
     runs every iteration with no host read (the fused BP+OSD).
     """
 
@@ -95,8 +96,9 @@ class BPDecode(torch.nn.Module):
 
     def forward(self, syndromes: torch.Tensor, ratio: torch.Tensor | None = None, *,
                 early_exit: bool = True):
-        channel_ratio = self.default_ratio if ratio is None else ratio
         B, n, device = syndromes.shape[0], self.n, syndromes.device
+        channel_ratio = (self.default_ratio if ratio is None else
+                         torch.as_tensor(ratio, device=device).to(self.dtype))
         syn_f = syndromes.to(torch.float32)
         syn_sign = (1.0 - 2.0 * syn_f).to(self.dtype)
 
@@ -124,6 +126,26 @@ class BPDecode(torch.nn.Module):
             it += 1
         iters = torch.where(done, iters, it).to(torch.int32)
         return err.to(torch.int8), done, iters, logp
+
+
+def make_bp_decode_fn(graph: TannerGraph, per, max_iters: int, dtype=torch.float32, *,
+                      device=None):
+    """Build ``decode(syndromes [B, m], channel_ratio=None) -> (err int8,
+    converged bool, iters int32, logp)``, the reference's functional core,
+    running :class:`BPDecode` on ``device`` (None: the current CUDA card).
+
+    ``dtype`` is a torch dtype (``torch.float32``, ``torch.bfloat16``) where
+    the reference takes a jnp one.  ``syndromes`` and ``channel_ratio`` (the
+    probability-ratio prior: scalar, ``[n]`` or ``[B, n]``) may be numbers,
+    numpy arrays or tensors; they are moved to ``device``.
+    """
+    bp = BPDecode(graph, per, max_iters, device=device, dtype=dtype)
+    device = bp.var_mask.device
+
+    def decode(syndromes, channel_ratio=None):
+        return bp(torch.as_tensor(syndromes, device=device), channel_ratio)
+
+    return decode
 
 
 class BeliefPropagationDecoder(Decoder):

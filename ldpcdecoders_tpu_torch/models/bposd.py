@@ -28,8 +28,9 @@ Counterpart of ``ldpcdecoders_tpu/models/bposd.py``:
 always syndrome-consistent for OSD-0, and for OSD-w whenever H's rows span
 the syndrome.
 
-``fused=True`` (the reference's ``make_fused_bposd_fn``) makes one decode
-device work with no host read: the inner decoder runs all ``max_iters``
+``fused=True`` (:class:`FusedBPOSD`, which :func:`make_fused_bposd_fn`,
+the reference's functional core, also builds) makes one decode device work
+with no host read: the inner decoder runs all ``max_iters``
 iterations (converged lanes freeze their outputs, so these are the eager
 loop's), and the OSD runs on every lane, its output kept where the inner
 decoder failed (OSD-0, OSD-w under ``osd_scope="failed"``: the
@@ -51,7 +52,8 @@ from .bp import BPDecode, as_graph
 from .minsum import MinSumDecode, MinSumDecoder
 from .priors import next_pow2
 
-__all__ = ["BeliefPropagationOSDDecoder", "OSD", "make_osd_fns"]
+__all__ = ["BeliefPropagationOSDDecoder", "OSD", "FusedBPOSD", "make_osd_fns",
+           "make_fused_bposd_fn"]
 
 
 def _make_inner(graph, per, max_iters, inner, damping, device):
@@ -189,6 +191,66 @@ def make_osd_fns(graph, osd_order: int, *, device, osd_method: str = "exhaustive
     return osd.osd0_batch, osd.osdw_batch
 
 
+class FusedBPOSD(torch.nn.Module):
+    """``forward(syndromes [B, m], ratio=None) -> (err int8, converged bool,
+    iters int32, logp)``: BP+OSD as device work with no host read, the one
+    fused decode of :func:`make_fused_bposd_fn` and of
+    ``BeliefPropagationOSDDecoder(fused=True)``.
+
+    ``inner`` (a :class:`BPDecode` or :class:`MinSumDecode`) runs all its
+    ``max_iters`` iterations; ``ratio`` is its prior override.  The OSD runs
+    on every lane: with ``osd.osd_order > 0`` and ``osd_scope="all"`` its
+    output is kept everywhere, otherwise only where the inner decoder failed
+    (the reference's ``lax.cond`` on ``all(converged)`` becomes a
+    ``torch.where``; the outputs are the same).
+    """
+
+    def __init__(self, inner, osd: OSD, osd_scope: str = "all"):
+        super().__init__()
+        self.inner, self.osd, self.osd_scope = inner, osd, osd_scope
+
+    def forward(self, syndromes, ratio=None):
+        bp_err, converged, iters, logp = self.inner(syndromes, ratio, early_exit=False)
+        if self.osd.osd_order > 0 and self.osd_scope == "all":
+            corr = self.osd.osdw_batch(syndromes, bp_err, logp)
+            return corr.to(torch.int8), converged, iters, logp
+        post = self.osd.osd0_batch if self.osd.osd_order == 0 else self.osd.osdw_batch
+        corr = post(syndromes, bp_err, logp).to(torch.int8)
+        return torch.where(converged[:, None], bp_err, corr), converged, iters, logp
+
+
+def make_fused_bposd_fn(graph, per, max_iters: int, osd_order: int, *, use_pallas: bool = False,
+                        osd_scope: str = "all", inner=None, osd_method: str = "exhaustive",
+                        damping: float = 0.0, device=None):
+    """Build ``decode(syndromes [B, m], ratio=None) -> (err int8, converged
+    bool, iters int32, logp)``, the reference's functional core: one
+    :class:`FusedBPOSD` on ``device`` (None: the current CUDA card).  On a
+    CUDA device the OSD runs the hand-written elimination kernels (OSD-0:
+    ``gf2_osd0``; OSD-w: ``gf2_eliminate``).
+
+    ``inner`` is ``"sumproduct"`` (or None), ``"minsum"`` (with
+    ``damping``), or a :class:`MinSumDecoder` on the same code and device;
+    ``ratio`` is a prior in its domain (probability ratio for sum-product,
+    LLR for min-sum).  ``use_pallas`` is the reference's TPU knob, accepted
+    and ignored.  As in the reference, ``osd_order`` is not clamped to the
+    information-set size (the decoder class clamps it).  ``syndromes`` and
+    ``ratio`` may be numbers, numpy arrays or tensors; they are moved to
+    ``device``.
+    """
+    del use_pallas
+    if osd_method not in ("exhaustive", "combination_sweep"):
+        raise ValueError(
+            f"osd_method must be 'exhaustive' or 'combination_sweep', got {osd_method!r}")
+    device = resolve_device(device)
+    fused = FusedBPOSD(_make_inner(graph, per, max_iters, inner, damping, device),
+                       OSD(graph, osd_order, device=device, osd_method=osd_method), osd_scope)
+
+    def decode(syndromes, ratio=None):
+        return fused(torch.as_tensor(syndromes, device=device), ratio)
+
+    return decode
+
+
 class BeliefPropagationOSDDecoder(Decoder):
     """BP with OSD post-processing; output is always syndrome-consistent.
 
@@ -306,6 +368,7 @@ class BeliefPropagationOSDDecoder(Decoder):
         # the device OSD's tables: the host route packs its own columns
         self.osd = (None if osd_impl == "host" else
                     OSD(self.graph, self.osd_order, device=self.device, osd_method=osd_method))
+        self.fused_decode = FusedBPOSD(self.bp, self.osd, osd_scope) if self.fused else None
 
     def _host_osd0(self, syn_np, bp_np, logp_np):
         """Native OSD on a compacted lane subset (original-order I/O):
@@ -332,15 +395,11 @@ class BeliefPropagationOSDDecoder(Decoder):
 
     def _decode_batch(self, syndromes, seed: int = 0, per=None):
         prior = None if per is None else self.bp.as_prior(per)
-        bp_err, converged, iters, logp = self.bp(syndromes, prior, early_exit=not self.fused)
-        aux = {"log_probabs": logp}
         if self.fused:
-            if self.osd_order > 0 and self.osd_scope == "all":
-                corr = self.osd.osdw_batch(syndromes, bp_err, logp)
-                return corr.to(torch.int8), converged, iters, aux
-            post = self.osd.osd0_batch if self.osd_order == 0 else self.osd.osdw_batch
-            corr = post(syndromes, bp_err, logp).to(torch.int8)
-            return torch.where(converged[:, None], bp_err, corr), converged, iters, aux
+            err, converged, iters, logp = self.fused_decode(syndromes, prior)
+            return err, converged, iters, {"log_probabs": logp}
+        bp_err, converged, iters, logp = self.bp(syndromes, prior)
+        aux = {"log_probabs": logp}
         host = self.osd_impl == "host"
         if self.osd_order > 0 and self.osd_scope == "all" and not host:
             corr = self.osd.osdw_batch(syndromes, bp_err, logp)

@@ -41,7 +41,8 @@ from .bp import as_graph
 from .minsum import from_reference_params
 from .priors import per_to_llr
 
-__all__ = ["LayeredMinSumDecoder", "LayeredMinSumDecode", "build_layers"]
+__all__ = ["LayeredMinSumDecoder", "LayeredMinSumDecode", "build_layers",
+           "make_layered_minsum_fn"]
 
 
 def build_layers(graph: TannerGraph):
@@ -161,6 +162,27 @@ class LayeredMinSumDecode(torch.nn.Module):
             it += 1
         iters = torch.where(done, iters, it).to(torch.int32)
         return err.to(torch.int8), done, iters, total
+
+
+def make_layered_minsum_fn(graph: TannerGraph, per, max_iters: int, *, alpha=1.0, beta=0.0,
+                           dtype=torch.float32, damping: float = 0.0, device=None):
+    """Build ``decode(syndromes [B, m], L0=None) -> (err int8, converged
+    bool, sweeps int32, llr)``, the reference's functional core, running
+    :class:`LayeredMinSumDecode` on ``device`` (None: the current CUDA card).
+
+    ``max_iters`` counts full sweeps.  ``dtype`` is a torch dtype where the
+    reference takes a jnp one.  ``syndromes`` and ``L0`` (scalar, ``[n]`` or
+    ``[B, n]``) may be numbers, numpy arrays or tensors; they are moved to
+    ``device``.
+    """
+    layered = LayeredMinSumDecode(graph, per, max_iters, device=device, alpha=alpha, beta=beta,
+                                  dtype=dtype, damping=damping)
+    device = layered.default_L0.device
+
+    def decode(syndromes, L0=None):
+        return layered(torch.as_tensor(syndromes, device=device), L0)
+
+    return decode
 
 
 class LayeredMinSumDecoder(Decoder):

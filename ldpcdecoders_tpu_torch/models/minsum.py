@@ -40,7 +40,7 @@ from .base import Decoder, resolve_device
 from .bp import as_graph
 from .priors import per_to_llr
 
-__all__ = ["MinSumDecoder", "MinSumDecode", "from_reference_params"]
+__all__ = ["MinSumDecoder", "MinSumDecode", "from_reference_params", "make_minsum_decode_fn"]
 
 _BIG_MISMATCH = 1 << 30
 
@@ -257,6 +257,38 @@ class MinSumDecode(torch.nn.Module):
             # report their least-inconsistent iterate
             err, llrs = berr, bllr
         return err.to(torch.int8), done, iters, llrs
+
+
+def make_minsum_decode_fn(graph: TannerGraph, per, max_iters: int, *, alpha=1.0, beta=0.0,
+                          dtype=torch.float32, use_pallas: bool = False,
+                          pallas_interpret: bool = False, edge_weights=None,
+                          damping: float = 0.0, check_every: int = 1,
+                          lane_damping: bool = False, vectorized_check: bool | None = None,
+                          layout: str = "var", track_best: bool = False, device=None):
+    """Build ``decode(syndromes [B, m], L0=None, gamma=None) -> (err int8,
+    converged bool, iters int32, llrs)``, the reference's functional core,
+    running :class:`MinSumDecode` (its knobs are documented there) on
+    ``device`` (None: the current CUDA card).  On a CUDA device every
+    iteration runs the hand-written check and variable kernels.
+
+    ``dtype`` is a torch dtype (``torch.float32``, ``torch.bfloat16``) where
+    the reference takes a jnp one.  The reference's TPU knobs are accepted
+    and ignored: ``use_pallas`` / ``pallas_interpret`` (the kernels always
+    run on a card, and the prior may be overridden either way) and
+    ``vectorized_check`` (the reference's two check forms are bit-identical).
+    ``syndromes``, ``L0`` (scalar, ``[n]`` or ``[B, n]``) and ``gamma`` may be
+    numbers, numpy arrays or tensors; they are moved to ``device``.
+    """
+    del use_pallas, pallas_interpret, vectorized_check
+    ms = MinSumDecode(graph, per, max_iters, device=device, alpha=alpha, beta=beta, dtype=dtype,
+                      edge_weights=edge_weights, damping=damping, check_every=check_every,
+                      lane_damping=lane_damping, layout=layout, track_best=track_best)
+    device = ms.var_mask.device
+
+    def decode(syndromes, L0=None, gamma=None):
+        return ms(torch.as_tensor(syndromes, device=device), L0, gamma)
+
+    return decode
 
 
 class MinSumDecoder(Decoder):

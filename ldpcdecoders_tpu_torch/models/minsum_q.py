@@ -26,7 +26,7 @@ from .base import Decoder, resolve_device
 from .bp import as_graph
 from .priors import per_to_quantized_llr
 
-__all__ = ["QuantizedMinSumDecoder", "QuantizedMinSumDecode"]
+__all__ = ["QuantizedMinSumDecoder", "QuantizedMinSumDecode", "make_minsum_q_decode_fn"]
 
 _Q_MAX = 127
 
@@ -35,7 +35,8 @@ class QuantizedMinSumDecode(torch.nn.Module):
     """``forward(syndromes [B, m], L0q=None) -> (err int8, converged bool,
     iters int32, llr_q int32)``: the counterpart of the reference's
     ``make_minsum_q_decode_fn``.  ``L0q`` overrides the quantized channel
-    LLR (a Python int) for one call."""
+    LLR for one call: an integer scalar, ``[n]`` or ``[B, n]`` (a number,
+    numpy array or tensor, taken as int32 as the reference takes it)."""
 
     def __init__(self, graph: TannerGraph, per: float, max_iters: int, *, device,
                  scale: float = 4.0, beta_q: int = 1):
@@ -85,13 +86,16 @@ class QuantizedMinSumDecode(torch.nn.Module):
         return nu.to(torch.int8), total
 
     def forward(self, syndromes: torch.Tensor, L0q=None):
-        L0q = self.default_L0q if L0q is None else int(L0q)
         B, n, device = syndromes.shape[0], self.n, syndromes.device
+        L0q = torch.as_tensor(self.default_L0q if L0q is None else L0q,
+                              device=device).to(torch.int32)
         syn_f = syndromes.to(torch.float32)
         syn_flip = syndromes.to(torch.bool)
-        nu = torch.full((B, self.max_dv, n), L0q, dtype=torch.int8, device=device)
+        # scalar, [n] or per-lane [B, n]: the slot axis goes before n
+        nu = torch.broadcast_to((L0q[..., None, :] if L0q.ndim else L0q).to(torch.int8),
+                                (B, self.max_dv, n)).contiguous()
         err = torch.zeros((B, n), dtype=torch.float32, device=device)
-        llr = torch.full((B, n), L0q, dtype=torch.int32, device=device)
+        llr = torch.broadcast_to(L0q, (B, n)).contiguous()
         done = torch.zeros((B,), dtype=torch.bool, device=device)
         iters = torch.zeros((B,), dtype=torch.int32, device=device)
         it = 0
@@ -107,6 +111,23 @@ class QuantizedMinSumDecode(torch.nn.Module):
             it += 1
         iters = torch.where(done, iters, it).to(torch.int32)
         return err.to(torch.int8), done, iters, llr
+
+
+def make_minsum_q_decode_fn(graph: TannerGraph, per: float, max_iters: int, *,
+                            scale: float = 4.0, beta_q: int = 1, device=None):
+    """Build ``decode(syndromes [B, m], L0q=None) -> (err int8, converged
+    bool, iters int32, llr_q int32)``, the reference's functional core,
+    running :class:`QuantizedMinSumDecode` on ``device`` (None: the current
+    CUDA card).  ``syndromes`` and ``L0q`` may be numbers, numpy arrays or
+    tensors; they are moved to ``device``.
+    """
+    q = QuantizedMinSumDecode(graph, per, max_iters, device=device, scale=scale, beta_q=beta_q)
+    device = q.var_mask.device
+
+    def decode(syndromes, L0q=None):
+        return q(torch.as_tensor(syndromes, device=device), L0q)
+
+    return decode
 
 
 class QuantizedMinSumDecoder(Decoder):

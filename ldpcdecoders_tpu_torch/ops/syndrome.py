@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["syndrome_of", "syndrome_matches", "SyndromeCheck"]
+__all__ = ["syndrome_of", "syndrome_matches", "SyndromeCheck", "make_syndrome_fn"]
 
 # Dense-H cutoff: 16M entries is a 64 MB float32 H^T, small beside the
 # card's memory and the [B, E] message state, while the matmul replaces a
@@ -64,3 +64,21 @@ class SyndromeCheck(torch.nn.Module):
         g = torch.where(self.chk_mask, g, torch.zeros((), dtype=g.dtype, device=g.device))
         return torch.remainder(g.sum(dim=1), 2.0)
 
+
+
+def make_syndrome_fn(graph, *, device=None):
+    """Build ``syndrome_from(err [B, n] float 0/1) -> syndrome [B, m] float
+    0/1``, the reference's functional core, running :class:`SyndromeCheck`
+    (the dense matmul up to the cutoff, else the O(edges) gather) on
+    ``device`` (None: the current CUDA card).  ``err`` may be a numpy array
+    or a tensor; it is moved to ``device`` as float32.
+    """
+    from ..models.base import resolve_device  # models imports this module
+
+    device = resolve_device(device)
+    check = SyndromeCheck(graph, device)
+
+    def syndrome_from(err):
+        return check(torch.as_tensor(err, dtype=torch.float32, device=device))
+
+    return syndrome_from

@@ -8,6 +8,7 @@ imports no JAX, so it also runs on a machine without it:
 (``--noconftest`` skips tests/conftest.py, which configures JAX.)
 """
 
+import dataclasses
 import itertools
 from pathlib import Path
 
@@ -1348,3 +1349,76 @@ def test_one_rank_nccl_sharded_decodes_launch_k1_and_k3(dev, nccl_group):
     assert cuda_minsum.minsum_var_cuda.launches > before[1]
     assert np.array_equal(c, c0) and np.array_equal(i, i0)
     assert np.array_equal(e[c], e0[c])
+
+
+BUILDERS = ["make_bp_decode_fn", "make_minsum_decode_fn", "make_layered_minsum_fn",
+            "make_minsum_q_decode_fn", "make_fused_bposd_fn", "make_syndrome_fn"]
+
+
+@pytest.mark.parametrize("name", BUILDERS)
+def test_builder_on_card_matches_cpu(dev, name):
+    """Each of the reference's functional cores, built on the card and with
+    ``device="cpu"``, on the same 64 lanes: BP's err / converged / iters
+    bitwise and logp within rtol 1e-5, atol 1e-6 (float32 log may differ by
+    an ulp); min-sum (damped, check layout: K3's iteration form and K4),
+    layered, int8 and the syndrome (both routes) bitwise; the fused BP+OSD-0
+    converged / iters bitwise and err bitwise on the lanes whose reliability
+    order agrees (at least 3/4), every output syndrome-consistent."""
+    from ldpcdecoders_tpu_torch.models import bp, bposd, layered, minsum, minsum_q
+    from ldpcdecoders_tpu_torch.ops import syndrome
+
+    H = pt.parity_check_matrix(240, 8, 4, rng=17)
+    graph = pt.TannerGraph.from_pcm(H)
+    rng = np.random.default_rng(64)
+    errs = rng.random((64, 240)) < 0.06
+    syn = ((errs @ H.T) % 2).astype(np.uint8)
+
+    def both(build, x, *args, **kw):
+        cpu = build(*args, device="cpu", **kw)(x)
+        card = build(*args, device=dev, **kw)(torch.as_tensor(x, device=dev))
+        torch.cuda.synchronize()
+        if isinstance(card, torch.Tensor):
+            return cpu, card.cpu()
+        return cpu, [t.cpu() for t in card]
+
+    if name == "make_syndrome_fn":
+        x = errs.astype(np.float32)
+        for g in (graph, dataclasses.replace(graph, H=None)):
+            cpu, card = both(syndrome.make_syndrome_fn, x, g)
+            assert torch.equal(card, cpu)
+            assert np.array_equal(card.numpy(), (x @ H.T) % 2)
+        return
+    module = {"make_bp_decode_fn": bp, "make_minsum_decode_fn": minsum,
+              "make_layered_minsum_fn": layered, "make_minsum_q_decode_fn": minsum_q,
+              "make_fused_bposd_fn": bposd}[name]
+    args = (graph, 0.06, 30) + ((0,) if name == "make_fused_bposd_fn" else ())
+    kw = {}
+    if name == "make_minsum_decode_fn":
+        kw = dict(damping=0.4, layout="check", check_every=8)
+    counted = (cuda_minsum.minsum_check_iter_cuda, cuda_minsum.minsum_var_iter_cuda,
+               cuda_gf2.gf2_osd0_cuda)
+    before = [w.launches for w in counted]
+    want, got = both(getattr(module, name), syn, *args, **kw)
+    after = [w.launches for w in counted]
+    assert not bool(want[1].all()) and bool(want[1].any())
+    for a, b in zip(got[1:3], want[1:3]):
+        assert torch.equal(a, b)
+    if name == "make_minsum_decode_fn":
+        assert after[0] > before[0] and after[1] > before[1]
+    if name not in ("make_bp_decode_fn", "make_fused_bposd_fn"):
+        for a, b in ((got[0], want[0]), (got[3], want[3])):
+            assert torch.equal(bits(a) if a.is_floating_point() else a,
+                               bits(b) if b.is_floating_point() else b)
+        return
+    torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=1e-6)
+    agree = torch.ones(64, dtype=torch.bool)
+    if name == "make_fused_bposd_fn":
+        assert after[2] > before[2]
+        assert (((got[0].numpy().astype(np.int64) @ H.T) % 2) == syn).all()
+        orders = []
+        for lp in (got[3], want[3]):
+            p = torch.exp(lp)
+            orders.append(torch.argsort(-torch.maximum(p, 1 - p), dim=1, stable=True))
+        agree = (orders[0] == orders[1]).all(dim=1)
+        assert agree.float().mean() >= 0.75
+    assert torch.equal(got[0][agree], want[0][agree])
