@@ -21,7 +21,11 @@ public decoder API on ``cuda:0`` and prints, in order:
      incidence (its ``library_ms``); K3/K4 also at the bb144 R=6 DEM's shape
      in the forms the staged decoder's iteration launches (K3 rebuilding,
      damping and updating in place, staged and flat; K4 with the freeze), on
-     the real slots; the eliminations with the panel width and shared
+     the real slots, and the same forms and K3's first iteration on lane
+     tiles (the check layout's state as ``MinSumDecode`` keeps it: 128
+     lanes at these batches), untiled and held against the plain
+     lane-major versions, each with its lane-major time beside it; the
+     eliminations with the panel width and shared
      memory the launcher reports (``ldpc_gf2_plan`` of the built library,
      which must equal ``cuda_gf2.launch_plan``), and their times at 128
      lanes and with the panel capped at 4, 2 and 1 columns; and (PR 10) the
@@ -53,7 +57,9 @@ public decoder API on ``cuda:0`` and prints, in order:
      ``run_eval`` (4096 and 2048 shots): every OSD output consistent, (p)'s
      Wilson interval overlapping the reference's 149/16,384, (q) at most 8
      failures, with the wall split between stage 0, deep, relay and the
-     host OSD, and a stage-0 batch's and a flagship deep bucket's device
+     host OSD, K3/K4 launched on lane tiles (counted apart as
+     ``minsum_check_tiled`` / ``minsum_var_tiled``, as in (r), (s)), and a
+     stage-0 batch's and a flagship deep bucket's device
      time and launches per min-sum iteration (``torch.profiler``) beside
      their peak memory; then the evaluation harness (harness.py) through its
      entry points: (t) ``FERSweep`` with BP+OSD-0 on the (1000, 10, 9) code
@@ -1542,16 +1548,15 @@ def zero_counts(wrappers, routed):
     for ws in wrappers.values():
         for w in ws:
             w.launches = 0
-    for w in routed.values():
-        w.routes.update({"shared": 0, "global": 0, "global_v1": 0})
-    qc = wrappers["qc_minsum"][0]
-    qc.routes.update(dict.fromkeys(qc.routes, 0))
+            w.routes.update(dict.fromkeys(w.routes, 0))
 
 
 def read_counts(wrappers, routed, path):
     """Each kernel's launches since :func:`zero_counts`; K1/K2 and K5 also
-    by body."""
+    by body, K3/K4 also those on lane tiles (``<kernel>_tiled``)."""
     counts = {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
+    for k in FAMILY_MINSUM:
+        counts[f"{k}_tiled"] = sum(w.routes["lane_tiled"] for w in wrappers[k])
     for k, w in routed.items():
         counts[k] = w.routes["shared"]
         counts[f"{k}_global"] = w.routes["global"]
@@ -1769,6 +1774,7 @@ def main() -> int:
         return 1
     import ldpcdecoders_tpu_torch as pt
     from ldpcdecoders_tpu_torch import _build
+    from ldpcdecoders_tpu_torch.models.minsum import lane_tile_for
     from ldpcdecoders_tpu_torch.models.priors import per_to_llr
     from ldpcdecoders_tpu_torch.ops import cuda_gf2, cuda_minsum, cuda_qc, gf2
     from ldpcdecoders_tpu_torch.ops import minsum as plain_minsum
@@ -2253,7 +2259,98 @@ def main() -> int:
         kernels["minsum_var"]["variants"][f"bb144 {tag} totals and freeze"] = {
             "ms": ms4, "totals_only_ms": ms4_totals, "plain_ms": plain4, "bound_ms": b4[0],
             "bound_by": b4[1], "library_ms": lib4}
-        del outs, mu0, total0, nu0
+
+        # the same forms on lane tiles, the state as MinSumDecode keeps
+        # it in the check layout (the batch's tile, lane_tile_for): K3's first
+        # iteration (gathered from L0), its iteration form and K4's totals
+        # with the freeze, each untiled and held against the plain lane-major
+        # version; the same work, so the same bounds (the first iteration: L0
+        # read once, every slot of mu written, 14 operations an edge)
+        T = lane_tile_for(lanes)
+
+        def tile(t, T=T):
+            return t if t.ndim == 0 else plain_minsum.tile_lanes(t, T)
+
+        def untile(t, T=T, lanes=lanes):
+            return plain_minsum.untile_lanes(t, T)[:lanes]
+
+        kt = dict(lane_tile=T)
+        flip_t, L0_t, gam_t, total0_t = tile(flip), tile(L0), tile(gam), tile(total0)
+        first = (lambda L0_t=L0_t, flip_t=flip_t, ms=ms, kw3=kw3:
+                 cuda_minsum.minsum_check_cuda(L0_t, ms.chk_varidx, flip_t, ms.chk_mask,
+                                               ms.alpha, 0.0, **kw3, **kt))
+        first_plain = (lambda L0=L0, flip=flip, ms=ms: plain_minsum.check_update_ref(
+            L0, ms.chk_varidx, flip, ms.chk_mask, ms.alpha, 0.0))
+        err1 = max_abs_err(torch, [untile(first())], [first_plain()])
+        b1 = bound(nbytes(L0, flip, ms.chk_varidx, ms.chk_deg, mu0), 14 * lanes * E,
+                   PEAK_F32_OPS_PER_S)
+        row1 = {"ms": event_ms(torch, first, 10), "plain_ms": event_ms(torch, first_plain, 2),
+                "bound_ms": b1[0], "bound_by": b1[1], "max_abs_err": err1}
+        state = [mu0.clone(), nu0.clone()]
+        plain_minsum.check_iter_ref(state[0], total0, cvi, flip, ms.chk_mask, ms.alpha, 0.0, gam,
+                                    state[1])
+        want = [t.reshape(lanes, -1)[:, real] for t in state]
+        state = [tile(mu0), tile(nu0)]
+        k3t = (lambda state=state, ms=ms, flip_t=flip_t, gam_t=gam_t, total0_t=total0_t,
+               kw3=kw3: cuda_minsum.minsum_check_iter_cuda(
+                   state[0], total0_t, ms.chk_varidx, flip_t, ms.chk_mask, ms.alpha, 0.0,
+                   gamma=gam_t, nu=state[1], **kw3, **kt))
+        k3t()
+        err3t = max_abs_err(torch, [untile(t).reshape(lanes, -1)[:, real] for t in state], want)
+        del want
+        row3 = {"ms": event_ms(torch, k3t, 5), "lane_major_ms": times[None],
+                "plain_ms": plain_ms, "bound_ms": b3[0], "bound_by": b3[1], "max_abs_err": err3t}
+        del state
+        done_t = tile(done)
+        tot_t = tile(torch.empty_like(L0))
+        err_tt = tile(torch.zeros_like(L0, dtype=torch.float32))
+        llrs_t = tile(L0)
+        mu0_t = tile(mu0.reshape(lanes, -1))
+        k4t = (lambda mu0_t=mu0_t, L0_t=L0_t, tot_t=tot_t, done_t=done_t, err_tt=err_tt,
+               llrs_t=llrs_t, ms=ms, kw4=kw4: cuda_minsum.minsum_var_iter_cuda(
+                   mu0_t, ms.v2c, ms.var_mask, L0_t, total=tot_t, done=done_t, err=err_tt,
+                   llrs=llrs_t, **kw4, **kt))
+        k4t()
+        err4t = max_abs_err(torch, [untile(t) for t in (tot_t, err_tt, llrs_t)],
+                            outs["plain"][0])
+        row4 = {"ms": event_ms(torch, k4t, 10), "lane_major_ms": ms4,
+                "totals_only_ms": event_ms(torch, lambda mu0_t=mu0_t, L0_t=L0_t, tot_t=tot_t,
+                                           ms=ms, kw4=kw4: cuda_minsum.minsum_var_iter_cuda(
+                                               mu0_t, ms.v2c, ms.var_mask, L0_t, total=tot_t,
+                                               **kw4, **kt), 10),
+                "plain_ms": plain4, "bound_ms": b4[0], "bound_by": b4[1], "library_ms": lib4,
+                "max_abs_err": err4t}
+        del mu0_t, tot_t, err_tt, llrs_t
+        for name, what, row, lib in (
+                ("minsum_check", "first iteration (gathered from L0)", row1, None),
+                ("minsum_check", "iteration form", row3, None),
+                ("minsum_var", "totals and freeze", row4, lib4)):
+            print(f"kernel {name} bb144 {tag} lane-tiled T={T} {what}: max_abs_err "
+                  f"{row['max_abs_err']} (bitwise required, untiled against the plain lane-major "
+                  f"version) | kernel {row['ms']:.3f} ms"
+                  + (f" (lane-major {row['lane_major_ms']:.3f} ms)" if "lane_major_ms" in row
+                     else "")
+                  + (f" (the totals alone {row['totals_only_ms']:.3f} ms)"
+                     if "totals_only_ms" in row else "")
+                  + f" | plain torch {row['plain_ms']:.3f} ms | bound {row['bound_ms']:.4f} ms by "
+                  f"{row['bound_by']} | library call: "
+                  + ("none" if lib is None else f"torch.sparse.mm {lib:.3f} ms")
+                  + f" | {shape_d} | {card}")
+            if row["max_abs_err"] != 0:
+                raise AssertionError(f"{name} bb144 {tag} lane-tiled {what}: kernel differs from "
+                                     "its plain version")
+            key = f"{name}_tiled"
+            if key not in kernels:  # the first shape's main form is the entry's
+                kernels[key] = {"name": key, "route": "cuda", "source": minsum_src,
+                                "replaces": kernels[name]["replaces"], "max_abs_err": 0,
+                                "library_ms": None, "variants": {}}
+            if "ms" not in kernels[key] and what != "first iteration (gathered from L0)":
+                kernels[key].update({k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                         "bound_by")},
+                                    library_ms=lib, shape=f"bb144 {tag}")
+            kernels[key]["max_abs_err"] = max(kernels[key]["max_abs_err"], row["max_abs_err"])
+            kernels[key]["variants"][f"bb144 {tag} {what}"] = dict(row, lane_tile=T)
+        del outs, mu0, total0, nu0, L0_t, flip_t, gam_t, total0_t
         torch.cuda.empty_cache()
 
     # the two eliminations once more: against the plain BLOCKED forms (the
@@ -2377,6 +2474,8 @@ def main() -> int:
     osd2_ms = pt.BeliefPropagationOSDDecoder(graph, 0.2, MAX_ITERS, inner="minsum", damping=0.4,
                                              osd_order=2, osd_scope="failed", device=dev)
     minsum_kernels = ["minsum_check", "minsum_var"]
+    # the check layout's decodes, (p)-(s), run K3/K4 on lane tiles
+    tiled_kernels = ["minsum_check_tiled", "minsum_var_tiled"]
     for path, what, dec in (("e", "min-sum float32", ms32), ("f", "min-sum bfloat16", ms16)):
         g, c, iters, aux, _ = drive(path, minsum_kernels,
                                     lambda dec=dec: dec.batch_decode_detailed(syn01))
@@ -2520,7 +2619,8 @@ def main() -> int:
     # (float32, damping 0.4) and deep (bfloat16, per-variable gammas in
     # [-0.24, 0.66), track_best), 64 records with the DEM's priors as L0, at
     # 24 iterations (the CPU's plain versions set the depth): err, converged,
-    # iters and LLRs bitwise on the card and the CPU
+    # iters and LLRs bitwise on the card (K3/K4 on lane tiles) and the CPU (the
+    # plain versions on the lane-major state)
     dem_cpu = pt.TannerGraph.from_pcm(np.asarray(dem_A.todense()))
     rec = dem_det[:64].to(torch.uint8)
     gam64 = np.random.default_rng(5).uniform(-0.24, 0.66, (rec.shape[0], dem_graph.n))
@@ -2534,7 +2634,7 @@ def main() -> int:
         gpu = pt.MinSumDecode(dem_graph, float(dem_pr.mean()), 24, device=dev, **kw)
         cpu = pt.MinSumDecode(dem_cpu, float(dem_pr.mean()), 24, device="cpu", **kw)
         g_arg = None if gamma is None else torch.as_tensor(gamma)
-        got = drive(path, minsum_kernels, lambda gpu=gpu, g_arg=g_arg: gpu(
+        got = drive(path, minsum_kernels + tiled_kernels, lambda gpu=gpu, g_arg=g_arg: gpu(
             rec, dem_llr.to(torch.float32), None if g_arg is None else g_arg.to(dev)))
         want = cpu(rec.cpu(), dem_llr.cpu().to(torch.float32), g_arg)
         same = [max_abs_err(torch, [a.cpu()], [b]) == 0 for a, b in zip(got, want)]
@@ -2600,7 +2700,7 @@ def main() -> int:
     for path, what, dec, shots, kw in (
             ("p", "fast tier", fast, P_SHOTS, dict(batch=BDEM)),
             ("q", "flagship", flagship, Q_SHOTS, dict(batch=BDEM // 2, deep_bucket=DEEP_BUCKET))):
-        ev = drive(path, minsum_kernels,
+        ev = drive(path, minsum_kernels + tiled_kernels,
                    lambda dec=dec, shots=shots, kw=kw: dec.run_eval(shots, seed=11, **kw))
         prof = ev["profile"]
         lo, hi = ev["logical_ci95"]
@@ -2662,7 +2762,8 @@ def main() -> int:
     # in the summary, ``launches`` is the count of the first path that must
     # launch the kernel; ``launches_by_path`` has every path's own count
     own_path = {"gf2_osd0": "b", "gf2_eliminate": "c", "minsum_check": "e", "minsum_var": "e",
-                "qc_minsum": "j", "gf2_osd0_global": "ad", "gf2_eliminate_global": "ac 0.5"}
+                "qc_minsum": "j", "gf2_osd0_global": "ad", "gf2_eliminate_global": "ac 0.5",
+                "minsum_check_tiled": "p", "minsum_var_tiled": "p"}
     for k, path in own_path.items():
         kernels[k]["launches"] = path_launches[path][k]
         kernels[k]["launches_path"] = path

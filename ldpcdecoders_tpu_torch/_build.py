@@ -114,13 +114,13 @@ def load_library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         lib.ldpc_gf2_cluster_clocks.restype = i32
     i64, f32 = ctypes.c_longlong, ctypes.c_float
     lib.ldpc_minsum_check.argtypes = ([ptr] * 5 + [i32] * 3 + [i64] + [f32] * 3
-                                      + [i32, i32, ptr])
+                                      + [i32, i32, i32, ptr])
     lib.ldpc_minsum_check.restype = i32
     lib.ldpc_minsum_check_iter.argtypes = ([ptr] * 7 + [i32, i64] + [i32] * 4 + [f32] * 3
-                                           + [i32, i32, ptr])
+                                           + [i32, i32, i32, ptr])
     lib.ldpc_minsum_check_iter.restype = i32
     lib.ldpc_minsum_var.argtypes = ([ptr] * 6 + [i32, ptr, i32, i64] + [ptr] * 4 + [i32] * 3
-                                    + [i64, i32, ptr])
+                                    + [i64, i32, i32, ptr])
     lib.ldpc_minsum_var.restype = i32
     lib.ldpc_minsum_stage_plan.argtypes = [i64, i32, i32, ctypes.POINTER(i32)]
     lib.ldpc_minsum_stage_plan.restype = None

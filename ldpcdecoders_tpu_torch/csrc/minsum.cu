@@ -3,6 +3,7 @@
 // Replaces the two Pallas TPU kernels of ldpcdecoders_tpu/ops/pallas_minsum.py:
 //   minsum_check_kernel <- pallas_minsum.py:_check_kernel (wrapper check_update_pallas)
 //   minsum_var_kernel   <- pallas_minsum.py:_var_kernel   (wrapper var_update_pallas)
+//   (on lane tiles also minsum_check_floor_kernel and minsum_var_tiled_kernel)
 // and, beyond the TPU kernels, the plain passes of the min-sum iteration
 // around them (ldpcdecoders_tpu/models/minsum.py decode / decode_check): the
 // cross-layout gathers, the check-layout rebuild ``total[var] - mu``, the
@@ -21,6 +22,21 @@
 // first (codes/graph.py), so each node's loops run to its own degree
 // (``deg``) and a padded slot is neither loaded nor, in the forms that update
 // in place, written.
+//
+// Lane tiles (the check layout's state, lane_tile T = 64 or 128).  The
+// tiled form of a [B, len] array of lanes is [B / T, len, T]: element e of
+// lane b lies at tiled<T>(b, len) + e * T, so that T lanes of one node sit
+// side by side.  The check form keeps a thread a (lane, check), mapped lanes
+// fastest, so a warp is 32 lanes of one check; the variable form gives a
+// thread T / 32 neighbouring lanes of one variable, so a warp is a whole
+// tile row.  Each gather of a message, a total or a gamma is then whole
+// lines (128 bytes a warp and load in float32 on the check side, 512 on the
+// variable side at T = 128) where a lane's own row costs a 32-byte sector
+// for the 4 or 2 bytes used, and the node's degree and index entries are
+// one broadcast load with no divergence.  The per-lane arithmetic and its
+// order are the same for every T, so the result is bitwise the same.  T = 1
+// is [B, len]; the staged check form and the variable layout's forms take
+// T = 1 only.
 //
 // Check update (minsum_check_kernel), one thread per (lane, check), three
 // forms of its input message:
@@ -51,10 +67,14 @@
 //
 // What bounds them on the H100: bytes.  At the bb144 R=6 DEM's shape
 // (203,444 edges) an iteration must move each edge's messages once each way
-// (mu, and with damping nu) and the totals; the check kernel's gathers of
-// the totals and the variable kernel's gathers of mu cost L2 sector traffic
-// on top (8x the bytes used in float32), which staging removes for the
-// first and registers-in-flight hide for the second.
+// (mu, and with damping nu) and the totals; lane-major, the check kernel's
+// gathers of the totals and the variable kernel's gathers of mu cost L2
+// sector traffic on top (8x the bytes used in float32), which staging
+// removes for the first and registers-in-flight hide for the second.  On
+// lane tiles every gathered line is used whole, and what holds the variable
+// form is the gathers in flight: its vectors of T / 32 lanes make fewer,
+// larger requests, and the asynchronous copies into shared memory keep
+// them in flight without registers (var_tiled_node).
 //
 // Plain C interface (pointers, sizes, stream), loaded with ctypes.  Each
 // launcher returns the cudaError_t of its launch; 0 is success.
@@ -100,8 +120,19 @@ constexpr long long kDefaultSmem = 48 * 1024;
 constexpr long long kMaxSmem = 232448;  // what one block may take on the H100
 constexpr long long kSmemPerSm = 233472;  // an SM's, each block reserving 1 KB of it
 constexpr long long kStageMinRow = 48 * 1024;  // rows below this stay flat
+// The blocks of 256 threads an SM must hold in the check form on lane tiles
+// in bfloat16, which caps a thread's registers.  Measured at the bb144 DEM's
+// shape on 128-lane tiles (tools/minsum_kernel_compare.py, H100 80GB HBM3,
+// 700 W): a floor of 5 blocks (40 registers) took 0.87x the time with none
+// (96 registers), 8 blocks 1.26x.  In float32 a floor of 3 blocks changed
+// nothing and 4 blocks took 1.2-1.3x, and in the variable form a floor of 6
+// blocks took 1.03-1.05x in float32 and 0.95-1.01x in bfloat16, so those
+// keep the bare bound.
+constexpr int kTiledMinBlocksBf16 = 5;
 
 enum Form { DIRECT = 0, GATHER = 1, ITER = 2 };
+// the lane tiles a launcher takes besides 1
+constexpr int kTiles[] = {64, 128};
 enum Gamma { GAMMA_NONE = 0, GAMMA_LANE = 1, GAMMA_VAR = 2 };
 enum NuOut { NU_NONE = 0, NU_FRESH = 1, NU_INPLACE = 2 };
 
@@ -134,6 +165,26 @@ __device__ inline float out_mag(float excl, float alpha, float beta) {
   return r > 0.f ? r : 0.f;
 }
 
+// Offset of element 0 of lane ``lane``'s row of ``len`` in a lane-tiled
+// array (see Layout); element e lies TILE * e further.
+template <int TILE>
+__device__ __forceinline__ long long tiled(long long lane, long long len) {
+  return (lane / TILE) * len * TILE + lane % TILE;
+}
+
+// Thread t of a launch over the lanes and ``len`` nodes, lanes fastest
+// within a tile: its lane and node.  t is also the (lane, node) entry's
+// offset in a tiled [B, len] array.
+template <int TILE>
+__device__ __forceinline__ void lane_node(long long t, int len, long long* lane, int* node) {
+  const long long tb = t / ((long long)len * TILE);
+  const long long r = t - tb * len * TILE;
+  *node = (int)(r / TILE);
+  *lane = tb * TILE + r % TILE;
+}
+
+// Every [B, ...] array of the two argument structs is lane-tiled by the
+// launch's TILE (1: as written).
 template <typename T>
 struct CheckArgs {
   const T* x;            // DIRECT [B, dc, m]; GATHER [B, x_stride]; ITER the totals [B, n]
@@ -150,14 +201,14 @@ struct CheckArgs {
 };
 
 // One check of one lane.  ``row`` is the lane's gathered row (x or the
-// totals), in shared memory when staged; ``signs`` the thread's column of
-// sign words (word w at signs[w * stride]).
-template <typename T, int FORM, int GAMMA, int kUnroll>
+// totals; element v at row[v * TILE]), in shared memory when staged;
+// ``signs`` the thread's column of sign words (word w at signs[w * stride]).
+template <typename T, int FORM, int GAMMA, int kUnroll, int TILE>
 __device__ __forceinline__ void check_node(const CheckArgs<T>& a, long long lane, int i,
                                            const T* row, unsigned* signs, int stride) {
   const int m = a.m;
   const int d = a.deg[i];
-  const long long base = lane * (long long)a.dc * m;  // the lane's [dc, m] messages
+  const long long base = tiled<TILE>(lane, (long long)a.dc * m);  // the lane's [dc, m] messages
   const T* x = a.x + base;
   T* mu = a.mu + base;
   T* nu = a.nu + base;
@@ -166,7 +217,8 @@ __device__ __forceinline__ void check_node(const CheckArgs<T>& a, long long lane
     g = load_f(a.gamma, lane * a.gamma_stride);
     g1 = round_to<T>(__fsub_rn(1.f, g));
   }
-  const T* gvar = a.gamma + lane * a.gamma_stride;  // GAMMA_VAR: the lane's [n] strengths
+  // GAMMA_VAR: the lane's [n] strengths
+  const T* gvar = a.gamma + tiled<TILE>(lane, a.gamma_stride);
 
   float min1 = a.big, min2 = a.big;
   int idx1 = 0;
@@ -179,12 +231,12 @@ __device__ __forceinline__ void check_node(const CheckArgs<T>& a, long long lane
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int k = k0 + u;
-      const long long e = (long long)k * m + i;
+      const long long slot = (long long)k * m + i, e = slot * TILE;
       if (k < d) {
         if (FORM == DIRECT) {
           v[u] = load_f(x, e);
         } else {
-          vi[u] = a.idx[e];
+          vi[u] = a.idx[slot];
         }
         if (FORM == ITER) {
           prev[u] = load_f(mu, e);
@@ -196,8 +248,8 @@ __device__ __forceinline__ void check_node(const CheckArgs<T>& a, long long lane
     for (int u = 0; u < kUnroll; ++u) {
       const int k = k0 + u;
       if (k < d && FORM != DIRECT) {
-        v[u] = load_f(row, vi[u]);
-        if (FORM == ITER && GAMMA == GAMMA_VAR) gk[u] = load_f(gvar, vi[u]);
+        v[u] = load_f(row, (long long)vi[u] * TILE);
+        if (FORM == ITER && GAMMA == GAMMA_VAR) gk[u] = load_f(gvar, (long long)vi[u] * TILE);
       }
     }
 #pragma unroll
@@ -211,7 +263,7 @@ __device__ __forceinline__ void check_node(const CheckArgs<T>& a, long long lane
         if (GAMMA == GAMMA_VAR)
           val = damp<T>(gk[u], round_to<T>(__fsub_rn(1.f, gk[u])), old[u], val);
         if (GAMMA != GAMMA_NONE) {
-          store_f(nu, (long long)k * m + i, val);
+          store_f(nu, ((long long)k * m + i) * TILE, val);
         }
       }
       const float mag = fabsf(val);
@@ -243,29 +295,41 @@ __device__ __forceinline__ void check_node(const CheckArgs<T>& a, long long lane
     min1 = smaller ? a.big : min1;
   }
 
-  const unsigned s = a.syn[lane * m + i] != 0;
+  const unsigned s = a.syn[tiled<TILE>(lane, m) + (long long)i * TILE] != 0;
   const float o1 = out_mag<T>(min1, a.alpha, a.beta), o2 = out_mag<T>(min2, a.alpha, a.beta);
   const int nout = FORM == ITER ? d : a.dc;  // ITER leaves the padded slots alone
   for (int k = 0; k < nout; ++k) {
     if ((k & 31) == 0) word = k < d ? signs[(k >> 5) * stride] : 0u;
     const unsigned neg = (word >> (k & 31)) & 1u;
     const float r = idx1 == k ? o2 : o1;
-    store_f(mu, (long long)k * m + i, (parity ^ neg ^ s) ? -r : r);
+    store_f(mu, ((long long)k * m + i) * TILE, (parity ^ neg ^ s) ? -r : r);
   }
 }
 
 // Flat form: one thread per (lane, check) over all lanes; the gathers read
-// the lane's row in device memory (through L2).
-template <typename T, int FORM, int GAMMA>
-__global__ void __launch_bounds__(kThreads)
-minsum_check_kernel(const CheckArgs<T> a) {
+// the lane's row in device memory (through L2).  With TILE > 1 a warp is
+// TILE lanes of one check (see Layout).
+template <typename T, int FORM, int GAMMA, int TILE>
+__device__ __forceinline__ void flat_check(const CheckArgs<T>& a) {
   extern __shared__ unsigned flat_signs[];
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= a.B * a.m) return;
-  const long long lane = t / a.m;
-  check_node<T, FORM, GAMMA, kFlatUnroll<T>>(a, lane, (int)(t - lane * a.m),
-                                          a.x + lane * a.x_stride, flat_signs + threadIdx.x,
-                                          blockDim.x);
+  long long lane;
+  int i;
+  lane_node<TILE>(t, a.m, &lane, &i);
+  check_node<T, FORM, GAMMA, kFlatUnroll<T>, TILE>(
+      a, lane, i, a.x + tiled<TILE>(lane, a.x_stride), flat_signs + threadIdx.x, blockDim.x);
+}
+
+template <typename T, int FORM, int GAMMA, int TILE>
+__global__ void __launch_bounds__(kThreads) minsum_check_kernel(const CheckArgs<T> a) {
+  flat_check<T, FORM, GAMMA, TILE>(a);
+}
+
+// The flat form on lane tiles with a floor of MINB blocks an SM.
+template <typename T, int FORM, int GAMMA, int TILE, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB) minsum_check_floor_kernel(const CheckArgs<T> a) {
+  flat_check<T, FORM, GAMMA, TILE>(a);
 }
 
 // Staged form: one block per lane; the lane's gathered row is copied into
@@ -282,8 +346,8 @@ minsum_check_staged_kernel(const CheckArgs<T> a) {
   for (long long j = threadIdx.x; j < a.x_stride; j += blockDim.x) row[j] = src[j];
   __syncthreads();
   for (int i = threadIdx.x; i < a.m; i += blockDim.x)
-    check_node<T, FORM, GAMMA, kStagedUnroll>(a, lane, i, row, signs + threadIdx.x,
-                                              blockDim.x);
+    check_node<T, FORM, GAMMA, kStagedUnroll, 1>(a, lane, i, row, signs + threadIdx.x,
+                                                 blockDim.x);
 }
 
 template <typename T>
@@ -303,6 +367,123 @@ struct VarArgs {
   long long B, mu_stride;
   int n, dv;
 };
+
+// L elements of T side by side, loaded and stored as one vector.
+template <typename T, int L>
+struct alignas(sizeof(T) * L) Pack {
+  T v[L];
+};
+
+__device__ inline float to_f(float x) { return x; }
+__device__ inline float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ inline T from_f(float x);
+template <>
+__device__ inline float from_f<float>(float x) { return x; }
+template <>
+__device__ inline bf16 from_f<bf16>(float x) { return __float2bfloat16_rn(x); }
+
+// Copy B = 4, 8 or 16 bytes from device to shared memory asynchronously
+// (through L1), and wait for every copy the thread has issued.
+template <int B>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(B));
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The check layout's variable update on lane tiles: the totals and, given
+// the done flags, the freeze.  A warp is 32 threads of one variable, each
+// taking L = TILE / 32 neighbouring lanes, so that every gathered message
+// of a slot is one vector of L values (4-16 bytes a thread, 128-512 a
+// warp) and the degree and v2c entries are one broadcast load, issued
+// together (a padded slot's entry is never used).  The gathered vectors
+// wait in shared memory, each thread's own column, copied asynchronously:
+// no register waits on a load in flight, so more of them are (on 128-lane
+// tiles 0.40x the time of the same body with the vectors in registers in
+// float32, 0.55x in bfloat16; tools/minsum_kernel_compare.py, H100 80GB
+// HBM3, 700 W).  Each lane's sum runs in the lane-major kernel's order.
+// ``e`` is the thread's first entry in the tiled [B, n] arrays (L0, total,
+// err, llrs).
+template <typename T, int TILE>
+__device__ __forceinline__ void var_tiled_node(const VarArgs<T>& a) {
+  constexpr int L = TILE / 32;
+  typedef Pack<T, L> P;
+  const long long e = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * L;
+  if (e >= a.B * a.n) return;
+  const int n = a.n;
+  long long lane;
+  int j;
+  lane_node<TILE>(e, n, &lane, &j);
+  const int d = a.deg[j];
+  const T* ml = a.mu + tiled<TILE>(lane, a.mu_stride);
+  auto gather = [&](int at) { return *reinterpret_cast<const P*>(ml + (long long)at * TILE); };
+
+  float acc[L];
+#pragma unroll
+  for (int q = 0; q < L; ++q) acc[q] = 0.f;
+  if (a.dv <= kVarCap) {  // one window: every load in flight, then the sums in order
+    int at[kVarCap];
+#pragma unroll
+    for (int k = 0; k < kVarCap; ++k)
+      if (k < a.dv) at[k] = a.v2c[(long long)k * n + j];
+    // a vector is 4-16 bytes (L >= 2), a size cp.async copies whole
+    constexpr int kWords = sizeof(P) / 4;
+    static_assert(sizeof(P) % 4 == 0, "a lane tile of at least 64 lanes");
+    __shared__ __align__(16) uint32_t staged[kVarCap * kThreads * kWords];
+    uint32_t* col = staged + threadIdx.x * kWords;
+#pragma unroll
+    for (int k = 0; k < kVarCap; ++k)
+      if (k < d) copy_async<sizeof(P)>(col + k * kThreads * kWords, ml + (long long)at[k] * TILE);
+    copy_async_wait();
+#pragma unroll
+    for (int k = 0; k < kVarCap; ++k)
+      if (k < d) {
+        P v;
+        memcpy(&v, col + k * kThreads * kWords, sizeof(P));
+#pragma unroll
+        for (int q = 0; q < L; ++q) acc[q] = __fadd_rn(acc[q], to_f(v.v[q]));
+      }
+  } else {  // windows of 32 slots, as the lane-major kernel sums them
+    float part[L];
+#pragma unroll
+    for (int q = 0; q < L; ++q) part[q] = 0.f;
+    const int low = (((a.dv + 31) / 32) * 32 - a.dv) / 2;
+    for (int k = 0, edge = 32 - low; k < d; ++k) {
+      const P v = gather(a.v2c[(long long)k * n + j]);
+#pragma unroll
+      for (int q = 0; q < L; ++q) part[q] = __fadd_rn(part[q], to_f(v.v[q]));
+      if (k + 1 == edge) {
+#pragma unroll
+        for (int q = 0; q < L; ++q) {
+          acc[q] = __fadd_rn(acc[q], part[q]);
+          part[q] = 0.f;
+        }
+        edge += 32;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < L; ++q) acc[q] = __fadd_rn(acc[q], part[q]);
+  }
+
+  const P l0 = *reinterpret_cast<const P*>(a.L0 + e);
+  P tot;
+#pragma unroll
+  for (int q = 0; q < L; ++q)
+    tot.v[q] = from_f<T>(round_to<T>(__fadd_rn(to_f(l0.v[q]), round_to<T>(acc[q]))));
+  if (a.total) *reinterpret_cast<P*>(a.total + e) = tot;
+  if (a.done) {  // the freeze: done lanes keep their outputs
+#pragma unroll
+    for (int q = 0; q < L; ++q)
+      if (!a.done[lane + q]) {
+        a.err[e + q] = to_f(tot.v[q]) < 0.f ? 1.f : 0.f;
+        a.llrs[e + q] = tot.v[q];
+      }
+  }
+}
 
 template <typename T, int NU, bool WEIGHTED, int GAMMA>
 __global__ void __launch_bounds__(kThreads)
@@ -388,6 +569,11 @@ minsum_var_kernel(const VarArgs<T> a) {
   }
 }
 
+template <typename T, int TILE>
+__global__ void __launch_bounds__(kThreads) minsum_var_tiled_kernel(const VarArgs<T> a) {
+  var_tiled_node<T, TILE>(a);
+}
+
 unsigned grid_for(long long threads, int block) {
   return (unsigned)((threads + block - 1) / block);
 }
@@ -428,9 +614,11 @@ cudaError_t allow_smem(K kernel, long long bytes) {
 // two blocks an SM), 1.11x on its float32 totals (one block an SM), 1.2x
 // and 1.8x on the Gallager code's rows of 36 KB (float32, bfloat16), whose
 // gathers the caches hold anyway
-template <typename T, int FORM, int GAMMA>
+template <typename T, int FORM, int GAMMA, int TILE>
 int launch_check(const CheckArgs<T>& a, int stage, cudaStream_t st) {
-  if (FORM != DIRECT && stage != 0) {
+  if constexpr (TILE > 1) {
+    if (stage == 1 || a.B % TILE) return cudaErrorInvalidValue;  // flat form only
+  } else if (FORM != DIRECT && stage != 0) {
     const long long row = a.x_stride * (long long)sizeof(T);
     int threads;
     long long bytes;
@@ -448,19 +636,33 @@ int launch_check(const CheckArgs<T>& a, int stage, cudaStream_t st) {
   long long bytes;
   const int threads = flat_threads(a.dc, &bytes);
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = minsum_check_kernel<T, FORM, GAMMA>;
+  void (*kernel)(const CheckArgs<T>) = minsum_check_kernel<T, FORM, GAMMA, TILE>;
+  if constexpr (TILE > 1 && sizeof(T) == 2)
+    kernel = minsum_check_floor_kernel<T, FORM, GAMMA, TILE, kTiledMinBlocksBf16>;
   cudaError_t rc = allow_smem(kernel, bytes);
   if (rc != cudaSuccess) return rc;
   kernel<<<grid_for(a.B * a.m, threads), threads, bytes, st>>>(a);
   return cudaGetLastError();
 }
 
+// The check launch at the caller's lane tile (DIRECT takes 1 only).
+template <typename T, int FORM, int GAMMA>
+int launch_check_at(const CheckArgs<T>& a, int stage, int lane_tile, cudaStream_t st) {
+  if (lane_tile == 1) return launch_check<T, FORM, GAMMA, 1>(a, stage, st);
+  if constexpr (FORM != DIRECT) {
+    if (lane_tile == kTiles[0]) return launch_check<T, FORM, GAMMA, kTiles[0]>(a, stage, st);
+    if (lane_tile == kTiles[1]) return launch_check<T, FORM, GAMMA, kTiles[1]>(a, stage, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
-int check_iter(const CheckArgs<T>& a, int gamma_kind, int stage, cudaStream_t st) {
+int check_iter(const CheckArgs<T>& a, int gamma_kind, int stage, int lane_tile,
+               cudaStream_t st) {
   switch (gamma_kind) {
-    case GAMMA_NONE: return launch_check<T, ITER, GAMMA_NONE>(a, stage, st);
-    case GAMMA_LANE: return launch_check<T, ITER, GAMMA_LANE>(a, stage, st);
-    case GAMMA_VAR: return launch_check<T, ITER, GAMMA_VAR>(a, stage, st);
+    case GAMMA_NONE: return launch_check_at<T, ITER, GAMMA_NONE>(a, stage, lane_tile, st);
+    case GAMMA_LANE: return launch_check_at<T, ITER, GAMMA_LANE>(a, stage, lane_tile, st);
+    case GAMMA_VAR: return launch_check_at<T, ITER, GAMMA_VAR>(a, stage, lane_tile, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -483,8 +685,26 @@ int launch_var_g(const VarArgs<T>& a, int gamma_kind, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// The check layout's variable update on lane tiles: the totals and the
+// freeze (no messages out, no weights, no damping).
+template <typename T, int TILE>
+int launch_var_tiled(const VarArgs<T>& a, cudaStream_t st) {
+  if (a.B % TILE) return cudaErrorInvalidValue;
+  minsum_var_tiled_kernel<T, TILE>
+      <<<grid_for(a.B * a.n / (TILE / 32), kThreads), kThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T>
-int launch_var(const VarArgs<T>& a, int nu_mode, int gamma_kind, cudaStream_t st) {
+int launch_var(const VarArgs<T>& a, int nu_mode, int gamma_kind, int lane_tile,
+               cudaStream_t st) {
+  if (lane_tile != 1) {
+    if (nu_mode != NU_NONE || a.W != nullptr || gamma_kind != GAMMA_NONE)
+      return cudaErrorInvalidValue;
+    if (lane_tile == kTiles[0]) return launch_var_tiled<T, kTiles[0]>(a, st);
+    if (lane_tile == kTiles[1]) return launch_var_tiled<T, kTiles[1]>(a, st);
+    return cudaErrorInvalidValue;
+  }
   const bool w = a.W != nullptr;
   switch (nu_mode) {
     case NU_NONE:
@@ -528,51 +748,59 @@ CheckArgs<T> check_args(const void* x, const void* idx, const void* syn, const v
 extern "C" {
 
 // mu = check update of x: direct [B, dc, m] (idx null) or [B, x_stride]
-// read through idx [dc * m].  Every slot of mu is written.
+// read through idx [dc * m].  Every slot of mu is written.  lane_tile 1, or
+// (gathered only) 64 or 128: every [B, ...] array lane-tiled, B a
+// multiple of it.
 int ldpc_minsum_check(const void* x, const void* idx, const void* syn, const void* deg, void* mu,
                       int B, int m, int dc, long long x_stride, float alpha, float beta,
-                      float big, int stage, int is_bf16, void* stream) {
+                      float big, int stage, int lane_tile, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     auto a = check_args<bf16>(x, idx, syn, deg, mu, nullptr, nullptr, 0, B, m, dc, x_stride,
                               alpha, beta, big);
-    return idx ? launch_check<bf16, GATHER, GAMMA_NONE>(a, stage, st)
-               : launch_check<bf16, DIRECT, GAMMA_NONE>(a, stage, st);
+    return idx ? launch_check_at<bf16, GATHER, GAMMA_NONE>(a, stage, lane_tile, st)
+               : launch_check_at<bf16, DIRECT, GAMMA_NONE>(a, stage, lane_tile, st);
   }
   auto a = check_args<float>(x, idx, syn, deg, mu, nullptr, nullptr, 0, B, m, dc, x_stride,
                              alpha, beta, big);
-  return idx ? launch_check<float, GATHER, GAMMA_NONE>(a, stage, st)
-             : launch_check<float, DIRECT, GAMMA_NONE>(a, stage, st);
+  return idx ? launch_check_at<float, GATHER, GAMMA_NONE>(a, stage, lane_tile, st)
+             : launch_check_at<float, DIRECT, GAMMA_NONE>(a, stage, lane_tile, st);
 }
 
 // The check layout's iteration, in place: mu [B, dc, m] (previous in, new
 // out on the real slots), total [B, n], idx [dc * m] the variable of each
 // check slot; gamma_kind 0 none, 1 per lane (gamma_stride 0: one for all),
-// 2 per variable [B, n]; with damping nu [B, dc, m] (previous in, mixed out).
+// 2 per variable [B, n]; with damping nu [B, dc, m] (previous in, mixed out);
+// lane_tile 1, 64 or 128 (then the flat form; every [B, ...] array
+// lane-tiled).
 int ldpc_minsum_check_iter(void* mu, void* nu, const void* total, const void* idx,
                            const void* syn, const void* deg, const void* gamma, int gamma_kind,
                            long long gamma_stride, int B, int m, int dc, int n, float alpha,
-                           float beta, float big, int stage, int is_bf16, void* stream) {
+                           float beta, float big, int stage, int lane_tile, int is_bf16,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((gamma_kind != GAMMA_NONE) != (nu != nullptr)) return cudaErrorInvalidValue;
   if (is_bf16) {
     auto a = check_args<bf16>(total, idx, syn, deg, mu, nu, gamma, gamma_stride, B, m, dc, n,
                               alpha, beta, big);
-    return check_iter<bf16>(a, gamma_kind, stage, st);
+    return check_iter<bf16>(a, gamma_kind, stage, lane_tile, st);
   }
   auto a = check_args<float>(total, idx, syn, deg, mu, nu, gamma, gamma_stride, B, m, dc, n,
                              alpha, beta, big);
-  return check_iter<float>(a, gamma_kind, stage, st);
+  return check_iter<float>(a, gamma_kind, stage, lane_tile, st);
 }
 
 // Variable update.  nu_mode 0: no messages out; 1: nu [B, dv, n] = total -
 // msg on every slot; 2: in place over nu_prev on the real slots, mixed with
 // it by gamma (kinds as above).  total [B, n] out where not null; with done
 // [B], err [B, n] float32 and llrs [B, n] take the active lanes' outputs.
+// lane_tile 64 or 128 (nu_mode 0, no W, no gamma): every [B, ...] array
+// lane-tiled, B a multiple of it.
 int ldpc_minsum_var(const void* mu, const void* v2c, const void* deg, const void* L0,
                     const void* W, void* nu, int nu_mode, const void* gamma, int gamma_kind,
                     long long gamma_stride, void* total, const void* done, void* err, void* llrs,
-                    int B, int n, int dv, long long mu_stride, int is_bf16, void* stream) {
+                    int B, int n, int dv, long long mu_stride, int lane_tile, int is_bf16,
+                    void* stream) {
   if (dv > 1024) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
@@ -582,7 +810,7 @@ int ldpc_minsum_var(const void* mu, const void* v2c, const void* deg, const void
                     static_cast<const bf16*>(gamma), gamma_stride, static_cast<bf16*>(total),
                     static_cast<const uint8_t*>(done), static_cast<float*>(err),
                     static_cast<bf16*>(llrs), B, mu_stride, n, dv};
-    return launch_var<bf16>(a, nu_mode, gamma_kind, st);
+    return launch_var<bf16>(a, nu_mode, gamma_kind, lane_tile, st);
   }
   VarArgs<float> a{static_cast<const float*>(mu), static_cast<const int32_t*>(v2c),
                    static_cast<const int32_t*>(deg), static_cast<const float*>(L0),
@@ -590,7 +818,7 @@ int ldpc_minsum_var(const void* mu, const void* v2c, const void* deg, const void
                    static_cast<const float*>(gamma), gamma_stride, static_cast<float*>(total),
                    static_cast<const uint8_t*>(done), static_cast<float*>(err),
                    static_cast<float*>(llrs), B, mu_stride, n, dv};
-  return launch_var<float>(a, nu_mode, gamma_kind, st);
+  return launch_var<float>(a, nu_mode, gamma_kind, lane_tile, st);
 }
 
 // The staged check form's plan for a gathered row of row_bytes: threads (0:

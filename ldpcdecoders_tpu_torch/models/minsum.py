@@ -17,6 +17,16 @@ is two launches of the hand-written kernels of ops/cuda_minsum.py on a card
     leave-one-out messages and the damping mix in place, and on the
     iterations that run the syndrome check the freeze of ``err`` / ``llrs``.
 
+In the check layout the kernels' state (``mu``, damped ``nu``, the totals,
+``L0``, the gammas, the syndrome bits and the frozen ``err`` / ``llrs``) is
+lane-tiled, T lanes innermost (ops/minsum.py ``tile_lanes``;
+:func:`lane_tile_for`: 64 or 128 lanes by batch on a card, lane-major below
+64 lanes and on the CPU; the lanes padded to a multiple of T, the padded lanes out of ``done``,
+``iters`` and the checks): tiled once at entry, untiled once at exit, and
+``err`` (with ``track_best`` also ``llrs``) untiled for each syndrome
+check.  The tiling changes no lane's arithmetic, so every output is the
+lane-major decode's bit for bit.
+
 The syndrome check, ``iters`` / ``done`` and ``track_best`` are plain torch
 and run only where the check runs: ``done`` changes nowhere else, and the
 outputs an iteration between two checks would freeze are overwritten by the
@@ -33,8 +43,9 @@ import numpy as np
 import torch
 
 from ..codes.graph import TannerGraph
-from ..ops.cuda_minsum import minsum_check_cuda, minsum_check_iter_cuda, minsum_var_iter_cuda
-from ..ops.minsum import slot_degrees
+from ..ops.cuda_minsum import (LANE_TILES, minsum_check_cuda, minsum_check_iter_cuda,
+                                minsum_var_iter_cuda)
+from ..ops.minsum import slot_degrees, tile_lanes, untile_lanes
 from ..ops.syndrome import SyndromeCheck
 from .base import Decoder, resolve_device
 from .bp import as_graph
@@ -43,6 +54,20 @@ from .priors import per_to_llr
 __all__ = ["MinSumDecoder", "MinSumDecode", "from_reference_params", "make_minsum_decode_fn"]
 
 _BIG_MISMATCH = 1 << 30
+
+
+def lane_tile_for(B: int) -> int:
+    """The check layout's lane tile on a card for a batch of ``B`` lanes: of
+    the kernels' tiles (64, 128 lanes; csrc/minsum.cu "Lane tiles"), the one
+    that pads the batch least, the largest of those that tie; 1 (lane-major)
+    below 64 lanes, where a tile would be largely padding.  Larger tiles are
+    faster a lane, padding is work: at the bb144 R=6 DEM's shape a decode of
+    6 x 256 lanes took 0.74x the lane-major time on 128-lane tiles, one of 6 x
+    32 lanes 0.74x on 64-lane tiles and 1.07x padded to 128, one of 24 lanes
+    1.35x padded to 64 (H100 80GB HBM3, 700 W; PERF.md)."""
+    if B < LANE_TILES[0]:
+        return 1
+    return min(LANE_TILES, key=lambda t: (-(-B // t) * t, -t))
 
 
 def from_reference_params(alpha, beta, edge_weights, *, max_iters, max_dv, n, dtype, device):
@@ -115,7 +140,7 @@ class MinSumDecode(torch.nn.Module):
     def __init__(self, graph: TannerGraph, per, max_iters: int, *, device,
                  alpha=1.0, beta=0.0, dtype=torch.float32, edge_weights=None,
                  damping: float = 0.0, check_every: int = 1, lane_damping: bool = False,
-                 layout: str = "var", track_best: bool = False):
+                 layout: str = "var", track_best: bool = False, _lane_tile: int | None = None):
         super().__init__()
         device = resolve_device(device)
         if dtype not in (torch.float32, torch.bfloat16):
@@ -145,6 +170,10 @@ class MinSumDecode(torch.nn.Module):
         self.lane_damping = bool(lane_damping)
         self.layout = layout
         self.track_best = bool(track_best)
+        # the check layout's lane tile: None, by batch on a card
+        # (lane_tile_for) and lane-major on the CPU; the variable layout is
+        # lane-major
+        self._lane_tile = _lane_tile if layout == "check" else 1
 
         c2v_t, v2c_t, chk_mask_t, var_mask_t = graph.slot_major()
 
@@ -191,24 +220,42 @@ class MinSumDecode(torch.nn.Module):
             g = torch.as_tensor(gamma, device=device).to(self.dtype)
             g = (g.reshape(B) if g.ndim == 1 else g.reshape(B, n)).contiguous()
 
+        # the kernels' state, lane-tiled in the check layout: the tiled form
+        # of a [B, ...] tensor is [B / T, ..., T] (T = 1: the tensor itself),
+        # the lanes past B padded (done there, so never frozen)
+        T = self._lane_tile
+        if T is None:  # the CPU's plain versions gain nothing from tiles
+            T = lane_tile_for(B) if device.type == "cuda" else 1
+        bt = -(-B // T)
+
+        def lanes(*rest):
+            return (bt, *rest, T) if T > 1 else (bt, *rest)
+
+        def untile(t):
+            return untile_lanes(t, T)[:B]
+
+        L0_k = tile_lanes(L0, T)
+        flip_k = tile_lanes(syn_flip, T)
+        g_k = g if g is None or g.ndim == 0 else tile_lanes(g, T)
         # llrs is written in place by the freeze: a copy, never L0 itself
-        err = torch.zeros((B, n), dtype=torch.float32, device=device)
-        llrs = L0.clone()
+        err_k = torch.zeros(lanes(n), dtype=torch.float32, device=device)
+        llrs_k = L0_k.clone()
         done = torch.zeros((B,), dtype=torch.bool, device=device)
+        done_k = tile_lanes(done, T, True)
         iters = torch.zeros((B,), dtype=torch.int32, device=device)
         if self.track_best:
             bmis = torch.full((B,), _BIG_MISMATCH, dtype=torch.int32, device=device)
             berr = torch.zeros((B, n), dtype=torch.float32, device=device)
             bllr = L0.to(torch.float32)
-        chk_kw = dict(chk_deg=self.chk_deg)
-        var_kw = dict(var_deg=self.var_deg)
+        chk_kw = dict(chk_deg=self.chk_deg, lane_tile=T)
+        var_kw = dict(var_deg=self.var_deg, lane_tile=T)
         if check_layout:
             # state: mu [B, dc, m], the totals, and nu [B, dc, m] where damped
             # (the first iteration's messages are L0 at each slot's variable)
             mu = None
-            total = torch.empty((B, n), dtype=self.dtype, device=device)
+            total = torch.empty_like(L0_k)
             nu = (None if g is None else
-                  L0.index_select(1, self.chk_varidx).reshape(B, self.max_dc, m))
+                  L0_k.index_select(1, self.chk_varidx).reshape(lanes(self.max_dc, m)))
         else:
             nu = torch.broadcast_to(L0[:, None, :], (B, self.max_dv, n)).contiguous()
 
@@ -218,17 +265,17 @@ class MinSumDecode(torch.nn.Module):
                            else (self.alpha, self.beta))
             checked = (it + 1) % self.check_every == 0 or it + 1 >= self.max_iters
             # the freeze only where the check reads it (done is fixed between)
-            freeze = dict(done=done, err=err, llrs=llrs) if checked else {}
+            freeze = dict(done=done_k, err=err_k, llrs=llrs_k) if checked else {}
             if check_layout:
                 if mu is None:
-                    mu = minsum_check_cuda(L0, self.chk_varidx, syn_flip, self.chk_mask,
+                    mu = minsum_check_cuda(L0_k, self.chk_varidx, flip_k, self.chk_mask,
                                            alpha, beta, **chk_kw)
                 else:
-                    minsum_check_iter_cuda(mu, total, self.chk_varidx, syn_flip,
-                                           self.chk_mask, alpha, beta, gamma=g, nu=nu,
+                    minsum_check_iter_cuda(mu, total, self.chk_varidx, flip_k,
+                                           self.chk_mask, alpha, beta, gamma=g_k, nu=nu,
                                            **chk_kw)
-                minsum_var_iter_cuda(mu.reshape(B, self.max_dc * m), self.v2c, self.var_mask,
-                                     L0, total=total, **freeze, **var_kw)
+                minsum_var_iter_cuda(mu.reshape(lanes(self.max_dc * m)), self.v2c,
+                                     self.var_mask, L0_k, total=total, **freeze, **var_kw)
             else:
                 mu = minsum_check_cuda(nu.reshape(B, self.max_dv * n), self.c2v, syn_flip,
                                        self.chk_mask, alpha, beta, **chk_kw)
@@ -238,16 +285,18 @@ class MinSumDecode(torch.nn.Module):
             it += 1
             if not checked:
                 continue
+            err = untile(err_k)
             active = ~done
             mis = (self.syndrome_from(err) != syn_f).sum(dim=-1).to(torch.int32)
             ok = mis == 0
             iters = torch.where(ok & active, it, iters)
             done = done | ok
+            done_k = tile_lanes(done, T, True)
             if self.track_best:
                 better = active & (mis < bmis)
                 bmis = torch.where(better, mis, bmis)
                 berr = torch.where(better[:, None], err, berr)
-                bllr = torch.where(better[:, None], llrs.to(torch.float32), bllr)
+                bllr = torch.where(better[:, None], untile(llrs_k).to(torch.float32), bllr)
             # ``done`` changes only where the check ran: read it there alone
             if early_exit and bool(done.all()):
                 break
@@ -255,8 +304,8 @@ class MinSumDecode(torch.nn.Module):
         if self.track_best:
             # converged lanes froze at mismatch 0 (their best); the rest
             # report their least-inconsistent iterate
-            err, llrs = berr, bllr
-        return err.to(torch.int8), done, iters, llrs
+            return berr.to(torch.int8), done, iters, bllr
+        return untile(err_k).to(torch.int8), done, iters, untile(llrs_k)
 
 
 def make_minsum_decode_fn(graph: TannerGraph, per, max_iters: int, *, alpha=1.0, beta=0.0,

@@ -24,6 +24,15 @@ The kernels run each node's loops to its degree: the masks' real slots come
 first (codes/graph.py).  ``chk_deg`` / ``var_deg`` pass the degrees
 (:func:`ops.minsum.slot_degrees`); without them a wrapper computes and checks
 them, which reads the result back to the host.
+
+``lane_tile`` (64 or 128; :func:`minsum_check_cuda` gathered,
+:func:`minsum_check_iter_cuda`, and :func:`minsum_var_iter_cuda` without
+``nu``, ``W`` or ``gamma``) takes the check layout's state lane-tiled: every
+per-lane argument in its tiled form ``[B / T, *rest, T]``
+(ops/minsum.py :func:`~ops.minsum.tile_lanes`), B a multiple of T, so that a
+warp of the kernels reads 32 lanes of one node (csrc/minsum.cu, "Lane
+tiles").  ``<wrapper>.routes`` counts the launches by layout:
+``"lane_major"`` (``lane_tile=1``) and ``"lane_tiled"``.
 """
 
 from __future__ import annotations
@@ -54,6 +63,8 @@ _MAX_STAGE_THREADS = 1024
 _MAX_SMEM = 232448
 _SMEM_PER_SM = 233472  # each block reserves 1 KB of it
 _STAGE_MIN_ROW = 48 * 1024
+# the lane tiles the launchers take (csrc/minsum.cu kTiles) besides 1
+LANE_TILES = (64, 128)
 
 
 def stage_plan(row_bytes: int, m: int, dc: int) -> tuple[int, int]:
@@ -106,21 +117,37 @@ def _degrees(name, deg, mask, device):
     return deg
 
 
-def _gamma(gamma, nu, B, n, nu_shape, dtype, device):
+def _gamma(gamma, nu, lanes, n, nu_shape, dtype, device, tail=()):
     """The launchers' (pointer, kind, lane stride) of a damping factor: a
-    0-dim tensor (one for every lane), ``[B]`` or ``[B, n]``; damping needs
-    the previous messages ``nu``."""
+    0-dim tensor (one for every lane), ``[B]`` or ``[B, n]`` (``lanes`` and
+    ``tail`` as the state's: ``[B / T, T]``, ``[B / T, n, T]`` lane-tiled);
+    damping needs the previous messages ``nu``."""
     if gamma is None:
         return None, _GAMMA_NONE, 0
     if nu is None:
         raise ValueError("damping needs the previous messages nu")
     _check("nu", nu, nu_shape, dtype, device)
-    shapes = {0: (), 1: (B,), 2: (B, n)}
-    if gamma.ndim not in shapes:
-        raise ValueError(f"gamma must be 0-dim, [B] or [B, n], got {tuple(gamma.shape)}")
-    _check("gamma", gamma, shapes[gamma.ndim], dtype, device)
-    kind, stride = ((_GAMMA_LANE, 0), (_GAMMA_LANE, 1), (_GAMMA_VAR, n))[gamma.ndim]
-    return gamma.data_ptr(), kind, stride
+    kinds = {(): (_GAMMA_LANE, 0), (lanes, *tail): (_GAMMA_LANE, 1),
+             (lanes, n, *tail): (_GAMMA_VAR, n)}
+    kind = kinds.get(tuple(gamma.shape))
+    if kind is None:
+        raise ValueError(f"gamma must be 0-dim, [B] or [B, n] (lane-tiled as the state), got "
+                         f"{tuple(gamma.shape)}")
+    _check("gamma", gamma, gamma.shape, dtype, device)
+    return (gamma.data_ptr(), *kind)
+
+
+def _tail(lane_tile):
+    """Validate ``lane_tile``; the trailing dimension it adds to every
+    per-lane tensor: ``()`` for 1, ``(T,)`` for a tile."""
+    if lane_tile != 1 and lane_tile not in LANE_TILES:
+        raise ValueError(f"lane_tile must be 1 or one of {LANE_TILES}, got {lane_tile}")
+    return () if lane_tile == 1 else (lane_tile,)
+
+
+def _count(wrapper, lane_tile):
+    wrapper.launches += 1
+    wrapper.routes["lane_major" if lane_tile == 1 else "lane_tiled"] += 1
 
 
 def _launch(fn, what, x, *args):
@@ -139,7 +166,8 @@ def _stage_arg(_stage):
     return _STAGE_AUTO if _stage is None else int(bool(_stage))
 
 
-def minsum_check_cuda(x, idx, syn_flip, chk_mask, alpha, beta, *, chk_deg=None, _stage=None):
+def minsum_check_cuda(x, idx, syn_flip, chk_mask, alpha, beta, *, chk_deg=None, _stage=None,
+                      lane_tile=1):
     """Min-sum check update; returns ``mu [B, dc, m]`` (every slot written).
 
     Args:
@@ -159,36 +187,46 @@ def minsum_check_cuda(x, idx, syn_flip, chk_mask, alpha, beta, *, chk_deg=None, 
         the gathered row staged in shared memory where it is at least 48 KB
         and two such blocks fit an SM); True / False force the staged /
         flat form.
+      lane_tile: 1, or (with ``idx``) 64 / 128: ``x``, ``syn_flip`` and the
+        returned ``mu`` in their lane-tiled forms (the flat form).
     """
     on_cpu = _messages("x", x)
+    tail = _tail(lane_tile)
     dc, m = chk_mask.shape
-    if x.ndim != (2 if idx is not None else 3) or (idx is None and x.shape[1:] != (dc, m)):
+    if tail and idx is None:
+        raise ValueError("lane tiles take the gathered form (idx) only")
+    if (x.ndim != (2 if idx is not None else 3) + len(tail) or x.shape[x.ndim - len(tail):] != tail
+            or (idx is None and x.shape[1:] != (dc, m))):
         raise ValueError(
-            f"x must be [B, stride] with idx or [B, {dc}, {m}] without, got {tuple(x.shape)}")
+            f"x must be [B, stride] with idx or [B, {dc}, {m}] without (lane-tiled "
+            f"[B / T, stride, T]), got {tuple(x.shape)}")
     if on_cpu:
         if idx is None:
             return check_core_ref(x, syn_flip, chk_mask, alpha, beta)
-        return check_update_ref(x, idx, syn_flip, chk_mask, alpha, beta)
-    B = x.shape[0]
+        return check_update_ref(x, idx, syn_flip, chk_mask, alpha, beta, lane_tile)
+    if tail and _stage:
+        raise ValueError("the staged form takes lane_tile=1")
+    lanes = x.shape[0]  # lanes, or tiles of lane_tile
     _check("x", x, x.shape, x.dtype, x.device)
     if idx is not None:
         _check("idx", idx, (dc * m,), torch.int32, x.device)
-    _check("syn_flip", syn_flip, (B, m), torch.bool, x.device)
+    _check("syn_flip", syn_flip, (lanes, m, *tail), torch.bool, x.device)
     _check("chk_mask", chk_mask, (dc, m), torch.bool, x.device)
     deg = _degrees("chk_deg", chk_deg, chk_mask, x.device)
-    mu = torch.empty((B, dc, m), dtype=x.dtype, device=x.device)
-    if B == 0:
+    mu = torch.empty((lanes, dc, m, *tail), dtype=x.dtype, device=x.device)
+    if lanes == 0:
         return mu
+    B = lanes * lane_tile
     _launch("ldpc_minsum_check", "minsum_check", x,
             x.data_ptr(), None if idx is None else idx.data_ptr(), syn_flip.data_ptr(),
             deg.data_ptr(), mu.data_ptr(), B, m, dc, x.numel() // B,
-            float(alpha), float(beta), _BIG[x.dtype], _stage_arg(_stage))
-    minsum_check_cuda.launches += 1
+            float(alpha), float(beta), _BIG[x.dtype], _stage_arg(_stage), lane_tile)
+    _count(minsum_check_cuda, lane_tile)
     return mu
 
 
 def minsum_check_iter_cuda(mu, total, chk_varidx, syn_flip, chk_mask, alpha, beta, *,
-                           gamma=None, nu=None, chk_deg=None, _stage=None):
+                           gamma=None, nu=None, chk_deg=None, _stage=None, lane_tile=1):
     """The check layout's min-sum iteration, from the second on, in place;
     returns ``mu``.
 
@@ -208,48 +246,58 @@ def minsum_check_iter_cuda(mu, total, chk_varidx, syn_flip, chk_mask, alpha, bet
         ``chk_varidx``).
       nu: with ``gamma``, ``[B, dc, m]`` the previous variable->check
         messages; receives the mixed ones on the real slots.
+      lane_tile: 1, or 64 / 128: every per-lane argument in its lane-tiled
+        form (``mu [B / T, dc, m, T]``, ``total [B / T, n, T]``, ...; the flat
+        form).
     """
     on_cpu = _messages("mu", mu)
+    tail = _tail(lane_tile)
     dc, m = chk_mask.shape
-    if mu.ndim != 3 or mu.shape[1:] != (dc, m) or total.ndim != 2:
-        raise ValueError(f"mu must be [B, {dc}, {m}] and total [B, n], got "
-                         f"{tuple(mu.shape)} and {tuple(total.shape)}")
+    if mu.shape[1:] != (dc, m, *tail) or total.ndim != 2 + len(tail):
+        raise ValueError(f"mu must be [B, {dc}, {m}] and total [B, n] (lane-tiled "
+                         f"[B / T, ..., T]), got {tuple(mu.shape)} and {tuple(total.shape)}")
     if (nu is None) != (gamma is None):
         raise ValueError("the check layout keeps nu exactly when it damps (gamma)")
     if on_cpu:
-        return check_iter_ref(mu, total, chk_varidx, syn_flip, chk_mask, alpha, beta, gamma, nu)
-    (B, n), dtype, device = total.shape, mu.dtype, mu.device
-    _check("mu", mu, (B, dc, m), dtype, device)
-    _check("total", total, (B, n), dtype, device)
+        return check_iter_ref(mu, total, chk_varidx, syn_flip, chk_mask, alpha, beta, gamma, nu,
+                              lane_tile)
+    if tail and _stage:
+        raise ValueError("the staged form takes lane_tile=1")
+    (lanes, n), dtype, device = total.shape[:2], mu.dtype, mu.device
+    _check("mu", mu, (lanes, dc, m, *tail), dtype, device)
+    _check("total", total, (lanes, n, *tail), dtype, device)
     _check("chk_varidx", chk_varidx, (dc * m,), torch.int32, device)
-    _check("syn_flip", syn_flip, (B, m), torch.bool, device)
+    _check("syn_flip", syn_flip, (lanes, m, *tail), torch.bool, device)
     _check("chk_mask", chk_mask, (dc, m), torch.bool, device)
     deg = _degrees("chk_deg", chk_deg, chk_mask, device)
-    g_ptr, g_kind, g_stride = _gamma(gamma, nu, B, n, (B, dc, m), dtype, device)
-    if B == 0:
+    g_ptr, g_kind, g_stride = _gamma(gamma, nu, lanes, n, (lanes, dc, m, *tail), dtype, device,
+                                     tail)
+    if lanes == 0:
         return mu
     _launch("ldpc_minsum_check_iter", "minsum_check_iter", mu,
             mu.data_ptr(), None if nu is None else nu.data_ptr(), total.data_ptr(),
             chk_varidx.data_ptr(), syn_flip.data_ptr(), deg.data_ptr(), g_ptr, g_kind,
-            g_stride, B, m, dc, n, float(alpha), float(beta), _BIG[dtype], _stage_arg(_stage))
-    minsum_check_iter_cuda.launches += 1
+            g_stride, lanes * lane_tile, m, dc, n, float(alpha), float(beta), _BIG[dtype],
+            _stage_arg(_stage), lane_tile)
+    _count(minsum_check_iter_cuda, lane_tile)
     return mu
 
 
-def _var_common(mu_flat, v2c, var_mask, L0, W, var_deg):
+def _var_common(mu_flat, v2c, var_mask, L0, W, var_deg, tail=()):
     """Shared validation of the two variable-update wrappers (CUDA tensors);
-    returns ``(B, dv, n, L0, deg)`` with ``L0`` made ``[B, n]``."""
+    returns ``(B, dv, n, L0, deg)`` with ``L0`` made ``[B, n]`` (``B`` the
+    tiles and ``L0`` as given where lane-tiled)."""
     dv, n = var_mask.shape
     B, dtype, device = mu_flat.shape[0], mu_flat.dtype, mu_flat.device
     if dv > 1024:  # the kernel sums at most 32 windows of 32 slots
         raise ValueError(f"the min-sum variable kernel takes at most 1024 slots a variable, "
                          f"got {dv}")
-    if L0.shape != (B, n) or not L0.is_contiguous():
+    if not tail and (L0.shape != (B, n) or not L0.is_contiguous()):
         L0 = torch.broadcast_to(L0, (B, n)).contiguous()
     _check("mu_flat", mu_flat, mu_flat.shape, dtype, device)
     _check("v2c", v2c, (dv * n,), torch.int32, device)
     _check("var_mask", var_mask, (dv, n), torch.bool, device)
-    _check("L0", L0, (B, n), dtype, device)
+    _check("L0", L0, (B, n, *tail), dtype, device)
     if W is not None:
         _check("W", W, (dv, n), dtype, device)
     return B, dv, n, L0, _degrees("var_deg", var_deg, var_mask, device)
@@ -286,13 +334,13 @@ def minsum_var_cuda(mu_flat, v2c, var_mask, L0, W=None, want_nu=True, *, var_deg
     _launch("ldpc_minsum_var", "minsum_var", mu_flat,
             mu_flat.data_ptr(), v2c.data_ptr(), deg.data_ptr(), L0.data_ptr(), _ptr(W),
             _ptr(nu), int(want_nu), None, _GAMMA_NONE, 0, total.data_ptr(), None, None, None,
-            B, n, dv, mu_flat.shape[1])
-    minsum_var_cuda.launches += 1
+            B, n, dv, mu_flat.shape[1], 1)
+    _count(minsum_var_cuda, 1)
     return nu, total
 
 
 def minsum_var_iter_cuda(mu_flat, v2c, var_mask, L0, *, W=None, nu=None, gamma=None,
-                         total=None, done=None, err=None, llrs=None, var_deg=None):
+                         total=None, done=None, err=None, llrs=None, var_deg=None, lane_tile=1):
     """The variable update of a min-sum iteration, in place; returns
     ``total``.
 
@@ -307,39 +355,52 @@ def minsum_var_iter_cuda(mu_flat, v2c, var_mask, L0, *, W=None, nu=None, gamma=N
         [B, n]`` in the message dtype: the lanes not done take
         ``err = total < 0`` and ``llrs = total`` (``llrs`` must not alias
         ``L0``).
+      lane_tile: 1, or 64 / 128 (no ``nu``, ``W`` or ``gamma``: the
+        check layout's form): ``mu_flat [B / T, dc*m, T]``, ``L0``,
+        ``total``, ``err`` and ``llrs [B / T, n, T]``, ``done [B / T, T]``;
+        the kernel loads and stores a thread's T / 32 lanes as one vector,
+        so ``mu_flat``, ``L0`` and ``total`` must be 16-byte aligned.
     """
     on_cpu = _messages("mu_flat", mu_flat)
-    if mu_flat.ndim != 2:
-        raise ValueError(f"mu_flat must be [B, dc*m], got {tuple(mu_flat.shape)}")
+    tail = _tail(lane_tile)
+    if mu_flat.ndim != 2 + len(tail) or mu_flat.shape[2:] != tail:
+        raise ValueError(f"mu_flat must be [B, dc*m] (lane-tiled [B / T, dc*m, T]), got "
+                         f"{tuple(mu_flat.shape)}")
     if (done is None) != (err is None) or (done is None) != (llrs is None):
         raise ValueError("done, err and llrs go together")
+    if tail and (nu is not None or W is not None or gamma is not None):
+        raise ValueError("lane tiles take the check layout's form: no nu, W or gamma")
     if on_cpu:
         return var_iter_ref(mu_flat, v2c, var_mask, L0, W=W, nu=nu, gamma=gamma, total=total,
-                            done=done, err=err, llrs=llrs)
-    B, dv, n, L0, deg = _var_common(mu_flat, v2c, var_mask, L0, W, var_deg)
+                            done=done, err=err, llrs=llrs, lane_tile=lane_tile)
+    B, dv, n, L0, deg = _var_common(mu_flat, v2c, var_mask, L0, W, var_deg, tail)
     dtype, device = mu_flat.dtype, mu_flat.device
     g_ptr, g_kind, g_stride = _gamma(gamma, nu, B, n, (B, dv, n), dtype, device)
     if nu is not None:
         _check("nu", nu, (B, dv, n), dtype, device)
     if total is not None:
-        _check("total", total, (B, n), dtype, device)
+        _check("total", total, (B, n, *tail), dtype, device)
     if done is not None:
-        _check("done", done, (B,), torch.bool, device)
-        _check("err", err, (B, n), torch.float32, device)
-        _check("llrs", llrs, (B, n), dtype, device)
+        _check("done", done, (B, *tail), torch.bool, device)
+        _check("err", err, (B, n, *tail), torch.float32, device)
+        _check("llrs", llrs, (B, n, *tail), dtype, device)
         if llrs.data_ptr() == L0.data_ptr():
             raise ValueError("llrs must not alias L0")
+    if tail and any(t.data_ptr() % 16 for t in (mu_flat, L0, total) if t is not None):
+        raise ValueError("lane-tiled mu_flat, L0 and total must be 16-byte aligned")
     if B == 0:
         return total
     _launch("ldpc_minsum_var", "minsum_var_iter", mu_flat,
             mu_flat.data_ptr(), v2c.data_ptr(), deg.data_ptr(), L0.data_ptr(), _ptr(W),
             _ptr(nu), 0 if nu is None else 2, g_ptr, g_kind, g_stride, _ptr(total),
-            _ptr(done), _ptr(err), _ptr(llrs), B, n, dv, mu_flat.shape[1])
-    minsum_var_iter_cuda.launches += 1
+            _ptr(done), _ptr(err), _ptr(llrs), B * lane_tile, n, dv, mu_flat.shape[1],
+            lane_tile)
+    _count(minsum_var_iter_cuda, lane_tile)
     return total
 
 
-minsum_check_cuda.launches = 0
-minsum_check_iter_cuda.launches = 0
-minsum_var_cuda.launches = 0
-minsum_var_iter_cuda.launches = 0
+for _wrapper in (minsum_check_cuda, minsum_check_iter_cuda, minsum_var_cuda,
+                 minsum_var_iter_cuda):
+    _wrapper.launches = 0
+    _wrapper.routes = {"lane_major": 0, "lane_tiled": 0}
+del _wrapper

@@ -40,6 +40,14 @@ the reference computes it, updating their state in place as the kernels do:
     the lanes not yet done.
 
 The kernels update the real slots only; a padded slot's value is never read.
+
+Lane tiles.  The check layout's state may be lane-tiled (``lane_tile`` T of
+64 or 128, :func:`tile_lanes`): the tiled form of a ``[B, *rest]``
+tensor is ``[B / T, *rest, T]``, the lanes padded to a multiple of T, so
+that the kernels' warps read the lanes of one node at once.  ``check_update_ref``,
+``check_iter_ref`` and ``var_iter_ref`` take ``lane_tile``: the tiled form
+is the plain version between an un-tile and a re-tile, so it is the
+``lane_tile=1`` form bit for bit.  T = 1 is the untiled tensor itself.
 """
 
 from __future__ import annotations
@@ -56,6 +64,8 @@ __all__ = [
     "var_iter_ref",
     "slot_degrees",
     "slot_sum",
+    "tile_lanes",
+    "untile_lanes",
 ]
 
 #: magnitude a padded check slot reads as (positive, so inert in the parity)
@@ -128,8 +138,38 @@ def var_core_ref(Mg, var_mask, L0, W=None, want_nu=True):
     return nu, total
 
 
-def check_update_ref(nu_flat, c2v, syn_flip, chk_mask, alpha, beta):
-    """Var-side ``nu_flat [B, dv*n]`` -> check-side ``mu [B, dc, m]``."""
+def tile_lanes(x: torch.Tensor, lane_tile: int, fill=0) -> torch.Tensor:
+    """``x [B, *rest]`` -> ``[ceil(B / T), *rest, T]``, contiguous, the lanes
+    past B set to ``fill``; ``x`` itself for T = 1."""
+    if lane_tile == 1:
+        return x
+    B, rest = x.shape[0], tuple(x.shape[1:])
+    bt = -(-B // lane_tile)
+    if bt * lane_tile != B:
+        pad = torch.full((bt * lane_tile - B, *rest), fill, dtype=x.dtype, device=x.device)
+        x = torch.cat([x, pad])
+    return x.reshape(bt, lane_tile, *rest).movedim(1, -1).contiguous()
+
+
+def untile_lanes(x: torch.Tensor, lane_tile: int) -> torch.Tensor:
+    """``x [Bt, *rest, T]`` -> ``[Bt * T, *rest]`` (the padded lanes last),
+    contiguous; ``x`` itself for T = 1."""
+    if lane_tile == 1:
+        return x
+    return x.movedim(-1, 1).reshape(x.shape[0] * lane_tile, *x.shape[1:-1]).contiguous()
+
+
+def _untiled(lane_tile, *tensors):
+    """Each per-lane tensor's untiled form (None and 0-dim as they are)."""
+    return [t if t is None or t.ndim == 0 else untile_lanes(t, lane_tile) for t in tensors]
+
+
+def check_update_ref(nu_flat, c2v, syn_flip, chk_mask, alpha, beta, lane_tile=1):
+    """Var-side ``nu_flat [B, dv*n]`` -> check-side ``mu [B, dc, m]`` (their
+    tiled forms with ``lane_tile``)."""
+    if lane_tile > 1:
+        nu_u, syn_u = _untiled(lane_tile, nu_flat, syn_flip)
+        return tile_lanes(check_update_ref(nu_u, c2v, syn_u, chk_mask, alpha, beta), lane_tile)
     dc, m = chk_mask.shape
     Ng = nu_flat.index_select(1, c2v).reshape(nu_flat.shape[0], dc, m)
     return check_core_ref(Ng, syn_flip, chk_mask, alpha, beta)
@@ -165,7 +205,7 @@ def _gamma_like(gamma, B, shape_one, per_var):
 
 
 def check_iter_ref(mu, total, chk_varidx, syn_flip, chk_mask, alpha, beta, gamma=None,
-                   nu=None):
+                   nu=None, lane_tile=1):
     """The check layout's iteration, in place; returns ``mu``.
 
     ``mu [B, dc, m]`` holds the previous check->variable messages and
@@ -173,8 +213,16 @@ def check_iter_ref(mu, total, chk_varidx, syn_flip, chk_mask, alpha, beta, gamma
     ``chk_varidx [dc*m]`` the variable of each check slot.  The message of a
     slot is ``total[var] - mu``; with ``gamma`` (the message dtype: 0-dim,
     ``[B]`` or ``[B, n]``) it is mixed with ``nu [B, dc, m]``, the previous
-    messages, which receives the mix.
+    messages, which receives the mix.  With ``lane_tile`` every per-lane
+    tensor is in its tiled form.
     """
+    if lane_tile > 1:
+        mu_u, total_u, syn_u, gamma_u, nu_u = _untiled(lane_tile, mu, total, syn_flip, gamma, nu)
+        check_iter_ref(mu_u, total_u, chk_varidx, syn_u, chk_mask, alpha, beta, gamma_u, nu_u)
+        mu.copy_(tile_lanes(mu_u, lane_tile))
+        if nu is not None:
+            nu.copy_(tile_lanes(nu_u, lane_tile))
+        return mu
     B, dc, m = mu.shape
     new = total.index_select(1, chk_varidx).reshape(B, dc, m) - mu
     if gamma is not None:
@@ -187,15 +235,25 @@ def check_iter_ref(mu, total, chk_varidx, syn_flip, chk_mask, alpha, beta, gamma
 
 
 def var_iter_ref(mu_flat, v2c, var_mask, L0, *, W=None, nu=None, gamma=None, total=None,
-                 done=None, err=None, llrs=None):
+                 done=None, err=None, llrs=None, lane_tile=1):
     """The variable update of an iteration, in place; returns ``total``.
 
     ``total [B, n]``, where given, receives ``L0 + sum``.  ``nu [B, dv, n]``,
     where given, holds the previous variable->check messages and receives
     ``total - msg``, mixed with them by ``gamma`` (0-dim, ``[B]`` or
     ``[B, n]``) where given.  With ``done [B]`` the lanes not done take
-    ``err = total < 0`` (float32) and ``llrs = total``.
+    ``err = total < 0`` (float32) and ``llrs = total``.  With ``lane_tile``
+    every per-lane tensor is in its tiled form (``L0`` too, not broadcast).
     """
+    if lane_tile > 1:
+        per_lane = dict(nu=nu, gamma=gamma, total=total, done=done, err=err, llrs=llrs)
+        untiled = dict(zip(per_lane, _untiled(lane_tile, *per_lane.values())))
+        mu_u, L0_u = _untiled(lane_tile, mu_flat, L0)
+        var_iter_ref(mu_u, v2c, var_mask, L0_u, W=W, **untiled)
+        for name in ("nu", "total", "err", "llrs"):
+            if per_lane[name] is not None:
+                per_lane[name].copy_(tile_lanes(untiled[name], lane_tile))
+        return total
     new, tot = var_update_ref(mu_flat, v2c, var_mask, L0, W, nu is not None)
     if nu is not None:
         if gamma is not None:

@@ -916,6 +916,173 @@ def test_minsum_iter_wrappers_check_inputs(dev):
             cuda_minsum.minsum_var_iter_cuda.launches) == before
 
 
+LANE_TILES = [64, 128]
+
+
+def tiled_inputs(g, dtype, Bp, gamma_kind, seed):
+    """Lane-major inputs of K3/K4 for ``Bp`` lanes (ties and zeros among the
+    messages, negative per-variable strengths among the gammas)."""
+    rng = np.random.default_rng(seed)
+    dc, m, n = g.max_dc, g.m, g.n
+    mu0 = torch.as_tensor(rng.normal(size=(Bp, dc, m)) * 2).to(dtype)
+    mu0[:, :, ::3] = torch.round(mu0[:, :, ::3])
+    return dict(
+        mu=mu0, nu=torch.as_tensor(rng.normal(size=(Bp, dc, m)) * 3).to(dtype),
+        total=torch.as_tensor(rng.normal(size=(Bp, n)) * 4).to(dtype),
+        L0=torch.as_tensor(rng.normal(size=(Bp, n)) * 2).to(dtype),
+        syn=torch.as_tensor(rng.random((Bp, m)) < 0.5),
+        gamma=gamma_for(gamma_kind, rng, Bp, n, dtype),
+        done=torch.as_tensor(rng.random(Bp) < 0.4),
+        err=torch.as_tensor((rng.random((Bp, n)) < 0.5).astype(np.float32)),
+        llrs=torch.as_tensor(rng.normal(size=(Bp, n))).to(dtype))
+
+
+def check_tiled_kernels(dev, g, dtype, x, lane_tile):
+    """K3's gathered and iteration forms and K4's totals with the freeze on
+    lane tiles of ``x``'s lanes against the plain lane-major versions (on
+    the card), bitwise; mu / nu keep their padded slots."""
+    T, Bp = lane_tile, x["mu"].shape[0]
+    ms = pt.MinSumDecode(g, 0.05, 2, layout="check", device=dev, dtype=dtype)
+    c = {k: None if v is None else v.to(dev) for k, v in x.items()}
+    tile = lambda t: t if t is None or t.ndim == 0 else plain_minsum.tile_lanes(t, T)  # noqa: E731
+    untile = lambda t: plain_minsum.untile_lanes(t, T)  # noqa: E731
+    real = ms.chk_mask.reshape(-1)
+    alpha, beta = 0.8125, 0.15625
+    routes = {w: dict(w.routes) for w in (cuda_minsum.minsum_check_cuda,
+                                          cuda_minsum.minsum_check_iter_cuda,
+                                          cuda_minsum.minsum_var_iter_cuda)}
+
+    want = plain_minsum.check_update_ref(c["L0"], ms.chk_varidx, c["syn"], ms.chk_mask, alpha,
+                                         beta)
+    got = cuda_minsum.minsum_check_cuda(tile(c["L0"]), ms.chk_varidx, tile(c["syn"]),
+                                        ms.chk_mask, alpha, beta, chk_deg=ms.chk_deg,
+                                        lane_tile=T)
+    torch.cuda.synchronize()
+    assert got.shape == (Bp // T, g.max_dc, g.m, T)
+    assert torch.equal(bits(untile(got)), bits(want))
+
+    gamma = c["gamma"]
+    mu_w, nu_w = c["mu"].clone(), None if gamma is None else c["nu"].clone()
+    plain_minsum.check_iter_ref(mu_w, c["total"], ms.chk_varidx, c["syn"], ms.chk_mask, alpha,
+                                beta, gamma, nu_w)
+    mu_k, nu_k = tile(c["mu"]), None if gamma is None else tile(c["nu"])
+    out = cuda_minsum.minsum_check_iter_cuda(mu_k, tile(c["total"]), ms.chk_varidx,
+                                             tile(c["syn"]), ms.chk_mask, alpha, beta,
+                                             gamma=tile(gamma), nu=nu_k, chk_deg=ms.chk_deg,
+                                             lane_tile=T)
+    torch.cuda.synchronize()
+    assert out is mu_k
+    for k, w, before in ((mu_k, mu_w, c["mu"]), (nu_k, nu_w, c["nu"])):
+        if w is None:
+            continue
+        got = bits(untile(k)).reshape(Bp, -1)
+        assert torch.equal(got[:, real], bits(w).reshape(Bp, -1)[:, real])
+        assert torch.equal(got[:, ~real], bits(before).reshape(Bp, -1)[:, ~real])
+
+    mu_flat = mu_w.reshape(Bp, -1)
+    tot_w, err_w, llr_w = torch.empty_like(c["L0"]), c["err"].clone(), c["llrs"].clone()
+    plain_minsum.var_iter_ref(mu_flat, ms.v2c, ms.var_mask, c["L0"], total=tot_w,
+                              done=c["done"], err=err_w, llrs=llr_w)
+    tot_k, err_k, llr_k = tile(torch.empty_like(c["L0"])), tile(c["err"]), tile(c["llrs"])
+    assert cuda_minsum.minsum_var_iter_cuda(
+        tile(mu_flat), ms.v2c, ms.var_mask, tile(c["L0"]), total=tot_k, done=tile(c["done"]),
+        err=err_k, llrs=llr_k, var_deg=ms.var_deg, lane_tile=T) is tot_k
+    torch.cuda.synchronize()
+    for a, b in ((tot_k, tot_w), (err_k, err_w), (llr_k, llr_w)):
+        assert torch.equal(bits(untile(a)), bits(b))
+    for w, before in routes.items():  # one tiled launch each, none lane-major
+        assert w.routes == dict(before, lane_tiled=before["lane_tiled"] + 1)
+
+
+@pytest.mark.parametrize("graph_name", ["heavy", "dem", "gallager"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gamma_kind", GAMMAS)
+@pytest.mark.parametrize("lane_tile", LANE_TILES)
+def test_minsum_tiled_kernels_match_plain_versions(dev, graph_name, dtype, gamma_kind,
+                                                   lane_tile):
+    """The tiled K3/K4 on a whole tile and a ragged one (5 lanes and their
+    padding), every damping kind: bitwise the plain versions."""
+    g = iter_graph(graph_name)
+    x = tiled_inputs(g, dtype, 2 * lane_tile, gamma_kind, seed=7)
+    check_tiled_kernels(dev, g, dtype, x, lane_tile)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_minsum_tiled_kernels_at_the_bb144_dem_shape(dev, dtype):
+    """The tiled K3/K4 on the 864 x 31,648 circuit-level graph (check degree
+    up to 294, variables up to 12), one tile of 64 lanes, with per-variable
+    gammas: bitwise the plain versions."""
+    A, pr, _ = bb144_dem()
+    g = pt.TannerGraph.from_pcm(np.asarray(A.todense()))
+    x = tiled_inputs(g, dtype, 64, "var", seed=9)
+    x["L0"] = torch.as_tensor(np.log((1 - pr) / pr)).to(dtype).expand(64, -1).contiguous()
+    check_tiled_kernels(dev, g, dtype, x, 64)
+
+
+def test_minsum_tiled_launch_failure_raises(dev, monkeypatch):
+    """A tiled launch the library refuses (a tile it was not built for)
+    raises: no wrapper falls back to the plain version or to lane-major
+    tiles, counts a launch, or touches the state."""
+    g = iter_graph("dem")
+    ms = pt.MinSumDecode(g, 0.05, 2, layout="check", device=dev)
+    monkeypatch.setattr(cuda_minsum, "LANE_TILES", (16, 64, 128))
+    T, dc, m, n = 16, g.max_dc, g.m, g.n
+    mu = torch.ones((1, dc, m, T), device=dev)
+    total = torch.ones((1, n, T), device=dev)
+    syn = torch.zeros((1, m, T), dtype=torch.bool, device=dev)
+    wrappers = (cuda_minsum.minsum_check_cuda, cuda_minsum.minsum_check_iter_cuda,
+                cuda_minsum.minsum_var_iter_cuda)
+    before = [(w.launches, dict(w.routes)) for w in wrappers]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cuda_minsum.minsum_check_cuda(total, ms.chk_varidx, syn, ms.chk_mask, 1.0, 0.0,
+                                      lane_tile=T)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cuda_minsum.minsum_check_iter_cuda(mu, total, ms.chk_varidx, syn, ms.chk_mask, 1.0, 0.0,
+                                           lane_tile=T)
+    out = torch.zeros_like(total)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cuda_minsum.minsum_var_iter_cuda(mu.reshape(1, dc * m, T), ms.v2c, ms.var_mask, total,
+                                         total=out, lane_tile=T)
+    with pytest.raises(ValueError, match="staged form"):
+        cuda_minsum.minsum_check_iter_cuda(mu, total, ms.chk_varidx, syn, ms.chk_mask, 1.0, 0.0,
+                                           _stage=True, lane_tile=T)
+    torch.cuda.synchronize()
+    assert [(w.launches, w.routes) for w in wrappers] == before
+    assert bool((mu == 1).all()) and bool((out == 0).all())
+
+
+@pytest.mark.parametrize("config", ["stage0", "deep"])
+def test_minsum_decode_tiled_on_card_matches_cpu(dev, config):
+    """``MinSumDecode(layout="check")`` on 64-lane tiles on the card, 33
+    records (a ragged tile), the staged decoder's two inner
+    configurations checked every 8 iterations: every output bitwise the
+    lane-major decode on the CPU, every launch tiled."""
+    g = iter_graph("dem")
+    A = g.H
+    rng = np.random.default_rng(3)
+    pr = np.full(g.n, 0.02)
+    x = rng.random((33, g.n)) < pr
+    syn = torch.as_tensor(((x.astype(np.int64) @ A.T) % 2).astype(np.uint8))
+    kw, dtype, gamma = dict(damping=0.4), torch.float32, None
+    if config == "deep":
+        kw, dtype = dict(lane_damping=True, track_best=True), torch.bfloat16
+        gamma = torch.as_tensor(rng.uniform(-0.24, 0.66, (33, g.n)), dtype=torch.float32)
+    mods = {d: pt.MinSumDecode(g, pr, 20, device=d, dtype=dtype, layout="check",
+                               check_every=8, _lane_tile=T, **kw)
+            for d, T in (("cpu", 1), (dev, 64))}
+    routes = {w: dict(w.routes) for w in (cuda_minsum.minsum_check_iter_cuda,
+                                          cuda_minsum.minsum_var_iter_cuda)}
+    want = mods["cpu"](syn, None, gamma)
+    got = mods[dev](syn.to(dev), None, None if gamma is None else gamma.to(dev))
+    for a, b in zip(got, want):
+        a = a.cpu()
+        assert torch.equal(bits(a) if a.is_floating_point() else a,
+                           bits(b) if b.is_floating_point() else b)
+    for w, before in routes.items():
+        assert w.routes["lane_major"] == before["lane_major"]
+        assert w.routes["lane_tiled"] > before["lane_tiled"]
+
+
 def test_minsum_stage_plan_is_the_launchers(dev):
     """The staged check form's plan (threads, shared memory) in Python equals
     the launcher's, over row sizes up to past a block."""
