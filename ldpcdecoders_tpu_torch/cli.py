@@ -13,8 +13,9 @@ flags and JSON output, and ``--device`` (default: the current CUDA card;
         --decoder minsum --batch 1024
 
 ``--profile DIR`` writes a ``torch.profiler`` trace of the command into DIR
-(utils/profiling.py), with the command's work and each timed ``bench``
-repetition as labelled regions.
+(utils/profiling.py), with the command's work as a labelled region and the
+decoders' own spans (``ldpc.call`` around each decode call, so around each
+timed ``bench`` repetition), and their counters per call beside it.
 """
 
 from __future__ import annotations
@@ -335,8 +336,6 @@ def _bench(a, H, factory) -> None:
     ending in a synchronization with the card; the median and the spread."""
     import torch
 
-    from ldpcdecoders_tpu_torch.utils.profiling import annotate
-
     dec = factory(a.per)
     cuda = dec.device.type == "cuda"
 
@@ -352,8 +351,7 @@ def _bench(a, H, factory) -> None:
     for _ in range(max(1, a.reps)):
         sync()
         t0 = time.perf_counter()
-        with annotate("bench.rep"):
-            _, conv, iters, _, stats = dec.batch_decode_detailed(syns)
+        _, conv, iters, _, stats = dec.batch_decode_detailed(syns)
         sync()
         times.append(time.perf_counter() - t0)
     times.sort()

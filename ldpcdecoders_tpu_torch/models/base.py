@@ -18,6 +18,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.profiling import call_span, span, to_device, to_host
+
 __all__ = ["Decoder", "DecodeStats", "decode", "batchdecode", "decode_soft", "resolve_device"]
 
 
@@ -84,7 +86,8 @@ class Decoder(torch.nn.Module):
         raise NotImplementedError
 
     def _call_decode(self, syndromes, seed, per):
-        syndromes = torch.as_tensor(syndromes, device=self.device)
+        with span("ldpc.to_device"):
+            syndromes = to_device(syndromes, self.device)
         if syndromes.ndim != 2 or syndromes.shape[1] != self.m:
             raise ValueError(
                 f"expected syndromes of shape [B, {self.m}], got {tuple(syndromes.shape)}"
@@ -97,7 +100,8 @@ class Decoder(torch.nn.Module):
         if per is not None and not self.supports_per_override:
             raise ValueError(
                 f"{type(self).__name__} does not support per-call channel prior overrides")
-        return self._decode_batch(syndromes, seed, per=per)
+        with span("ldpc.decode"):
+            return self._decode_batch(syndromes, seed, per=per)
 
     # -- public API -------------------------------------------------------
 
@@ -115,8 +119,10 @@ class Decoder(torch.nn.Module):
 
         Returns ``(errors [B, n] int8, converged [B] bool)`` as numpy arrays.
         """
-        errors, converged, _, _ = self._call_decode(np.asarray(syndromes), seed, per)
-        return errors.cpu().numpy(), converged.cpu().numpy()
+        with call_span():
+            errors, converged, _, _ = self._call_decode(np.asarray(syndromes), seed, per)
+            with span("ldpc.to_host"):
+                return to_host(errors, converged)
 
     def batch_decode_async(self, syndromes, *, seed: int = 0, per=None):
         """Decode a batch and return ``(errors, converged)`` as tensors on
@@ -124,26 +130,29 @@ class Decoder(torch.nn.Module):
         input on that device is used as it is.  Decoders with host-side
         orchestration (OSD-0's failing-lane compaction, BP's early exit)
         still synchronize internally."""
-        errors, converged, _, _ = self._call_decode(syndromes, seed, per)
+        with call_span():
+            errors, converged, _, _ = self._call_decode(syndromes, seed, per)
         return errors, converged
 
     def batch_decode_detailed_async(self, syndromes, *, seed: int = 0, per=None):
         """Like :meth:`batch_decode_detailed` without the copies to the
         host: returns ``(errors, converged, iters, aux)`` as tensors on the
         decoder's device."""
-        return self._call_decode(syndromes, seed, per)
+        with call_span():
+            return self._call_decode(syndromes, seed, per)
 
     def batch_decode_detailed(self, syndromes, *, seed: int = 0, per=None):
         """Like :meth:`batch_decode` but also returns iteration counts,
         decoder-specific auxiliary output, and :class:`DecodeStats`."""
-        errors, converged, iters, aux = self._call_decode(np.asarray(syndromes), seed, per)
-        errors = errors.cpu().numpy()
-        converged = converged.cpu().numpy()
-        iters = iters.cpu().numpy()
-        # numpy has no bfloat16: such values come back as float32 (exact)
-        aux = {k: (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
-               for k, v in aux.items()}
-        return errors, converged, iters, aux, DecodeStats.from_arrays(converged, iters)
+        with call_span():
+            errors, converged, iters, aux = self._call_decode(np.asarray(syndromes), seed, per)
+            with span("ldpc.to_host"):
+                # numpy has no bfloat16: such values come back as float32 (exact)
+                errors, converged, iters, *soft = to_host(
+                    errors, converged, iters,
+                    *(v.float() if v.dtype == torch.bfloat16 else v for v in aux.values()))
+            aux = dict(zip(aux, soft))
+            return errors, converged, iters, aux, DecodeStats.from_arrays(converged, iters)
 
 
 def decode(decoder: Decoder, syndrome, **kw):

@@ -47,6 +47,7 @@ from ..ops.cuda_minsum import (LANE_TILES, minsum_check_cuda, minsum_check_iter_
                                 minsum_var_iter_cuda)
 from ..ops.minsum import slot_degrees, tile_lanes, untile_lanes
 from ..ops.syndrome import SyndromeCheck
+from ..utils.profiling import count, host_bool, span
 from .base import Decoder, resolve_device
 from .bp import as_graph
 from .priors import per_to_llr
@@ -202,6 +203,10 @@ class MinSumDecode(torch.nn.Module):
 
     def forward(self, syndromes: torch.Tensor, L0: torch.Tensor | None = None, gamma=None, *,
                 early_exit: bool = True):
+        with span("ldpc.minsum.decode"):
+            return self._forward(syndromes, L0, gamma, early_exit)
+
+    def _forward(self, syndromes, L0, gamma, early_exit):
         if self.lane_damping:
             if gamma is None:
                 raise ValueError("lane_damping decoders take a [B] gamma")
@@ -261,45 +266,53 @@ class MinSumDecode(torch.nn.Module):
 
         it = 0
         while it < self.max_iters and B:
-            alpha, beta = ((self.alpha[it], self.beta[it]) if self.per_iter_ab
-                           else (self.alpha, self.beta))
-            checked = (it + 1) % self.check_every == 0 or it + 1 >= self.max_iters
-            # the freeze only where the check reads it (done is fixed between)
-            freeze = dict(done=done_k, err=err_k, llrs=llrs_k) if checked else {}
-            if check_layout:
-                if mu is None:
-                    mu = minsum_check_cuda(L0_k, self.chk_varidx, flip_k, self.chk_mask,
-                                           alpha, beta, **chk_kw)
-                else:
-                    minsum_check_iter_cuda(mu, total, self.chk_varidx, flip_k,
-                                           self.chk_mask, alpha, beta, gamma=g_k, nu=nu,
-                                           **chk_kw)
-                minsum_var_iter_cuda(mu.reshape(lanes(self.max_dc * m)), self.v2c,
-                                     self.var_mask, L0_k, total=total, **freeze, **var_kw)
-            else:
-                mu = minsum_check_cuda(nu.reshape(B, self.max_dv * n), self.c2v, syn_flip,
-                                       self.chk_mask, alpha, beta, **chk_kw)
-                W = None if self.edge_weights is None else self.edge_weights[it]
-                minsum_var_iter_cuda(mu.reshape(B, self.max_dc * m), self.v2c, self.var_mask,
-                                     L0, W=W, nu=nu, gamma=g, **freeze, **var_kw)
-            it += 1
-            if not checked:
-                continue
-            err = untile(err_k)
-            active = ~done
-            mis = (self.syndrome_from(err) != syn_f).sum(dim=-1).to(torch.int32)
-            ok = mis == 0
-            iters = torch.where(ok & active, it, iters)
-            done = done | ok
-            done_k = tile_lanes(done, T, True)
-            if self.track_best:
-                better = active & (mis < bmis)
-                bmis = torch.where(better, mis, bmis)
-                berr = torch.where(better[:, None], err, berr)
-                bllr = torch.where(better[:, None], untile(llrs_k).to(torch.float32), bllr)
-            # ``done`` changes only where the check ran: read it there alone
-            if early_exit and bool(done.all()):
-                break
+            # the iterations up to the next check (the last always checks)
+            with span("ldpc.minsum.iters"):
+                checked = False
+                while not checked:
+                    alpha, beta = ((self.alpha[it], self.beta[it]) if self.per_iter_ab
+                                   else (self.alpha, self.beta))
+                    checked = (it + 1) % self.check_every == 0 or it + 1 >= self.max_iters
+                    # the freeze only where the check reads it (done is fixed between)
+                    freeze = dict(done=done_k, err=err_k, llrs=llrs_k) if checked else {}
+                    if check_layout:
+                        if mu is None:
+                            mu = minsum_check_cuda(L0_k, self.chk_varidx, flip_k,
+                                                   self.chk_mask, alpha, beta, **chk_kw)
+                        else:
+                            minsum_check_iter_cuda(mu, total, self.chk_varidx, flip_k,
+                                                   self.chk_mask, alpha, beta, gamma=g_k,
+                                                   nu=nu, **chk_kw)
+                        minsum_var_iter_cuda(mu.reshape(lanes(self.max_dc * m)), self.v2c,
+                                             self.var_mask, L0_k, total=total, **freeze,
+                                             **var_kw)
+                    else:
+                        mu = minsum_check_cuda(nu.reshape(B, self.max_dv * n), self.c2v,
+                                               syn_flip, self.chk_mask, alpha, beta, **chk_kw)
+                        W = None if self.edge_weights is None else self.edge_weights[it]
+                        minsum_var_iter_cuda(mu.reshape(B, self.max_dc * m), self.v2c,
+                                             self.var_mask, L0, W=W, nu=nu, gamma=g,
+                                             **freeze, **var_kw)
+                    it += 1
+            with span("ldpc.minsum.check"):
+                err = untile(err_k)
+                active = ~done
+                mis = (self.syndrome_from(err) != syn_f).sum(dim=-1).to(torch.int32)
+                ok = mis == 0
+                iters = torch.where(ok & active, it, iters)
+                done = done | ok
+                done_k = tile_lanes(done, T, True)
+                if self.track_best:
+                    better = active & (mis < bmis)
+                    bmis = torch.where(better, mis, bmis)
+                    berr = torch.where(better[:, None], err, berr)
+                    bllr = torch.where(better[:, None], untile(llrs_k).to(torch.float32), bllr)
+                # ``done`` changes only where the check ran: read it there alone
+                if early_exit and host_bool(done.all()):
+                    break
+        # lanes launched (tile padding and ensemble members included) times
+        # the iterations run
+        count("minsum_lane_iters_launched", bt * T * it)
         iters = torch.where(done, iters, it).to(torch.int32)
         if self.track_best:
             # converged lanes froze at mismatch 0 (their best); the rest

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..codes.graph import TannerGraph
+from ..utils.profiling import count, span, to_device, to_host
 from .base import Decoder, resolve_device
 from .minsum import MinSumDecode
 from .priors import next_pow2
@@ -57,12 +58,6 @@ def first_min_pick(score: torch.Tensor):
     best = score.amin(dim=0)
     rows = torch.arange(score.shape[0], device=score.device)[:, None]
     return torch.where(score == best, rows, score.shape[0]).amin(dim=0)
-
-
-def _host(*tensors):
-    """numpy copies of device tensors; the first copy waits for the device,
-    the others find it idle."""
-    return tuple(t.cpu().numpy() for t in tensors)
 
 
 class StagedDemDecoder(Decoder):
@@ -280,17 +275,18 @@ class StagedDemDecoder(Decoder):
                 break
             Bb_leg = max(self.min_bucket, next_pow2(un.size))
             idxp = np.concatenate([un, np.repeat(un[:1], Bb_leg - un.size)])
-            rows = torch.as_tensor(self._relay_rows(leg), device=self.device)
-            ep, sv, it2, err3, llrs3 = self._deep_step(
-                det[torch.as_tensor(idxp, device=det.device)], L0, llr0_d, rows, relay=True)
-            # the leg's three reads in a row: one wait for the device
-            sv_np, ep_np, it_np = _host(sv[: un.size], ep[: un.size], it2[: un.size])
-            newly = un[sv_np]
-            out[newly] = ep_np[sv_np]
-            iters_np[newly] += it_np[sv_np]
-            solved_np[newly] = True
-            pos_map = np.full(Bb, 0)
-            pos_map[un] = np.arange(un.size)
+            with span("ldpc.staged.relay"):
+                rows = to_device(self._relay_rows(leg), self.device)
+                ep, sv, it2, err3, llrs3 = self._deep_step(
+                    det[to_device(idxp, det.device)], L0, llr0_d, rows, relay=True)
+                # the leg's three reads in a row: one wait for the device
+                sv_np, ep_np, it_np = to_host(sv[: un.size], ep[: un.size], it2[: un.size])
+                newly = un[sv_np]
+                out[newly] = ep_np[sv_np]
+                iters_np[newly] += it_np[sv_np]
+                solved_np[newly] = True
+                pos_map = np.full(Bb, 0)
+                pos_map[un] = np.arange(un.size)
         return err3, llrs3, pos_map
 
     def _deep_relay(self, det_b, L0, llr0_d):
@@ -302,7 +298,7 @@ class StagedDemDecoder(Decoder):
         Bb = det_b.shape[0]
         err_pick, solved, it_pick, err3, llrs3 = self._deep_step(
             det_b, L0, llr0_d, self.gamma_arg)
-        out, solved_np, iters_np = (a.copy() for a in _host(err_pick, solved, it_pick))
+        out, solved_np, iters_np = (a.copy() for a in to_host(err_pick, solved, it_pick))
         pos_map = np.arange(Bb)
         if self.relay_legs and not solved_np.all():
             err3, llrs3, pos_map = self._run_relay(
@@ -313,18 +309,18 @@ class StagedDemDecoder(Decoder):
         """The host OSD's inputs for the member rows ``pos``: their hard
         decisions (uint8) and column reliability order (int32, stable
         descending), not the ``[K, Bb, N]`` float soft outputs."""
-        idx = torch.as_tensor(pos, device=err3.device)
-        bp = err3.index_select(1, idx)  # [K, nf, N]
-        llr = llrs3.index_select(1, idx).to(torch.float32)
-        if self.osd_rank == "abs_llr":
-            # |LLR|: a bit confidently 1 is as reliable as one confidently 0
-            rel = llr.abs()
-        else:
-            probs = torch.exp(llr)
-            rel = torch.maximum(probs, 1.0 - probs)
-        order = torch.argsort(-rel, dim=-1, stable=True)
-        bp_np, order_np = _host(bp.to(torch.uint8), order.to(torch.int32))
-        return bp_np, order_np
+        with span("ldpc.staged.gather"):
+            idx = to_device(pos, err3.device)
+            bp = err3.index_select(1, idx)  # [K, nf, N]
+            llr = llrs3.index_select(1, idx).to(torch.float32)
+            if self.osd_rank == "abs_llr":
+                # |LLR|: a bit confidently 1 is as reliable as one confidently 0
+                rel = llr.abs()
+            else:
+                probs = torch.exp(llr)
+                rel = torch.maximum(probs, 1.0 - probs)
+            order = torch.argsort(-rel, dim=-1, stable=True)
+            return to_host(bp.to(torch.uint8), order.to(torch.int32))
 
     # -- host OSD ----------------------------------------------------------
 
@@ -338,6 +334,8 @@ class StagedDemDecoder(Decoder):
         from ..native import gf2_osd_cs_host
 
         K, nf, _ = bp_np.shape
+        count("osd_lanes", nf)
+        count("osd_candidates", (K + 1) * nf)
         prior_order = np.argsort(-np.abs(llr0_np), kind="stable").astype(np.int32)
         bp_ext = np.concatenate([bp_np, np.zeros((1, nf, self.N), np.uint8)])
         order_ext = np.concatenate(
@@ -367,8 +365,9 @@ class StagedDemDecoder(Decoder):
             parts = [self._decode_batch(syndromes[lo:lo + cap], seed, per)[:3]
                      for lo in range(0, B, cap)]
             return (*(torch.cat(p) for p in zip(*parts)), {})
-        L0, llr0_np, llr0_d = self._channel(per)
-        err0, conv0, it0, _ = self.stage0(syndromes, L0)
+        with span("ldpc.staged.stage0"):
+            L0, llr0_np, llr0_d = self._channel(per)
+            err0, conv0, it0, _ = self.stage0(syndromes, L0)
         return self._post_stage0(syndromes, err0, conv0, it0, L0, llr0_np, llr0_d)
 
     def _channel(self, per=None):
@@ -385,39 +384,45 @@ class StagedDemDecoder(Decoder):
         """Stages 1-2 given stage-0 results: compact stragglers into
         deep-ensemble buckets (+ relay legs), then the native host OSD on
         the shots no member solved."""
-        conv0_np = conv0.cpu().numpy()
-        need = np.flatnonzero(~conv0_np)
-        if need.size == 0:
-            return err0, conv0, it0, {}
-        syn_np = syn.cpu().numpy().astype(np.uint8)
-        out, iters = (a.copy() for a in _host(err0, it0))
-        solved = conv0_np.copy()
+        # the reads of stage 0's results belong to its span
+        with span("ldpc.staged.stage0"):
+            (conv0_np,) = to_host(conv0)
+            need = np.flatnonzero(~conv0_np)
+            if need.size == 0:
+                return err0, conv0, it0, {}
+            syn_np, out, iters = to_host(syn, err0, it0)
+            syn_np, out, iters = syn_np.astype(np.uint8), out.copy(), iters.copy()
+            solved = conv0_np.copy()
         # deep buckets are capped at max_bucket lanes: the K-member tile
         # multiplies the batch
         for lo in range(0, need.size, self.max_bucket):
-            chunk = need[lo: lo + self.max_bucket]
-            Bb = max(self.min_bucket, next_pow2(chunk.size))
-            idx = np.concatenate([chunk, np.repeat(chunk[:1], Bb - chunk.size)])
-            det_b = syn[torch.as_tensor(idx, device=syn.device)]
-            ep_np, deep_solved_f, it_np, err3, llrs3, pos_map = self._deep_relay(
-                det_b, L0, llr0_d)
-            deep_solved_np = deep_solved_f[: chunk.size]
-            out[chunk] = ep_np[: chunk.size]
-            iters[chunk] = self.stage0_iters + it_np[: chunk.size]
-            solved[chunk] = deep_solved_np
-            fail = chunk[~deep_solved_np]
-            if fail.size:
+            with span("ldpc.staged.deep"):
+                chunk = need[lo: lo + self.max_bucket]
+                Bb = max(self.min_bucket, next_pow2(chunk.size))
+                count("deep_lanes", chunk.size)
+                count("deep_lanes_padded", Bb)
+                idx = np.concatenate([chunk, np.repeat(chunk[:1], Bb - chunk.size)])
+                det_b = syn[to_device(idx, syn.device)]
+                ep_np, deep_solved_f, it_np, err3, llrs3, pos_map = self._deep_relay(
+                    det_b, L0, llr0_d)
+                deep_solved_np = deep_solved_f[: chunk.size]
+                out[chunk] = ep_np[: chunk.size]
+                iters[chunk] = self.stage0_iters + it_np[: chunk.size]
+                solved[chunk] = deep_solved_np
+                fail = chunk[~deep_solved_np]
                 # rows of the failed lanes inside the last leg's arrays
                 pos = pos_map[np.flatnonzero(~deep_solved_np)]
+            if fail.size:
                 bp_np, order_np = self._gather_failed(err3, llrs3, pos)
-                picked, _ = self._host_osd_pick(syn_np[fail], bp_np, order_np, llr0_np)
-                out[fail] = picked.astype(np.int8)
+                with span("ldpc.staged.osd"):
+                    picked, _ = self._host_osd_pick(syn_np[fail], bp_np, order_np, llr0_np)
+                    out[fail] = picked.astype(np.int8)
         # `solved` = some stage produced a syndrome-consistent estimate
         # without OSD (BP-converged); OSD output is consistent whenever the
         # syndrome is in span (the bposd convention)
-        dev = self.device
-        return (torch.as_tensor(out, device=dev), torch.as_tensor(solved, device=dev),
-                torch.as_tensor(iters, device=dev), {})
+        with span("ldpc.to_device"):
+            dev = self.device
+            return to_device(out, dev), to_device(solved, dev), to_device(iters, dev), {}
 
     def predict_observables(self, detectors, *, seed: int = 0):
         """Decode and project onto the logical observables."""
@@ -500,7 +505,8 @@ class StagedDemDecoder(Decoder):
         def osd_job(syn_np, bp_np, order_np, obs_np):
             # the worker thread: numpy and the native library only
             t = time.perf_counter()
-            picked, cons = self._host_osd_pick(syn_np, bp_np, order_np, llr0_np)
+            with span("ldpc.staged.osd"):
+                picked, cons = self._host_osd_pick(syn_np, bp_np, order_np, llr0_np)
             pred = (picked.astype(np.uint8) @ self.O.T) & 1
             f = int((pred != obs_np).any(axis=1).sum())
             return f, int(cons.sum()), syn_np.shape[0], time.perf_counter() - t
@@ -555,7 +561,7 @@ class StagedDemDecoder(Decoder):
             item = pending.pop(0)
             if item[0] == "s0":
                 t = time.perf_counter()
-                c, conv_np, det_np, obs_np = _host(*item[1])
+                c, conv_np, det_np, obs_np = to_host(*item[1])
                 stage0_wall += time.perf_counter() - t
                 trials += conv_np.shape[0]
                 conv0 += int(c[0])
@@ -574,7 +580,7 @@ class StagedDemDecoder(Decoder):
                 det_t = torch.as_tensor(det_b, device=dev)
                 ep_d, solved_d, _, err3, llrs3 = self._deep_step(
                     det_t, L0, llr0_d, self.gamma_arg)
-                ep, solved_np = _host(ep_d, solved_d[:take])
+                ep, solved_np = to_host(ep_d, solved_d[:take])
                 deep_wall += time.perf_counter() - t_disp
                 deep_shots += take
                 deep_solved += int(solved_np.sum())

@@ -60,9 +60,13 @@ def test_sweep_counts_equal_the_jax_cli(tmp_path, capsys):
 def test_sweep_profile_writes_a_trace(tmp_path, capsys):
     got = run(cli.main, SWEEP + ["--profile", str(tmp_path / "prof")] + CPU, capsys)
     assert got["0.03"]["trials"] == 64
-    (trace,) = os.listdir(tmp_path / "prof")
-    assert trace.endswith(".pt.trace.json")
-    assert "ldpcdecoders_tpu_torch.sweep" in (tmp_path / "prof" / trace).read_text()
+    trace, counters = sorted(os.listdir(tmp_path / "prof"),
+                             key=lambda f: f.endswith(".counters.json"))
+    assert trace.endswith(".pt.trace.json") and counters.endswith(".counters.json")
+    text = (tmp_path / "prof" / trace).read_text()
+    assert "ldpcdecoders_tpu_torch.sweep" in text and '"ldpc.call"' in text
+    calls = json.loads((tmp_path / "prof" / counters).read_text())["calls"]
+    assert calls and all(c["counters"]["h2d_bytes"] == 32 * 60 for c in calls)
 
 
 def test_mixed_sweep_counts_equal_the_jax_cli(capsys):

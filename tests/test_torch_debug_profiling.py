@@ -87,10 +87,12 @@ def test_trace_writes_the_annotated_region(tmp_path):
     with trace(str(tmp_path)):
         with annotate("ldpc.test_region"):
             torch.ones(64).cumsum(0)
-    (name,) = os.listdir(tmp_path)
+    name, counters = sorted(os.listdir(tmp_path), key=lambda f: f.endswith(".counters.json"))
     assert name.endswith(".pt.trace.json")
+    assert counters == name.replace(".pt.trace.json", ".counters.json")
     events = json.loads((tmp_path / name).read_text())["traceEvents"]
     assert any(ev.get("name") == "ldpc.test_region" for ev in events)
+    assert json.loads((tmp_path / counters).read_text()) == {"calls": [], "outside_calls": {}}
 
 
 @pytest.mark.parametrize("log_dir", [None, ""])
