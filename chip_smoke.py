@@ -58,7 +58,10 @@ public decoder API on ``cuda:0`` and prints, in order:
      Wilson interval overlapping the reference's 149/16,384, (q) at most 8
      failures, with the wall split between stage 0, deep, relay and the
      host OSD, K3/K4 launched on lane tiles (counted apart as
-     ``minsum_check_tiled`` / ``minsum_var_tiled``, as in (r), (s)), and a
+     ``minsum_check_tiled`` / ``minsum_var_tiled``, as in (r), (s)), the
+     min-sum loop's compactions (``minsum_compactions`` of a recorded
+     ``run_eval``, required above 0: its widths narrow mid-decode, to
+     64-lane tiles and lane-major), and a
      stage-0 batch's and a flagship deep bucket's device
      time and launches per min-sum iteration (``torch.profiler``) beside
      their peak memory; then the evaluation harness (harness.py) through its
@@ -2650,7 +2653,7 @@ def main() -> int:
     # circuit-level DEM, through run_eval (device sampling, deep ensemble,
     # host OSD-CS on a worker thread).  (p) the fast tier, (q) the flagship
     # (benchmarks/circuit_level_bb144_r5.py; circuit_level_bb144_r5.json)
-    from ldpcdecoders_tpu_torch.utils import hbm
+    from ldpcdecoders_tpu_torch.utils import hbm, profiling
     from ldpcdecoders_tpu_torch.utils.hbm import minsum_bytes_per_lane
     from ldpcdecoders_tpu_torch.utils.metrics import wilson_interval
 
@@ -2700,8 +2703,14 @@ def main() -> int:
     for path, what, dec, shots, kw in (
             ("p", "fast tier", fast, P_SHOTS, dict(batch=BDEM)),
             ("q", "flagship", flagship, Q_SHOTS, dict(batch=BDEM // 2, deep_bucket=DEEP_BUCKET))):
-        ev = drive(path, minsum_kernels + tiled_kernels,
-                   lambda dec=dec, shots=shots, kw=kw: dec.run_eval(shots, seed=11, **kw))
+        def recorded_eval(dec=dec, shots=shots, kw=kw):
+            with profiling.recording() as rec:
+                ev = dec.run_eval(shots, seed=11, **kw)
+            return ev, {k: rec.totals().get(k, 0) + rec.counters.get(k, 0)
+                        for k in ("minsum_compactions", "minsum_compact_bytes",
+                                  "minsum_lane_iters_launched")}
+
+        ev, counted = drive(path, minsum_kernels + tiled_kernels, recorded_eval)
         prof = ev["profile"]
         lo, hi = ev["logical_ci95"]
         staged[path] = ev
@@ -2720,6 +2729,12 @@ def main() -> int:
         if prof["osd_consistent"] != prof["osd_shots"]:
             raise AssertionError(f"({path}): {prof['osd_shots'] - prof['osd_consistent']} OSD "
                                  "outputs miss their detector record")
+        print(f"compaction ({path}): the min-sum loop narrowed its lanes "
+              f"{counted['minsum_compactions']} times, gathering "
+              f"{counted['minsum_compact_bytes'] / 1e9:.3f} GB of state; "
+              f"{counted['minsum_lane_iters_launched']} lane-iterations launched | {card}")
+        if not counted["minsum_compactions"]:
+            raise AssertionError(f"({path}): the min-sum loop never narrowed its lanes")
     lo, hi = staged["p"]["logical_ci95"]
     print(f"main (p) against the reference's fast tier, 149/16,384 = 9.09e-3 (Wilson 95% "
           f"{ref_lo:.4e}-{ref_hi:.4e}): intervals overlap {lo <= ref_hi and ref_lo <= hi}")

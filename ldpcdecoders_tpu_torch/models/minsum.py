@@ -31,10 +31,22 @@ The syndrome check, ``iters`` / ``done`` and ``track_best`` are plain torch
 and run only where the check runs: ``done`` changes nowhere else, and the
 outputs an iteration between two checks would freeze are overwritten by the
 next check's.  The reference's ``while_loop`` becomes a Python loop that
-stops once every lane has converged; the host reads that flag (one
-synchronization on a card) at the checks alone: every ``check_every``-th
-iteration and the last.  ``early_exit=False`` runs all ``max_iters``
-iterations with no host read (the outputs of converged lanes are frozen).
+stops once every lane has converged; the host reads the count of lanes not
+done (one synchronization on a card) at the checks alone: every
+``check_every``-th iteration and the last.  ``early_exit=False`` runs all
+``max_iters`` iterations with no host read (the outputs of converged lanes
+are frozen).
+
+At a check where that count fits in fewer lanes launched, the loop may
+narrow its state to the lanes still decoding (the compaction): their rows
+are gathered into the tiling of the narrower batch (torch indexing,
+ops/minsum.py ``gather_lanes_ref``), the leaving lanes' outputs written to
+the caller's rows, and the next iterations launch over the kept lanes
+only.  A done lane is frozen and no lane's arithmetic reads another's, so
+every output, ``iters`` included, is the full-width decode's bit for bit.
+It narrows where the lane-iterations saved pay for the gather
+(:meth:`MinSumDecode._compact_tile`), a rule of the counts the loop sees
+and the bytes of its state, so every caller takes the same one.
 """
 
 from __future__ import annotations
@@ -45,9 +57,9 @@ import torch
 from ..codes.graph import TannerGraph
 from ..ops.cuda_minsum import (LANE_TILES, minsum_check_cuda, minsum_check_iter_cuda,
                                 minsum_var_iter_cuda)
-from ..ops.minsum import slot_degrees, tile_lanes, untile_lanes
+from ..ops.minsum import gather_lanes_ref, slot_degrees, tile_lanes, untile_lanes
 from ..ops.syndrome import SyndromeCheck
-from ..utils.profiling import count, host_bool, span
+from ..utils.profiling import count, host_int, span
 from .base import Decoder, resolve_device
 from .bp import as_graph
 from .priors import per_to_llr
@@ -55,6 +67,19 @@ from .priors import per_to_llr
 __all__ = ["MinSumDecoder", "MinSumDecode", "from_reference_params", "make_minsum_decode_fn"]
 
 _BIG_MISMATCH = 1 << 30
+
+# What narrowing the loop's state costs (MinSumDecode._compact_tile), from
+# tools/minsum_compact_cost.py on the bb144 R=6 DEM (H100 80GB HBM3, 700 W):
+# an iteration of 2048 lanes on 128-lane tiles takes 4.19 ms, 2.04 us a
+# lane.  Compactions of 2048 lanes to w took 4.65-26.58 ms with stage 0's
+# state (2.54 MB a lane) and 1.91-28.01 ms with the deep bucket's (2.92 MB):
+# 11.3 / 13.5 us more a lane kept than a lane leaving (whose outputs are
+# written at the end otherwise), and about 2 ms with one lane kept, most of
+# it the leaving lanes' outputs.  So a lane kept costs 6.6 lane-iterations
+# (the deep bucket's), and a compaction about 0.7 ms besides: 340
+# lane-iterations of 2.54 MB, about 0.9 GB of state.
+_GATHER_LANE_ITERS = 6.6
+_GATHER_FIXED_BYTES = 0.9e9
 
 
 def lane_tile_for(B: int) -> int:
@@ -206,6 +231,28 @@ class MinSumDecode(torch.nn.Module):
         with span("ldpc.minsum.decode"):
             return self._forward(syndromes, L0, gamma, early_exit)
 
+    def _tile(self, lanes: int, device) -> int:
+        """The check layout's lane tile for ``lanes`` lanes (1: lane-major)."""
+        if self._lane_tile is not None:
+            return self._lane_tile
+        # the CPU's plain versions gain nothing from tiles
+        return lane_tile_for(lanes) if device.type == "cuda" else 1
+
+    def _compact_tile(self, width: int, live: int, it: int, lane_bytes: float,
+                      device) -> int | None:
+        """The lane tile to gather the ``live`` lanes still decoding into at
+        iteration ``it``, out of ``width`` launched, a lane's state
+        ``lane_bytes``; None where the lane-iterations that saves pay less
+        than the gather.  The saving is counted over the iterations left, but
+        no more than the loop has run: a loop whose lanes converge fast ends
+        before a longer horizon pays (then the gather costs at most what
+        waiting would have)."""
+        T = self._tile(live, device)
+        narrow = -(-live // T) * T
+        horizon = min(self.max_iters - it, it)
+        cost = _GATHER_LANE_ITERS * narrow + _GATHER_FIXED_BYTES / lane_bytes
+        return T if narrow < width and (width - narrow) * horizon >= cost else None
+
     def _forward(self, syndromes, L0, gamma, early_exit):
         if self.lane_damping:
             if gamma is None:
@@ -218,7 +265,6 @@ class MinSumDecode(torch.nn.Module):
         # scalar, [n] or per-lane [B, n]; normalize to [B, n] once
         L0 = torch.broadcast_to(L0.to(self.dtype), (B, n)).contiguous()
         syn_f = syndromes.to(torch.float32)
-        syn_flip = syndromes.to(torch.bool).contiguous()
 
         g = self.gam if self.damping else None
         if self.lane_damping:
@@ -226,21 +272,21 @@ class MinSumDecode(torch.nn.Module):
             g = (g.reshape(B) if g.ndim == 1 else g.reshape(B, n)).contiguous()
 
         # the kernels' state, lane-tiled in the check layout: the tiled form
-        # of a [B, ...] tensor is [B / T, ..., T] (T = 1: the tensor itself),
-        # the lanes past B padded (done there, so never frozen)
-        T = self._lane_tile
-        if T is None:  # the CPU's plain versions gain nothing from tiles
-            T = lane_tile_for(B) if device.type == "cuda" else 1
-        bt = -(-B // T)
+        # of a [Bc, ...] tensor is [bt, ..., T] (T = 1: the tensor itself,
+        # bt = Bc), the lanes past Bc padded (done there, so never frozen).
+        # Bc counts the rows still held: the caller's lanes, until the
+        # first compaction keeps those still decoding (lane_of maps them)
+        T = self._tile(B, device)
+        Bc, bt = B, -(-B // T)
 
         def lanes(*rest):
             return (bt, *rest, T) if T > 1 else (bt, *rest)
 
         def untile(t):
-            return untile_lanes(t, T)[:B]
+            return untile_lanes(t, T)[:Bc]
 
         L0_k = tile_lanes(L0, T)
-        flip_k = tile_lanes(syn_flip, T)
+        flip_k = tile_lanes(syndromes.to(torch.bool).contiguous(), T)
         g_k = g if g is None or g.ndim == 0 else tile_lanes(g, T)
         # llrs is written in place by the freeze: a copy, never L0 itself
         err_k = torch.zeros(lanes(n), dtype=torch.float32, device=device)
@@ -248,23 +294,51 @@ class MinSumDecode(torch.nn.Module):
         done = torch.zeros((B,), dtype=torch.bool, device=device)
         done_k = tile_lanes(done, T, True)
         iters = torch.zeros((B,), dtype=torch.int32, device=device)
+        best = ()
         if self.track_best:
-            bmis = torch.full((B,), _BIG_MISMATCH, dtype=torch.int32, device=device)
-            berr = torch.zeros((B, n), dtype=torch.float32, device=device)
-            bllr = L0.to(torch.float32)
-        chk_kw = dict(chk_deg=self.chk_deg, lane_tile=T)
-        var_kw = dict(var_deg=self.var_deg, lane_tile=T)
+            best = (torch.full((B,), _BIG_MISMATCH, dtype=torch.int32, device=device),
+                    torch.zeros((B, n), dtype=torch.float32, device=device),
+                    L0.to(torch.float32))  # mismatches, err, llrs of the best check
+        mu = total = None
         if check_layout:
             # state: mu [B, dc, m], the totals, and nu [B, dc, m] where damped
             # (the first iteration's messages are L0 at each slot's variable)
-            mu = None
             total = torch.empty_like(L0_k)
             nu = (None if g is None else
                   L0_k.index_select(1, self.chk_varidx).reshape(lanes(self.max_dc, m)))
         else:
             nu = torch.broadcast_to(L0[:, None, :], (B, self.max_dv, n)).contiguous()
 
-        it = 0
+        def results():
+            """The held rows' outputs as the decode returns them."""
+            it_out = torch.where(done, iters, it).to(torch.int32)
+            if self.track_best:
+                # converged lanes froze at mismatch 0 (their best); the rest
+                # report their least-inconsistent iterate
+                return best[1].to(torch.int8), done, it_out, best[2]
+            return untile(err_k).to(torch.int8), done, it_out, untile(llrs_k)
+
+        def flush(held):
+            """Write the outputs of the held rows ``held`` into ``out``."""
+            it_out = torch.where(done, iters, it).to(torch.int32)
+            err, llrs = (gather_lanes_ref(x, 1 if self.track_best else T, 1, held)
+                         for x in ((best[1], best[2]) if self.track_best else (err_k, llrs_k)))
+            dst = held if lane_of is None else lane_of.index_select(0, held)
+            for o, v in zip(out, (err.to(torch.int8), done.index_select(0, held),
+                                  it_out.index_select(0, held), llrs)):
+                o.index_copy_(0, dst, v)
+
+        def tiled():
+            """The kernels' per-lane state (None and 0-dim kept as they are);
+            in the variable layout the messages ``mu`` are fresh each
+            iteration."""
+            return (L0_k, flip_k, err_k, llrs_k, total, nu, g_k, mu if check_layout else None)
+
+        def rows():
+            return (syn_f, done, iters, *best)
+
+        lane_of = out = lane_bytes = None
+        it = start = launched = 0  # start: the iteration the held width began at
         while it < self.max_iters and B:
             # the iterations up to the next check (the last always checks)
             with span("ldpc.minsum.iters"):
@@ -277,22 +351,24 @@ class MinSumDecode(torch.nn.Module):
                     freeze = dict(done=done_k, err=err_k, llrs=llrs_k) if checked else {}
                     if check_layout:
                         if mu is None:
-                            mu = minsum_check_cuda(L0_k, self.chk_varidx, flip_k,
-                                                   self.chk_mask, alpha, beta, **chk_kw)
+                            mu = minsum_check_cuda(L0_k, self.chk_varidx, flip_k, self.chk_mask,
+                                                   alpha, beta, chk_deg=self.chk_deg,
+                                                   lane_tile=T)
                         else:
                             minsum_check_iter_cuda(mu, total, self.chk_varidx, flip_k,
                                                    self.chk_mask, alpha, beta, gamma=g_k,
-                                                   nu=nu, **chk_kw)
+                                                   nu=nu, chk_deg=self.chk_deg, lane_tile=T)
                         minsum_var_iter_cuda(mu.reshape(lanes(self.max_dc * m)), self.v2c,
                                              self.var_mask, L0_k, total=total, **freeze,
-                                             **var_kw)
+                                             var_deg=self.var_deg, lane_tile=T)
                     else:
-                        mu = minsum_check_cuda(nu.reshape(B, self.max_dv * n), self.c2v,
-                                               syn_flip, self.chk_mask, alpha, beta, **chk_kw)
+                        mu = minsum_check_cuda(nu.reshape(bt, self.max_dv * n), self.c2v,
+                                               flip_k, self.chk_mask, alpha, beta,
+                                               chk_deg=self.chk_deg)
                         W = None if self.edge_weights is None else self.edge_weights[it]
-                        minsum_var_iter_cuda(mu.reshape(B, self.max_dc * m), self.v2c,
-                                             self.var_mask, L0, W=W, nu=nu, gamma=g,
-                                             **freeze, **var_kw)
+                        minsum_var_iter_cuda(mu.reshape(bt, self.max_dc * m), self.v2c,
+                                             self.var_mask, L0_k, W=W, nu=nu, gamma=g_k,
+                                             **freeze, var_deg=self.var_deg)
                     it += 1
             with span("ldpc.minsum.check"):
                 err = untile(err_k)
@@ -303,22 +379,62 @@ class MinSumDecode(torch.nn.Module):
                 done = done | ok
                 done_k = tile_lanes(done, T, True)
                 if self.track_best:
-                    better = active & (mis < bmis)
-                    bmis = torch.where(better, mis, bmis)
-                    berr = torch.where(better[:, None], err, berr)
-                    bllr = torch.where(better[:, None], untile(llrs_k).to(torch.float32), bllr)
-                # ``done`` changes only where the check ran: read it there alone
-                if early_exit and host_bool(done.all()):
+                    better = active & (mis < best[0])
+                    best = (torch.where(better, mis, best[0]),
+                            torch.where(better[:, None], err, best[1]),
+                            torch.where(better[:, None], untile(llrs_k).to(torch.float32),
+                                        best[2]))
+                if not early_exit:
+                    continue
+                # ``done`` changes only where the check ran: read its count
+                # there alone
+                live = Bc - host_int(done.sum())
+                if not live:
                     break
+            if lane_bytes is None:  # a lane's share of the state, once
+                lane_bytes = (sum(_nbytes(x) for x in tiled()) / (bt * T)
+                              + sum(_nbytes(x) for x in rows()) / Bc)
+            T2 = self._compact_tile(bt * T, live, it, lane_bytes, device)
+            if T2 is None:
+                continue
+            with span("ldpc.minsum.compact"):
+                # the rows still decoding first, in order, then those leaving
+                # with their outputs (done lanes are frozen: these are final)
+                order = torch.sort(done.to(torch.uint8), stable=True).indices
+                keep, leave = order[:live], order[live:]
+                if out is None:
+                    out = [torch.empty((B, n), dtype=torch.int8, device=device),
+                           torch.empty((B,), dtype=torch.bool, device=device),
+                           torch.empty((B,), dtype=torch.int32, device=device),
+                           torch.empty((B, n), dtype=best[2].dtype if self.track_best
+                                       else llrs_k.dtype, device=device)]
+                flush(leave)
+                lane_of = keep if lane_of is None else lane_of.index_select(0, keep)
+                # the kept rows' state in the tiling T2, padded with copies of
+                # the first (done there); a lane's arithmetic reads no other lane
+                launched += bt * T * (it - start)
+                bt, start = -(-live // T2), it
+                src = torch.cat([keep, keep[:1].expand(bt * T2 - live)])
+                state = [x for x in tiled() if x is not None and x.ndim > 0]
+                new = iter([gather_lanes_ref(x, T, T2, src) for x in state])
+                L0_k, flip_k, err_k, llrs_k, total, nu, g_k, mu = (
+                    x if x is None or x.ndim == 0 else next(new) for x in tiled())
+                syn_f, done, iters, *best = (x.index_select(0, keep) for x in rows())
+                T, Bc = T2, live
+                done_k = tile_lanes(done, T, True)
+                count("minsum_compactions")
+                count("minsum_compact_bytes", sum(_nbytes(x) for x in (*tiled(), *rows())))
         # lanes launched (tile padding and ensemble members included) times
-        # the iterations run
-        count("minsum_lane_iters_launched", bt * T * it)
-        iters = torch.where(done, iters, it).to(torch.int32)
-        if self.track_best:
-            # converged lanes froze at mismatch 0 (their best); the rest
-            # report their least-inconsistent iterate
-            return berr.to(torch.int8), done, iters, bllr
-        return untile(err_k).to(torch.int8), done, iters, untile(llrs_k)
+        # the iterations run, summed over the widths held
+        count("minsum_lane_iters_launched", launched + bt * T * (it - start))
+        if out is None:
+            return results()
+        flush(torch.arange(Bc, device=device))
+        return tuple(out)
+
+
+def _nbytes(x) -> int:
+    return 0 if x is None else x.numel() * x.element_size()
 
 
 def make_minsum_decode_fn(graph: TannerGraph, per, max_iters: int, *, alpha=1.0, beta=0.0,

@@ -48,6 +48,8 @@ that the kernels' warps read the lanes of one node at once.  ``check_update_ref`
 ``check_iter_ref`` and ``var_iter_ref`` take ``lane_tile``: the tiled form
 is the plain version between an un-tile and a re-tile, so it is the
 ``lane_tile=1`` form bit for bit.  T = 1 is the untiled tensor itself.
+:func:`gather_lanes_ref` takes some of a tiled tensor's lanes into another
+tiling (the min-sum loop's compaction, on the CPU and on a card).
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ __all__ = [
     "slot_sum",
     "tile_lanes",
     "untile_lanes",
+    "gather_lanes_ref",
 ]
 
 #: magnitude a padded check slot reads as (positive, so inert in the parity)
@@ -157,6 +160,23 @@ def untile_lanes(x: torch.Tensor, lane_tile: int) -> torch.Tensor:
     if lane_tile == 1:
         return x
     return x.movedim(-1, 1).reshape(x.shape[0] * lane_tile, *x.shape[1:-1]).contiguous()
+
+
+def gather_lanes_ref(x: torch.Tensor, lane_tile: int, lane_tile_out: int,
+                     lanes: torch.Tensor) -> torch.Tensor:
+    """The lanes ``lanes`` (indices into the lanes of ``x``, a multiple of
+    ``lane_tile_out`` of them) of the tiled ``x [bt, *rest, T]`` (T = 1:
+    ``[B, *rest]``), tiled by ``lane_tile_out``: ``[len(lanes) / T2, *rest,
+    T2]``, in one indexed copy."""
+    T, T2 = lane_tile, lane_tile_out
+    if T == 1 and T2 == 1:
+        return x.index_select(0, lanes)
+    rest = x.shape[1:-1] if T > 1 else x.shape[1:]
+    R, bt2 = rest.numel(), lanes.shape[0] // T2
+    tile, lane = (lanes // T).view(bt2, 1, T2), (lanes % T).view(bt2, 1, T2)
+    pos = torch.arange(R, device=x.device).view(1, R, 1)
+    y = x.reshape(x.shape[0], R, T)[tile, pos, lane]
+    return y.reshape(bt2, *rest, T2) if T2 > 1 else y.reshape(bt2, *rest)
 
 
 def _untiled(lane_tile, *tensors):

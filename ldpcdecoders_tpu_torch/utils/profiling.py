@@ -6,7 +6,7 @@ Counterpart of ``ldpcdecoders_tpu/utils/profiling.py`` on
 * :func:`span` names a region of the decode path (the names start with
   ``ldpc.``; :func:`call_span` is the decoder contract's ``ldpc.call``);
   :func:`count` adds to a counter of the call; :func:`to_host`,
-  :func:`host_bool` and :func:`to_device` are the path's copies between
+  :func:`host_int` and :func:`to_device` are the path's copies between
   the host and the decoder's device, counted as ``host_reads``,
   ``d2h_bytes`` and ``h2d_bytes``.
 * Recording is on inside :func:`recording`, which yields its
@@ -38,7 +38,7 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 __all__ = ["trace", "annotate", "recording", "profiled", "span", "call_span", "count",
-           "to_host", "host_bool", "to_device", "Recorder", "Span", "Call"]
+           "to_host", "host_int", "to_device", "Recorder", "Span", "Call"]
 
 
 @dataclasses.dataclass
@@ -228,14 +228,14 @@ def to_host(*tensors) -> tuple:
     return tuple(t.cpu().numpy() for t in tensors)
 
 
-def host_bool(t: torch.Tensor) -> bool:
-    """``bool(t)`` of a one-element tensor: a host read (a wait for the
+def host_int(t: torch.Tensor) -> int:
+    """``int(t)`` of a one-element tensor: a host read (a wait for the
     device on a card)."""
     rec = _active()
     if rec is not None:
         _add(rec, "host_reads", 1)
         _add(rec, "d2h_bytes", _nbytes(t))
-    return bool(t)
+    return int(t)
 
 
 def to_device(a, device) -> torch.Tensor:

@@ -1083,6 +1083,81 @@ def test_minsum_decode_tiled_on_card_matches_cpu(dev, config):
         assert w.routes["lane_tiled"] > before["lane_tiled"]
 
 
+@pytest.mark.parametrize("config", ["stage0", "deep"])
+def test_minsum_compaction_on_card(dev, config, monkeypatch):
+    """The check-layout loop narrows its state at its checks, at the bb144
+    R=6 DEM's shape in the staged decoder's two inner configurations (96
+    iterations checked every 8): 256 records picked from a seeded pool by
+    how they converge, 80 empty (done at the first check), 120 that
+    converge from iteration 24 on, 56 that never do, start on 128-lane
+    tiles, narrow to 64-lane tiles and end lane-major within one decode
+    (the rule's costs set to 0, so that it narrows wherever the width
+    shrinks: the rule itself is tests/test_torch_minsum.py's).
+    Every output is bitwise each lane decoded alone on the card and the
+    batch decoded with the kernels' plain versions on the card; the
+    lane-iterations launched are the sum of the widths' segments."""
+    from ldpcdecoders_tpu_torch.models import minsum as minsum_module
+    from ldpcdecoders_tpu_torch.models.minsum import lane_tile_for
+    from ldpcdecoders_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(minsum_module, "_GATHER_LANE_ITERS", 0.0)
+    monkeypatch.setattr(minsum_module, "_GATHER_FIXED_BYTES", 0.0)
+
+    A, pr, _ = bb144_dem()
+    g = pt.TannerGraph.from_pcm(np.asarray(A.todense()))
+    rng = np.random.default_rng(5)
+    kw, dtype = dict(damping=0.4), torch.float32
+    if config == "deep":
+        kw, dtype = dict(lane_damping=True, track_best=True), torch.bfloat16
+    ms = pt.MinSumDecode(g, float(pr.mean()), 96, device=dev, dtype=dtype, layout="check",
+                         check_every=8, **kw)
+    pool = 3072
+    x = rng.random((pool, g.n)) < pr * rng.choice([1.0, 2.0, 3.0, 8.0], pool)[:, None]
+    syn_pool = torch.as_tensor(((A @ x.T.astype(np.int64)).T % 2).astype(np.uint8), device=dev)
+    gam_pool = (None if config == "stage0" else torch.as_tensor(
+        rng.uniform(-0.24, 0.66, (pool, g.n)), dtype=torch.float32, device=dev))
+    _, conv, iters, _ = ms(syn_pool, None, gam_pool, early_exit=False)
+    # the earliest 120 to converge from iteration 24 on: done well before the
+    # cap, so that the decode still narrows to the 56 that never converge
+    late = torch.nonzero(conv & (iters >= 24)).flatten()
+    late = late[torch.sort(iters[late], stable=True).indices][:120]
+    never = torch.nonzero(~conv).flatten()[:56]
+    assert len(late) == 120 and len(never) == 56, "the pool lacks lanes of a kind"
+    assert int(iters[late].max()) <= 72, "the pool's late lanes converge too late"
+    pick = torch.cat([torch.zeros(80, dtype=torch.long, device=dev), late, never])
+    order = torch.as_tensor(rng.permutation(256), device=dev)
+    syn = syn_pool[pick][order]
+    syn[order < 80] = 0
+    gamma = None if gam_pool is None else gam_pool[pick][order]
+    with profiling.recording() as rec:
+        got = [t.cpu() for t in ms(syn, None, gamma)]
+    alone = [ms(syn[b:b + 1], None, None if gamma is None else gamma[b:b + 1])
+             for b in range(256)]
+    alone = [torch.cat([a[i].cpu() for a in alone]) for i in range(4)]
+    monkeypatch.setattr(cuda_minsum, "_messages", lambda name, x: True)  # the plain versions
+    plain = [t.cpu() for t in ms(syn, None, gamma)]
+    for a, b, c in zip(got, alone, plain):
+        assert torch.equal(bits(a) if a.is_floating_point() else a,
+                           bits(b) if b.is_floating_point() else b)
+        assert torch.equal(bits(a) if a.is_floating_point() else a,
+                           bits(c) if c.is_floating_point() else c)
+    conv, iters = got[1], got[2]
+    # the segments: each compaction after a check narrows the width to the
+    # lanes not done there, on their tile
+    tiles, total, start, t, width = [lane_tile_for(256)], 0, 0, 0, 256
+    for s in rec.spans:
+        if s.name == "ldpc.minsum.check":
+            t += 8
+        elif s.name == "ldpc.minsum.compact":
+            live = int((~(conv & (iters <= t))).sum())
+            tiles.append(lane_tile_for(live))
+            total += width * (t - start)
+            start, width = t, -(-live // tiles[-1]) * tiles[-1]
+    assert tiles[:2] == [128, 64] and tiles[-1] == 1, tiles
+    assert len(tiles) - 1 == rec.counters["minsum_compactions"]
+    assert rec.counters["minsum_lane_iters_launched"] == total + width * (t - start)
+
+
 def test_minsum_stage_plan_is_the_launchers(dev):
     """The staged check form's plan (threads, shared memory) in Python equals
     the launcher's, over row sizes up to past a block."""

@@ -37,6 +37,7 @@ from ldpcdecoders_tpu.models import priors as ref_priors
 from ldpcdecoders_tpu.models.minsum import make_minsum_decode_fn
 from ldpcdecoders_tpu.ops import clamps as ref_clamps
 from ldpcdecoders_tpu.ops.pallas_minsum import check_update_pallas, var_update_pallas
+from ldpcdecoders_tpu_torch.models import minsum as minsum_module
 from ldpcdecoders_tpu_torch.models import priors
 from ldpcdecoders_tpu_torch.models.minsum import from_reference_params
 from ldpcdecoders_tpu_torch.ops import clamps, cuda_minsum
@@ -46,6 +47,7 @@ from ldpcdecoders_tpu_torch.ops.minsum import (
     var_core_ref,
     var_update_ref,
 )
+from ldpcdecoders_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -97,6 +99,155 @@ def tables(gp):
     c2v, v2c, chk_mask, var_mask = gp.slot_major()
     return (torch.as_tensor(c2v.astype(np.int32)), torch.as_tensor(v2c.astype(np.int32)),
             torch.as_tensor(chk_mask), torch.as_tensor(var_mask))
+
+
+# -- the loop's compaction -------------------------------------------------
+
+
+def small_dem(seed=5, D=40, N=300):
+    """tests/test_torch_staged.py's ``_small_dem(5)``."""
+    rng = np.random.default_rng(seed)
+    A = (rng.random((D, N)) < 0.08).astype(np.uint8)
+    A[:, A.sum(axis=0) == 0] = 1
+    return A, np.clip(rng.random(N) * 0.01, 1e-4, 0.01)
+
+
+def mixed_records(A, B, seed):
+    """``B`` records whose lanes converge at different checks: an eighth with
+    no detection event (done at the first check), the rest at rates of
+    0.005, 0.01 (within a few iterations, or later) and 0.2 (never), in a
+    seeded order.  On the card's tiles a batch of 256 checked every
+    iteration goes 128 -> 64 -> 128 -> lane-major."""
+    rng = np.random.default_rng(seed)
+    counts = np.round(np.array([0.12, 0.3, 0.5]) * B).astype(int)
+    rate = np.repeat([0.0, 0.005, 0.01, 0.2], [*counts, B - counts.sum()])
+    x = rng.random((B, A.shape[1])) < rng.permutation(rate)[:, None]
+    return ((x.astype(np.int64) @ A.T) % 2).astype(np.uint8)
+
+
+def lane_iters_launched(spans, conv, iters, max_iters, check_every, tile):
+    """The loop's lane-iterations, segment by segment: each
+    ``ldpc.minsum.compact`` span after a check narrows the width to the
+    lanes not done there (not converged by that check's iteration), padded
+    to ``tile(live)`` lanes."""
+    padded = lambda k: -(-k // tile(k)) * tile(k)  # noqa: E731
+    grid = [t for t in range(1, max_iters + 1) if t % check_every == 0 or t >= max_iters]
+    width, start, k, t, total = padded(len(iters)), 0, 0, 0, 0
+    for name in spans:
+        if name == "ldpc.minsum.check":
+            t, k = grid[k], k + 1
+        elif name == "ldpc.minsum.compact":
+            total += width * (t - start)
+            width, start = padded(int((~(conv & (iters <= t))).sum())), t
+    return total + width * (t - start)
+
+
+# name -> (decode keywords, gamma kind, dtype, check_every, lanes, tiles): "card"
+# takes the card's tiles on the CPU (lane_tile_for: 128, 64, lane-major),
+# "cpu" the CPU's lane-major rows
+COMPACT_CASES = {
+    "check_damped_tiles": (dict(layout="check", damping=0.5), None, torch.float32, 1, 256,
+                           "card"),
+    "check_damped_tiles_every8": (dict(layout="check", damping=0.5), None, torch.float32, 8,
+                                  256, "card"),
+    "check_lane_Bn_best_tiles": (dict(layout="check", lane_damping=True, track_best=True),
+                                 "var", torch.bfloat16, 3, 256, "card"),
+    "check_lane_B_best_tiles": (dict(layout="check", lane_damping=True, track_best=True),
+                                "lane_exact", torch.float32, 1, 200, "card"),
+    "check_lane_B_best": (dict(layout="check", lane_damping=True, track_best=True),
+                          "lane_exact", torch.float32, 1, 48, "cpu"),
+    "check_plain": (dict(layout="check"), None, torch.float32, 3, 48, "cpu"),
+    "var_plain": (dict(), None, torch.float32, 1, 48, "cpu"),
+    "var_lane_B": (dict(lane_damping=True), "lane_exact", torch.float32, 3, 48, "cpu"),
+    "var_lane_Bn": (dict(lane_damping=True), "var_exact", torch.float32, 8, 48, "cpu"),
+    "var_damped_best": (dict(damping=0.5, track_best=True), None, torch.float32, 1, 48,
+                        "cpu"),
+    "var_edge_weights_alpha": (dict(edge_weights="weights_pow2", alpha="alpha"), None,
+                               torch.float32, 3, 48, "cpu"),
+    "converged_at_once": (dict(layout="check", damping=0.5), None, torch.float32, 3, 48,
+                          "cpu"),
+}
+
+
+@pytest.mark.parametrize("name", list(COMPACT_CASES))
+def test_compacted_decode_matches_reference_op_by_op(monkeypatch, name):
+    """Lanes that converge at different checks leave the loop's state at
+    its checks (the rule's fixed cost set to 0: on a state this small it
+    never pays): errors, flags, iterations and LLRs stay bitwise the JAX
+    package's run op by op; the lane-iterations launched are the sum of the
+    narrowing widths' segments; a batch done at its first check stops there
+    with no compaction."""
+    knobs, gamma_kind, dtype, check_every, B, tiles = COMPACT_CASES[name]
+    A, pr = small_dem()
+    g, gp = graphs(A)
+    max_iters = MAX_ITERS
+    kw = {k: schedule(v, g)[:max_iters] if isinstance(v, str) and k != "layout" else v
+          for k, v in knobs.items()}
+    syn = (np.zeros((B, g.m), np.uint8) if name == "converged_at_once"
+           else mixed_records(A, B, 7))
+    gamma = None if gamma_kind is None else gamma_of(gamma_kind, B, g.n)
+    fn = make_minsum_decode_fn(g, pr, max_iters, dtype=JNP_DTYPE[dtype],
+                               check_every=check_every, **kw)
+    args = [jnp.asarray(syn), None] + ([] if gamma is None else [jnp.asarray(gamma)])
+    with jax.disable_jit():
+        want = fn(*args)
+    tile = (minsum_module.lane_tile_for if tiles == "card" else (lambda k: 1))
+    # the gather's fixed cost outweighs any saving on a state this small
+    monkeypatch.setattr(minsum_module, "_GATHER_FIXED_BYTES", 0.0)
+    if tiles == "card":
+        monkeypatch.setattr(minsum_module.MinSumDecode, "_tile",
+                            lambda self, lanes, device: minsum_module.lane_tile_for(lanes))
+    mod = pt.MinSumDecode(gp, pr, max_iters, device="cpu", dtype=dtype,
+                          check_every=check_every, **kw)
+    with profiling.recording() as rec:
+        got = mod(torch.as_tensor(syn), None, None if gamma is None else torch.as_tensor(gamma))
+    assert_flags_equal(want, got)
+    assert_bitwise(want[3], got[3])
+    names = [s.name for s in rec.spans]
+    compactions = names.count("ldpc.minsum.compact")
+    assert rec.counters.get("minsum_compactions", 0) == compactions
+    conv, iters = got[1], got[2]
+    launched = lane_iters_launched(names, conv, iters, max_iters, check_every, tile)
+    assert rec.counters["minsum_lane_iters_launched"] == launched
+    if name == "converged_at_once":
+        assert names.count("ldpc.minsum.check") == 1 and compactions == 0
+        assert bool(conv.all()) and launched == B * check_every
+        return
+    assert compactions > 0 and rec.counters["minsum_compact_bytes"] > 0
+    assert launched < B * int(iters.max())
+    assert conv.any() and not conv.all(), "the case needs lanes on both sides"
+
+
+@pytest.mark.parametrize("case", ["stage0_first_check", "stage0_later_check", "gallager",
+                                  "gallager_straggler", "no_narrower_width", "near_the_cap",
+                                  "card_tiles"])
+def test_compaction_rule(monkeypatch, case):
+    """The rule with its measured costs: narrow where the lane-iterations
+    saved, over the iterations left but no more than the loop has run, pay
+    the gather (per lane kept, and a fixed cost in bytes of state).  At the
+    bb144 DEM's state (2.54 MB a lane) stage 0's first check keeps its
+    width and a later one narrows; a Gallager-sized state (54 KB a lane)
+    whose lanes converge within a few iterations never narrows; nothing
+    narrows where the width would not shrink; on the card the kept lanes
+    take their tile."""
+    A, pr = small_dem()
+    mod = pt.MinSumDecode(pt.TannerGraph.from_pcm(A), pr, 96, device="cpu", layout="check")
+    cpu = torch.device("cpu")
+    width, live, it, lane_bytes, want = {
+        "stage0_first_check": (2048, 1700, 8, 2.54e6, None),
+        "stage0_later_check": (2048, 1000, 16, 2.54e6, 1),
+        "gallager": (8192, 1600, 1, 54e3, None),
+        "gallager_straggler": (8192, 30, 2, 54e3, None),
+        "no_narrower_width": (300, 300, 40, 2.54e6, None),
+        "near_the_cap": (256, 200, 90, 2.54e6, None),
+        "card_tiles": (2048, 100, 24, 2.54e6, 128),
+    }[case]
+    if case == "card_tiles":
+        monkeypatch.setattr(minsum_module.MinSumDecode, "_tile",
+                            lambda self, lanes, device: minsum_module.lane_tile_for(lanes))
+    assert mod._compact_tile(width, live, it, lane_bytes, cpu) == want
+    if case == "near_the_cap":  # the same narrowing with more iterations left pays
+        assert mod._compact_tile(width, live, 40, lane_bytes, cpu) == 1
 
 
 # -- host-side layers -----------------------------------------------------

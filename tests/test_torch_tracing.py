@@ -120,6 +120,21 @@ def minsum_checks(its_run, max_iters, check_every):
     return sum(1 for t in range(1, its_run + 1) if t % check_every == 0 or t >= max_iters)
 
 
+def lane_iters_launched(spans, conv, iters, max_iters, check_every):
+    """The lane-major loop's lane-iterations, segment by segment: each
+    ``ldpc.minsum.compact`` span after a check narrows the width to the
+    lanes not done there (not converged by that check's iteration)."""
+    grid = [t for t in range(1, max_iters + 1) if t % check_every == 0 or t >= max_iters]
+    width, start, k, t, total = len(iters), 0, 0, 0, 0
+    for name in spans:
+        if name == "ldpc.minsum.check":
+            t, k = grid[k], k + 1
+        elif name == "ldpc.minsum.compact":
+            total += width * (t - start)
+            width, start = int((~(conv & (iters <= t))).sum()), t
+    return total + width * (t - start)
+
+
 @pytest.mark.parametrize("check_every", [1, 3, 8])
 def test_minsum_host_reads_are_its_checks_and_outputs(check_every):
     A, pr, _ = _small_dem()
@@ -133,10 +148,14 @@ def test_minsum_host_reads_are_its_checks_and_outputs(check_every):
     checks = minsum_checks(its_run, 25, check_every)
     assert [s.name for s in call.spans].count("ldpc.minsum.check") == checks
     assert call.counters["host_reads"] == checks + 4  # errors, flags, iterations, LLRs
-    assert call.counters["minsum_lane_iters_launched"] == 32 * its_run >= int(iters.sum())
+    names = [s.name for s in call.spans]
+    assert call.counters.get("minsum_compactions", 0) == names.count("ldpc.minsum.compact")
+    launched = lane_iters_launched(names, conv, iters, 25, check_every)
+    assert call.counters["minsum_lane_iters_launched"] == launched >= int(iters.sum())
     assert call.counters["h2d_bytes"] == det.nbytes
+    # each check reads the count of lanes not done, an int64
     assert call.counters["d2h_bytes"] == (err.nbytes + conv.nbytes + iters.nbytes
-                                          + aux["llrs"].nbytes + checks)
+                                          + aux["llrs"].nbytes + 8 * checks)
 
 
 def test_worker_thread_spans_carry_no_call():

@@ -7,8 +7,8 @@
 ``ldpcdecoders_tpu_torch.utils.profiling.recording()``: every span and
 counter of the window's calls is recorded (no profiler runs, so no span
 is a profiler range).  Against ``portbench/run.py`` on the same seed it
-gives the cost of recording on, in ``shots_per_s``; the record's size goes
-to standard error.
+gives the cost of recording on, in ``shots_per_s``; the record's size and
+each counter's mean a call go to standard error.
 """
 
 import time
@@ -27,4 +27,6 @@ if __name__ == "__main__":
     with profiling.recording() as rec:
         rc = harness.main(t_start=_T0)
     print(f"recorded {len(rec.calls)} calls, {len(rec.spans)} spans", file=sys.stderr)
+    for name, total in sorted(rec.totals().items()):
+        print(f"counter {name}: {total / max(len(rec.calls), 1):.1f} a call", file=sys.stderr)
     sys.exit(rc)
