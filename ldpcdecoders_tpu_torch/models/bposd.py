@@ -24,6 +24,15 @@ Counterpart of ``ldpcdecoders_tpu/models/bposd.py``:
     elimination kernels takes their device-memory body (ops/cuda_gf2.py):
     the device OSD decodes every code size.
 
+Spans and counters (utils/profiling.py): ``ldpc.bposd.inner`` around the
+inner decode; ``ldpc.bposd.osd`` around the device OSD of the failing
+lanes (their gather, the OSD, the unsort and the splice), closed where the
+spliced answers are ready on the device; ``ldpc.osd.pack``,
+``ldpc.osd.eliminate`` and ``ldpc.osd.sweep`` inside :class:`OSD`'s
+batches; ``osd_dev_lanes`` (the failing lanes) and ``osd_dev_lanes_padded``
+(the bucket they are padded to) count the lanes the device OSD takes.  The
+read of the converged flags is a counted host read.
+
 ``converged`` reports BP convergence; the returned error estimate is
 always syndrome-consistent for OSD-0, and for OSD-w whenever H's rows span
 the syndrome.
@@ -47,6 +56,7 @@ import torch
 
 from ..ops.cuda_gf2 import gf2_eliminate_cuda, gf2_osd0_cuda
 from ..ops.gf2 import osd_cs_sweep, osdw_sweep, wrap_int32
+from ..utils.profiling import count, settle, span, to_device, to_host
 from .base import Decoder, resolve_device
 from .bp import BPDecode, as_graph
 from .minsum import MinSumDecode, MinSumDecoder
@@ -168,19 +178,24 @@ class OSD(torch.nn.Module):
         return torch.zeros_like(corr_sorted).scatter_(1, perm, corr_sorted)
 
     def osd0_batch(self, syndromes, bp_err, logp):
-        perm, Ht, bp_sorted = self.sort_and_pack(bp_err, logp)
-        # residual syndrome of bp_err; small-integer row sums are exact in f32
-        hb = bp_err.to(torch.float32) @ self.H_cols_f
-        resid = (syndromes.to(torch.int32) ^ (hb.to(torch.int32) & 1)).contiguous()
-        corr = gf2_osd0_cuda(Ht, resid, bp_sorted, self.n)
+        with span("ldpc.osd.pack"):
+            perm, Ht, bp_sorted = self.sort_and_pack(bp_err, logp)
+            # residual syndrome of bp_err; small-integer row sums are exact in f32
+            hb = bp_err.to(torch.float32) @ self.H_cols_f
+            resid = (syndromes.to(torch.int32) ^ (hb.to(torch.int32) & 1)).contiguous()
+        with span("ldpc.osd.eliminate"):
+            corr = gf2_osd0_cuda(Ht, resid, bp_sorted, self.n)
         return self.unsort(perm, corr)
 
     def osdw_batch(self, syndromes, bp_err, logp):
-        perm, Ht, bp_sorted = self.sort_and_pack(bp_err, logp)
-        s = syndromes.to(torch.int32).contiguous()
-        Ht2, s2, piv = gf2_eliminate_cuda(Ht, s, self.n)
-        r = (piv != self.n).sum(dim=1)
-        corr = self.sweep(Ht2, s2, piv, r, bp_sorted, self.osd_order, self.n)
+        with span("ldpc.osd.pack"):
+            perm, Ht, bp_sorted = self.sort_and_pack(bp_err, logp)
+        with span("ldpc.osd.eliminate"):
+            s = syndromes.to(torch.int32).contiguous()
+            Ht2, s2, piv = gf2_eliminate_cuda(Ht, s, self.n)
+        with span("ldpc.osd.sweep"):
+            r = (piv != self.n).sum(dim=1)
+            corr = self.sweep(Ht2, s2, piv, r, bp_sorted, self.osd_order, self.n)
         return self.unsort(perm, corr)
 
 
@@ -398,7 +413,8 @@ class BeliefPropagationOSDDecoder(Decoder):
         if self.fused:
             err, converged, iters, logp = self.fused_decode(syndromes, prior)
             return err, converged, iters, {"log_probabs": logp}
-        bp_err, converged, iters, logp = self.bp(syndromes, prior)
+        with span("ldpc.bposd.inner"):
+            bp_err, converged, iters, logp = self.bp(syndromes, prior)
         aux = {"log_probabs": logp}
         host = self.osd_impl == "host"
         if self.osd_order > 0 and self.osd_scope == "all" and not host:
@@ -411,25 +427,29 @@ class BeliefPropagationOSDDecoder(Decoder):
         if host and self.osd_order > 0 and self.osd_scope == "all":
             need = np.arange(syndromes.shape[0])
         else:
-            need = np.flatnonzero(~converged.cpu().numpy())
+            (conv_np,) = to_host(converged)
+            need = np.flatnonzero(~conv_np)
         if need.size == 0:
             return bp_err, converged, iters, aux
         if host:
             # OSD-0 leaves a lane with nothing to correct as it is, so the
             # converged lanes need no host round trip
             idx = torch.as_tensor(need, device=self.device)
-            corr = self._host_osd0(syndromes[idx].cpu().numpy(), bp_err[idx].cpu().numpy(),
-                                   logp[idx].float().cpu().numpy())
+            corr = self._host_osd0(*to_host(syndromes[idx], bp_err[idx], logp[idx].float()))
             out = bp_err.clone()
-            out[idx] = torch.as_tensor(corr, device=self.device)
+            out[idx] = to_device(corr, self.device)
             return out, converged, iters, aux
         # pad to a power-of-two bucket (repeats of the first failing lane)
         # so the OSD sees few distinct batch sizes
         bucket = next_pow2(need.size)
-        idx = np.concatenate([need, np.repeat(need[:1], bucket - need.size)])
-        idx = torch.as_tensor(idx, device=self.device)
-        post = self.osd.osd0_batch if self.osd_order == 0 else self.osd.osdw_batch
-        corr = post(syndromes[idx], bp_err[idx], logp[idx])
-        out = bp_err.clone()
-        out[idx[: need.size]] = corr[: need.size].to(torch.int8)
+        count("osd_dev_lanes", need.size)
+        count("osd_dev_lanes_padded", bucket)
+        with span("ldpc.bposd.osd"):
+            idx = np.concatenate([need, np.repeat(need[:1], bucket - need.size)])
+            idx = torch.as_tensor(idx, device=self.device)
+            post = self.osd.osd0_batch if self.osd_order == 0 else self.osd.osdw_batch
+            corr = post(syndromes[idx], bp_err[idx], logp[idx])
+            out = bp_err.clone()
+            out[idx[: need.size]] = corr[: need.size].to(torch.int8)
+            settle(self.device)
         return out, converged, iters, aux

@@ -38,7 +38,7 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 __all__ = ["trace", "annotate", "recording", "profiled", "span", "call_span", "count",
-           "to_host", "host_int", "to_device", "Recorder", "Span", "Call"]
+           "to_host", "host_int", "to_device", "settle", "Recorder", "Span", "Call"]
 
 
 @dataclasses.dataclass
@@ -246,6 +246,14 @@ def to_device(a, device) -> torch.Tensor:
     if rec is not None and not (isinstance(a, torch.Tensor) and a.device == t.device):
         _add(rec, "h2d_bytes", _nbytes(t))
     return t
+
+
+def settle(device) -> None:
+    """Where recording is on, wait for the work queued on ``device`` (a CUDA
+    card; nothing on the CPU), so that the enclosing span ends when the
+    device's work does; nothing when off."""
+    if _active() is not None and torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 # -- the profiler -----------------------------------------------------------------

@@ -126,8 +126,12 @@ D3 = pathlib.Path(__file__).parent / "fixtures" / "surface_d3_r3_p005.dem"
                                    dict(decoder="bposd", osd_impl="host"),
                                    dict(decoder="bposd", osd_method="combination_sweep",
                                         osd_order=8),
-                                   dict(decoder="minsum", damping=0.5)],
-                         ids=["bposd", "bposd_minsum", "bposd_host", "bposd_cs", "minsum"])
+                                   dict(decoder="minsum", damping=0.5),
+                                   dict(decoder="bposd", inner="minsum", damping=0.5,
+                                        osd_method="combination_sweep", osd_order=8,
+                                        osd_scope="failed")],
+                         ids=["bposd", "bposd_minsum", "bposd_host", "bposd_cs", "minsum",
+                              "bposd_minsum_cs_failed"])
 def test_detector_decoder_matches_reference(knobs):
     det, obs = records(D3, 24, 3, scale=3.0)
     ref = RefDetector.from_dem(str(D3), 20, **knobs)

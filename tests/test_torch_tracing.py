@@ -238,6 +238,77 @@ def test_trace_writes_spans_and_counters(tmp_path):
     assert call["counters"]["h2d_bytes"] == det.nbytes and call["end_ns"] > call["start_ns"]
 
 
+# -- BP+OSD and the device OSD --------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def bposd_recorded():
+    """BP+OSD-CS on the small DEM: a damped min-sum inner that leaves some
+    lanes unconverged, the device OSD (its plain versions) on those."""
+    A, pr, O = _small_dem()
+    dec = pt.DetectorGraphDecoder(A, pr, 30, observables=O, decoder="bposd", inner="minsum",
+                                  damping=0.4, osd_order=8, osd_method="combination_sweep",
+                                  osd_scope="failed", device="cpu")
+    det = _records(A, pr, 40, 2, 8.0)
+    with profiling.recording() as rec:
+        out = dec.batch_decode_detailed(det)
+    return dec, det, rec, out
+
+
+def test_bposd_spans_nest_and_change_no_output(bposd_recorded):
+    dec, det, rec, on = bposd_recorded
+    off = dec.batch_decode_detailed(det)
+    for a, b in zip(off[:3], on[:3]):
+        assert np.array_equal(a, b)
+    (call,) = rec.calls
+    tree = [(depth(rec, s), s.name) for s in call.spans]
+    assert [n for d, n in tree if d == 1] == ["ldpc.to_device", "ldpc.decode", "ldpc.to_host"]
+    assert [n for d, n in tree if d == 2] == ["ldpc.bposd.inner", "ldpc.bposd.osd"]
+    parents = {}
+    for s in call.spans[1:]:
+        parents.setdefault(s.name, []).append(rec.spans[s.parent].name)
+    assert parents["ldpc.minsum.decode"] == ["ldpc.bposd.inner"]
+    assert set(parents["ldpc.minsum.check"]) == {"ldpc.minsum.decode"}
+    for name in ("ldpc.osd.pack", "ldpc.osd.eliminate", "ldpc.osd.sweep"):
+        assert parents[name] == ["ldpc.bposd.osd"]
+    for s in call.spans[1:]:
+        p = rec.spans[s.parent]
+        assert p.start_ns <= s.start_ns and s.end_ns <= p.end_ns
+
+
+def test_bposd_counters_and_host_reads(bposd_recorded):
+    from ldpcdecoders_tpu_torch.models.priors import next_pow2
+
+    _, det, rec, (err, conv, iters, aux, _) = bposd_recorded
+    c = rec.totals()
+    failing = int((~conv).sum())
+    assert failing > 0 and next_pow2(failing) > failing  # the bucket pads
+    assert c["osd_dev_lanes"] == failing
+    assert c["osd_dev_lanes_padded"] == next_pow2(failing)
+    checks = [s.name for s in rec.calls[0].spans].count("ldpc.minsum.check")
+    assert checks == int(iters.max())
+    # a read a check, the converged flags, the contract's four outputs
+    assert c["host_reads"] == checks + 1 + 4
+    assert c["d2h_bytes"] == (8 * checks + conv.nbytes + err.nbytes + conv.nbytes + iters.nbytes
+                              + aux["log_probabs"].nbytes)
+
+
+def test_bposd_host_osd_reads_are_counted():
+    A, pr, O = _small_dem()
+    dec = pt.DetectorGraphDecoder(A, pr, 20, observables=O, decoder="bposd", inner="minsum",
+                                  damping=0.4, osd_order=8, osd_method="combination_sweep",
+                                  osd_scope="failed", osd_impl="host", device="cpu")
+    det = _records(A, pr, 24, 3, 8.0)
+    with profiling.recording() as rec:
+        err, conv, iters, _, _ = dec.batch_decode_detailed(det)
+    c = rec.totals()
+    assert (~conv).any() and "osd_dev_lanes" not in c
+    checks = [s.name for s in rec.calls[0].spans].count("ldpc.minsum.check")
+    # the checks, the converged flags, the OSD's three inputs, the four outputs
+    assert c["host_reads"] == checks + 1 + 3 + 4
+    assert c["h2d_bytes"] == det.nbytes + int((~conv).sum()) * err.shape[1]
+
+
 # -- the benchmark's readers of the record --------------------------------------
 
 READERS = ["copy_share.dem", "deep_share.dem", "osd_ms_per_lane.dem",

@@ -16,7 +16,12 @@ Builds the cell's decoder on its traffic (``portbench``: the pool drawn from
 * per span name, the seconds of the calls inside it (the union of its
   ranges) and the device's idle time named by the innermost ``ldpc.*``
   range running at each idle stretch's middle;
-* the counters of each call.
+* the counters of each call;
+* per span name, how long the device ran on after the span closed the
+  work launched inside it: the latest end of a device operation whose
+  launch (matched by the trace's correlation ids) lies in the span, less
+  the span's end, in microseconds (at most 0: the span holds its device
+  work, not only its launches).
 
 One JSON line goes to standard output; with ``--out`` the Chrome trace is
 kept there.  Needs a CUDA card.
@@ -25,6 +30,7 @@ kept there.  Needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import os
 import statistics
@@ -51,6 +57,40 @@ def innermost_idle(tr, lo, hi, tracing):
     return dict(sorted(by.items(), key=lambda x: -x[1]))
 
 
+def device_lag(path, tr) -> dict:
+    """Per ``ldpc.*`` range name, ``max(end of a device operation launched
+    inside the range) - the range's end`` over its ranges, in
+    microseconds (the median and the largest; ranges that launched nothing
+    are left out)."""
+    from portbench import tracing
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    launch, done = {}, {}
+    for ev in events:
+        corr = (ev.get("args") or {}).get("correlation")
+        if ev.get("ph") != "X" or corr is None:
+            continue
+        if ev.get("cat") == "cuda_runtime":
+            launch[corr] = float(ev["ts"])
+        elif ev.get("cat") in tracing.DEVICE_CATS:
+            done[corr] = float(ev["ts"]) + float(ev["dur"])
+    pairs = sorted((launch[c], done[c]) for c in done if c in launch)
+    starts = [t for t, _ in pairs]
+    out = {}
+    for name, ranges in tr.spans.items():
+        if not name.startswith("ldpc."):
+            continue
+        lags = []
+        for s, e in ranges:
+            lo, hi = bisect.bisect_left(starts, s), bisect.bisect_right(starts, e)
+            if hi > lo:
+                lags.append(max(end for _, end in pairs[lo:hi]) - e)
+        if lags:
+            out[name] = {"median": statistics.median(lags), "max": max(lags), "n": len(lags)}
+    return out
+
+
 def split(dec, pool, calls: int, out_dir: str | None, tag: str) -> dict:
     """A warm-up call on ``pool[0]``, then ``calls`` traced and recorded
     calls on the next batches; the clock offsets, the split and the
@@ -75,6 +115,7 @@ def split(dec, pool, calls: int, out_dir: str | None, tag: str) -> dict:
     with open(path) as f:
         base = int(json.load(f)["baseTimeNanoseconds"])
     tr = tracing.Trace(path)
+    lag = device_lag(path, tr)
     if not keep:
         os.unlink(path)
 
@@ -106,6 +147,7 @@ def split(dec, pool, calls: int, out_dir: str | None, tag: str) -> dict:
                    for n, iv in sorted(tr.spans.items()) if n.startswith("ldpc.")},
         "idle_by_span_s": innermost_idle(tr, lo, hi, tracing),
         "counters": [dict(c.counters) for c in rec.calls],
+        "device_lag_us": lag,
     }
 
 
