@@ -32,6 +32,8 @@ the device work.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -178,6 +180,8 @@ class StagedDemDecoder(Decoder):
                 "StagedDemDecoder needs the native host OSD (g++); "
                 "build failed or unavailable")
         self._Hcols = gf2_pack_cols(Ad)
+        self._osd_states: dict = {}
+        self._osd_lock = threading.Lock()
 
         self.dtype = torch.float32 if dtype is None else dtype
         self.deep_dtype = torch.float32 if deep_dtype is None else deep_dtype
@@ -330,22 +334,24 @@ class StagedDemDecoder(Decoder):
         syndrome-consistent candidates (member 0's output where none is).
         A posterior-free candidate joins the pick: ``bp = 0`` with the
         channel-prior reliability order (information-set decoding in
-        static prior order, immune to a trapped lane's LLRs)."""
-        from ..native import gf2_osd_cs_host
+        static prior order, immune to a trapped lane's LLRs).  Its order
+        is every lane's, so its elimination is made once per channel prior
+        (:meth:`_prior_osd_state`) and each lane only replays it on its
+        syndrome."""
+        from ..native import gf2_osd_cs_host, gf2_osd_cs_prepared_host
 
         K, nf, _ = bp_np.shape
         count("osd_lanes", nf)
         count("osd_candidates", (K + 1) * nf)
-        prior_order = np.argsort(-np.abs(llr0_np), kind="stable").astype(np.int32)
-        bp_ext = np.concatenate([bp_np, np.zeros((1, nf, self.N), np.uint8)])
-        order_ext = np.concatenate(
-            [order_np, np.broadcast_to(prior_order, (1, nf, self.N))]).astype(np.int32)
+        count("osd_full_eliminations", K * nf)
+        count("osd_fixed_order_lanes", nf)
         outs = np.empty((K + 1, nf, self.N), np.uint8)
         cons = np.empty((K + 1, nf), bool)
-        for k in range(K + 1):
-            o, c = gf2_osd_cs_host(self._Hcols, self.D, self.lam, order_ext[k], bp_ext[k],
-                                   syn_np, lam3=self.lam3)
-            outs[k], cons[k] = o, c
+        for k in range(K):
+            outs[k], cons[k] = gf2_osd_cs_host(self._Hcols, self.D, self.lam, order_np[k],
+                                               bp_np[k], syn_np, lam3=self.lam3)
+        outs[K], cons[K] = gf2_osd_cs_prepared_host(
+            self._prior_osd_state(llr0_np), self.lam, syn_np, lam3=self.lam3)
         score = outs.astype(np.float32) @ llr0_np
         score[~cons] = np.inf
         pick = np.argmin(score, axis=0)
@@ -353,6 +359,25 @@ class StagedDemDecoder(Decoder):
         if all_bad.any():  # unreachable syndrome: keep member 0's output
             pick[all_bad] = 0
         return outs[pick, np.arange(nf)], cons.any(axis=0)
+
+    def _prior_osd_state(self, llr0_np):
+        """The posterior-free candidate's elimination in the channel prior's
+        column order (native ``gf2_osd_cs_prepare``), made on first use and
+        kept per order: a ``per=`` override with another order has its own.
+        Built under a lock, as ``run_eval`` calls the OSD from a worker
+        thread; the four newest orders are kept."""
+        from ..native import gf2_osd_cs_prepare
+
+        prior_order = np.argsort(-np.abs(llr0_np), kind="stable").astype(np.int32)
+        key = prior_order.tobytes()
+        with self._osd_lock:
+            state = self._osd_states.get(key)
+            if state is None:
+                state = gf2_osd_cs_prepare(self._Hcols, self.D, prior_order)
+                if len(self._osd_states) >= 4:
+                    self._osd_states.pop(next(iter(self._osd_states)))
+                self._osd_states[key] = state
+            return state
 
     # -- Decoder contract ----------------------------------------------------
 

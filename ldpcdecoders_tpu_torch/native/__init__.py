@@ -2,18 +2,22 @@
 
 Counterpart of ``ldpcdecoders_tpu/native/__init__.py``, with the same C++
 sources (``graph_compiler.cpp``, ``gf2_host.cpp``, ``gf2_osd.cpp``) and the
-same entry points.  The shared library is built with the system g++ at first
-use into ``_kernels/`` beside the package (listed in ``.gitignore``), under a
-name that hashes the sources, so an edited source is rebuilt.  Every entry
+same entry points, plus two in ``gf2_osd.cpp``.  The shared library is built
+with the system g++ at first use into ``_kernels/`` beside the package
+(listed in ``.gitignore``), under a name that hashes the sources, so an
+edited source is rebuilt.  Every entry
 point returns None where the library cannot be built; the decoders that
 need it (the host OSD of models/bposd.py and models/staged.py) raise there.
 
 The host OSD (``gf2_osd0_host``, ``gf2_osd_cs_host``) serves OSD lanes too
 large for one block of the CUDA eliminations (ops/cuda_gf2.py), where the
 caller asks for it (``osd_impl="host"``, the staged decoder's OSD pick): it
-is bitwise equal to the device OSD given the same column order.  A
-foreign call releases the interpreter lock, so it overlaps work on the card
-from another thread.
+is bitwise equal to the device OSD given the same column order.  Where
+every lane shares a candidate's column order and ``bp = 0`` (the staged
+decoder's posterior-free candidate), ``gf2_osd_cs_prepare`` eliminates once
+and ``gf2_osd_cs_prepared_host`` replays that on each lane's syndrome, with
+the outputs of ``gf2_osd_cs_host``.  A foreign call releases the interpreter
+lock, so it overlaps work on the card from another thread.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import os
 import subprocess
 import tempfile
 import threading
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
@@ -35,6 +40,9 @@ __all__ = [
     "gf2_pack_cols",
     "gf2_osd0_host",
     "gf2_osd_cs_host",
+    "gf2_osd_cs_prepare",
+    "gf2_osd_cs_prepared_host",
+    "OsdCsPrepared",
     "gf2_syndromes_packed",
     "gf2_verify_packed",
 ]
@@ -79,6 +87,8 @@ def _bind(lib):
         "gf2_syndromes_packed": (None, [ptr, i64, i64, ptr, i64, ptr]),
         "gf2_osd0_host": (None, [ptr, i64, i64, i64, ptr, ptr, ptr, i64, ptr, ptr]),
         "gf2_osd_cs_host": (None, [ptr] + [i64] * 5 + [ptr] * 3 + [i64, ptr, ptr]),
+        "gf2_osd_cs_prepare": (i64, [ptr] + [i64] * 3 + [ptr] * 7),
+        "gf2_osd_cs_prepared_host": (None, [i64] * 6 + [ptr] * 7 + [i64, ptr, ptr]),
         "gf2_pack_cols": (None, [ptr, i64, i64, i64, ptr]),
         "gf2_verify_packed": (None, [ptr, i64, i64, ptr, ptr, i64, ptr, ptr]),
     }
@@ -267,4 +277,76 @@ def gf2_osd_cs_host(Hcols: np.ndarray, m: int, lam: int, order: np.ndarray,
     lib.gf2_osd_cs_host(Hcols.ctypes.data, n, m, mw, int(lam), int(lam3),
                         order.ctypes.data, bp.ctypes.data, syn.ctypes.data,
                         B, out.ctypes.data, consistent.ctypes.data)
+    return out, consistent.astype(bool)
+
+
+@dataclass(frozen=True, eq=False)
+class OsdCsPrepared:
+    """One OSD-CS elimination in a column order every lane shares, with
+    ``bp = 0`` (:func:`gf2_osd_cs_prepare`): the pivot rows ``prow [rank]``,
+    each pivot's reduced column ``cand [rank, mw]`` and combination ``cw
+    [rank, pw]`` as installed, the pivot columns ``pivcol [rank]``, and the
+    non-pivot combinations ``npw [n - rank, pw]`` and columns ``npcol``."""
+
+    n: int
+    m: int
+    prow: np.ndarray
+    cand: np.ndarray
+    cw: np.ndarray
+    pivcol: np.ndarray
+    npw: np.ndarray
+    npcol: np.ndarray
+
+
+def gf2_osd_cs_prepare(Hcols: np.ndarray, m: int, order: np.ndarray):
+    """The elimination of an OSD-CS candidate whose column ``order [n]``
+    and hard decisions (all 0) every lane shares, made once
+    (native/gf2_osd.cpp): what :func:`gf2_osd_cs_prepared_host` replays on
+    each lane's syndrome.  Returns an :class:`OsdCsPrepared`, or ``None``
+    if the native library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    Hcols, n, mw, order2, _, _, _ = _osd_args(
+        Hcols, m, np.asarray(order)[None], np.zeros((1, len(order)), np.uint8),
+        np.zeros((1, m), np.uint8))
+    pw = (m + 63) // 64
+    prow = np.empty(m, np.int64)
+    cand = np.empty((m, mw), np.uint64)
+    cw = np.empty((m, pw), np.uint64)
+    pivcol = np.empty(m, np.int32)
+    npw = np.empty((n, pw), np.uint64)
+    npcol = np.empty(n, np.int32)
+    rank = lib.gf2_osd_cs_prepare(
+        Hcols.ctypes.data, n, m, mw, order2.ctypes.data, prow.ctypes.data,
+        cand.ctypes.data, cw.ctypes.data, pivcol.ctypes.data, npw.ctypes.data,
+        npcol.ctypes.data)
+    return OsdCsPrepared(n, m, prow[:rank].copy(), cand[:rank].copy(), cw[:rank].copy(),
+                         pivcol[:rank].copy(), npw[:n - rank].copy(), npcol[:n - rank].copy())
+
+
+def gf2_osd_cs_prepared_host(state: OsdCsPrepared, lam: int, syn: np.ndarray,
+                             lam3: int = 0):
+    """Threaded host OSD-CS of ``syn [B, m]`` in ``state``'s shared order
+    with ``bp = 0``: per lane only the syndrome's reduction and the sweep.
+    Bitwise :func:`gf2_osd_cs_host` with that order and ``bp`` on every
+    lane.  Returns ``(out [B, n] uint8, consistent [B] bool)`` or ``None``
+    if the native library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    if lam < 0 or lam3 < 0:
+        raise ValueError("lam and lam3 must be >= 0")
+    n, m = state.n, state.m
+    syn = np.ascontiguousarray(syn, dtype=np.uint8)
+    if syn.ndim != 2 or syn.shape[1] != m:
+        raise ValueError(f"shape mismatch: syn {syn.shape} for m={m}")
+    B = syn.shape[0]
+    out = np.empty((B, n), np.uint8)
+    consistent = np.empty(B, np.uint8)
+    lib.gf2_osd_cs_prepared_host(
+        n, m, (m + 63) // 64, int(lam), int(lam3), len(state.prow),
+        state.prow.ctypes.data, state.cand.ctypes.data, state.cw.ctypes.data,
+        state.pivcol.ctypes.data, state.npw.ctypes.data, state.npcol.ctypes.data,
+        syn.ctypes.data, B, out.ctypes.data, consistent.ctypes.data)
     return out, consistent.astype(bool)

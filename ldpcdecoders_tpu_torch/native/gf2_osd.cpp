@@ -15,7 +15,9 @@
 // pivots, combos and outputs equal the device eliminations'.  Each new
 // pivot clears its pivot row from all existing basis columns: O(rank) bit
 // tests plus fill-dependent XORs.  The code is
-// ldpcdecoders_tpu/native/gf2_osd.cpp's.
+// ldpcdecoders_tpu/native/gf2_osd.cpp's, with the OSD-CS sweep factored out
+// (and built for the popcount instruction where the CPU has it) and the
+// shared-order OSD-CS added (gf2_osd_cs_prepare, gf2_osd_cs_prepared_host).
 //
 // C ABI for ctypes; all buffers are caller-allocated numpy arrays.
 //   Hcols: [n, mw] u64 packed columns (bit r of word w = row 64w+r)
@@ -40,6 +42,25 @@ inline int pick_threads_osd(int64_t work_items) {
   if (t > 16) t = 16;
   if (t < 1) t = 1;
   return (int)t;
+}
+
+// Runs work(lo, hi) over [0, B) in contiguous chunks, one a thread.
+template <class Work>
+void run_lanes(int64_t B, Work work) {
+  int nt = pick_threads_osd(B);
+  if (nt <= 1) {
+    work(0, B);
+    return;
+  }
+  std::vector<std::thread> threads;
+  int64_t chunk = (B + nt - 1) / nt;
+  for (int t = 0; t < nt; ++t) {
+    int64_t lo = t * chunk;
+    int64_t hi = lo + chunk < B ? lo + chunk : B;
+    if (lo >= hi) break;
+    threads.emplace_back(work, lo, hi);
+  }
+  for (auto& th : threads) th.join();
 }
 
 inline void xor_words(uint64_t* dst, const uint64_t* src, int64_t w) {
@@ -197,27 +218,13 @@ void gf2_osd0_host(const uint64_t* Hcols, int64_t n, int64_t m, int64_t mw,
                    const uint8_t* syn, int64_t B, uint8_t* out,
                    uint8_t* consistent) {
   int64_t pw = (m + 63) / 64;
-  int nt = pick_threads_osd(B);
-  std::vector<std::thread> threads;
-  int64_t chunk = (B + nt - 1) / nt;
-  auto work = [&](int64_t lo, int64_t hi) {
+  run_lanes(B, [&](int64_t lo, int64_t hi) {
     Rref ws;
     ws.size_for(m, mw, pw);
     for (int64_t l = lo; l < hi; ++l)
       osd0_lane(Hcols, n, m, mw, pw, order + l * n, bp + l * n, syn + l * m,
                 out + l * n, consistent + l, ws);
-  };
-  if (nt <= 1) {
-    work(0, B);
-    return;
-  }
-  for (int t = 0; t < nt; ++t) {
-    int64_t lo = t * chunk;
-    int64_t hi = lo + chunk < B ? lo + chunk : B;
-    if (lo >= hi) break;
-    threads.emplace_back(work, lo, hi);
-  }
-  for (auto& th : threads) th.join();
+  });
 }
 
 // pack columns: H [m, n] u8 row-major -> Hcols [n, mw] u64
@@ -258,22 +265,27 @@ struct CsWorkspace {
   std::vector<int32_t> npcol;
 };
 
-void osd_cs_lane(const uint64_t* Hcols, int64_t n, int64_t m, int64_t mw,
-                 int64_t pw, int64_t lam, int64_t lam3,
-                 const int32_t* order, const uint8_t* bp,
-                 const uint8_t* syn, uint8_t* out, uint8_t* consistent,
-                 CsWorkspace& ws) {
+// FULL elimination (no early stop) of the columns in `order`: every
+// non-pivot column's reduced combo is needed by the sweep.  Where `rec_cand`
+// and `rec_cw` are given, pivot k's reduced column and combo (its own bit
+// included) as installed are copied to row k of each: what the pivot does
+// to the tracked residual, which is all a syndrome changes.  Returns the
+// number of non-pivot columns.
+int64_t eliminate_full(const uint64_t* Hcols, int64_t n, int64_t mw,
+                       int64_t pw, const int32_t* order, const uint8_t* bp,
+                       CsWorkspace& ws, uint64_t* rec_cand = nullptr,
+                       uint64_t* rec_cw = nullptr) {
   Rref& rr = ws.rr;
-  rr.reset(Hcols, n, m, mw, pw, bp, syn);
-
-  // FULL elimination (no early stop): every non-pivot column's reduced
-  // combo is needed by the sweep
   int64_t n_np = 0;
   for (int64_t j = 0; j < n; ++j) {
     int32_t col = order[j];
     rr.reduce_candidate(Hcols, col, mw, pw);
     if (any_word(rr.cand.data(), mw)) {
       rr.install_pivot(col, bp[col], mw, pw);
+      if (rec_cand) {
+        std::memcpy(rec_cand + (rr.rank - 1) * mw, rr.cand.data(), mw * 8);
+        std::memcpy(rec_cw + (rr.rank - 1) * pw, rr.cw.data(), pw * 8);
+      }
     } else {
       // non-pivot, in reliability enumeration order; combo = RREF column
       std::memcpy(ws.npw.data() + n_np * pw, rr.cw.data(), pw * 8);
@@ -281,23 +293,40 @@ void osd_cs_lane(const uint64_t* Hcols, int64_t n, int64_t m, int64_t mw,
       ++n_np;
     }
   }
-  int64_t rank = rr.rank;
-  *consistent = any_word(rr.rhs.data(), mw) ? 0 : 1;
+  return n_np;
+}
 
+// The popcounts below are the sweep's whole cost.  On x86-64 the sweep is
+// built twice, with and without the popcnt instruction, and the loader
+// picks the one the CPU runs (an ifunc); elsewhere it is built once,
+// portably.  Integer work either way: the outputs do not depend on it.
+#if defined(__x86_64__) && defined(__GNUC__) && !defined(LDPC_PORTABLE_POPCOUNT)
+#define LDPC_POPCOUNT_CLONES __attribute__((target_clones("popcnt", "default")))
+#else
+#define LDPC_POPCOUNT_CLONES
+#endif
+
+// The combination sweep over an eliminated lane: `y0` is the pivots'
+// solved values (bit b for pivot b), `npw`/`npcol` the n_np non-pivot
+// combos and columns in enumeration order, `d1` n_np scratch entries.
+// Writes the chosen correction to `out`.
+LDPC_POPCOUNT_CLONES
+void cs_sweep(int64_t n, int64_t pw, int64_t lam, int64_t lam3,
+              const uint8_t* bp, int64_t rank, const int32_t* pivcol,
+              const uint64_t* y0, const uint64_t* npw, const int32_t* npcol,
+              int64_t n_np, int64_t* d1, uint8_t* out) {
   // base solution
   std::memcpy(out, bp, n);
   for (int64_t b = 0; b < rank; ++b)
-    out[rr.pivcol[b]] = (rr.acc[b >> 6] >> (b & 63)) & 1;
+    out[pivcol[b]] = (y0[b >> 6] >> (b & 63)) & 1;
 
   // single-flip deltas: delta1(c) = (1 - 2 bp[c])
   //   + popcount(w_c) - 2 popcount(w_c & y0)
-  const uint64_t* y0 = rr.acc.data();
   int64_t best1 = 1ll << 40, j1 = -1;
-  int64_t* d1 = ws.d1.data();
   for (int64_t k = 0; k < n_np; ++k) {
-    const uint64_t* w = ws.npw.data() + k * pw;
+    const uint64_t* w = npw + k * pw;
     int64_t t = popcount_words(w, pw) - 2 * popcount_and(w, y0, pw);
-    d1[k] = (bp[ws.npcol[k]] ? -1 : 1) + t;
+    d1[k] = (bp[npcol[k]] ? -1 : 1) + t;
     if (d1[k] < best1) {
       best1 = d1[k];
       j1 = k;
@@ -310,9 +339,9 @@ void osd_cs_lane(const uint64_t* Hcols, int64_t n, int64_t m, int64_t mw,
   int64_t L = lam < n_np ? lam : n_np;
   int64_t best2 = 1ll << 40, p_i = -1, p_j = -1;
   for (int64_t i = 0; i + 1 < L; ++i) {
-    const uint64_t* wi = ws.npw.data() + i * pw;
+    const uint64_t* wi = npw + i * pw;
     for (int64_t j = i + 1; j < L; ++j) {
-      const uint64_t* wj = ws.npw.data() + j * pw;
+      const uint64_t* wj = npw + j * pw;
       int64_t ov = popcount_and(wi, wj, pw) - 2 * popcount_and3(wi, wj, y0, pw);
       int64_t d = d1[i] + d1[j] - 2 * ov;
       if (d < best2) {
@@ -335,16 +364,16 @@ void osd_cs_lane(const uint64_t* Hcols, int64_t n, int64_t m, int64_t mw,
   if (L3 >= 3) {
     int64_t w0 = popcount_words(y0, pw);
     for (int64_t i = 0; i + 2 < L3; ++i) {
-      const uint64_t* wi = ws.npw.data() + i * pw;
+      const uint64_t* wi = npw + i * pw;
       for (int64_t j = i + 1; j + 1 < L3; ++j) {
-        const uint64_t* wj = ws.npw.data() + j * pw;
-        int64_t sij = (bp[ws.npcol[i]] ? -1 : 1) + (bp[ws.npcol[j]] ? -1 : 1);
+        const uint64_t* wj = npw + j * pw;
+        int64_t sij = (bp[npcol[i]] ? -1 : 1) + (bp[npcol[j]] ? -1 : 1);
         for (int64_t k = j + 1; k < L3; ++k) {
-          const uint64_t* wk = ws.npw.data() + k * pw;
+          const uint64_t* wk = npw + k * pw;
           int64_t pc = 0;
           for (int64_t q = 0; q < pw; ++q)
             pc += __builtin_popcountll(y0[q] ^ wi[q] ^ wj[q] ^ wk[q]);
-          int64_t d = pc - w0 + sij + (bp[ws.npcol[k]] ? -1 : 1);
+          int64_t d = pc - w0 + sij + (bp[npcol[k]] ? -1 : 1);
           if (d < best3) {
             best3 = d;
             t_i = i;
@@ -372,12 +401,24 @@ void osd_cs_lane(const uint64_t* Hcols, int64_t n, int64_t m, int64_t mw,
   }
   for (int64_t k : {c1, c2, c3}) {
     if (k < 0) continue;
-    int32_t col = ws.npcol[k];
-    out[col] ^= 1;
-    const uint64_t* w = ws.npw.data() + k * pw;
+    out[npcol[k]] ^= 1;
+    const uint64_t* w = npw + k * pw;
     for (int64_t b = 0; b < rank; ++b)
-      out[rr.pivcol[b]] ^= (w[b >> 6] >> (b & 63)) & 1;
+      out[pivcol[b]] ^= (w[b >> 6] >> (b & 63)) & 1;
   }
+}
+
+void osd_cs_lane(const uint64_t* Hcols, int64_t n, int64_t m, int64_t mw,
+                 int64_t pw, int64_t lam, int64_t lam3,
+                 const int32_t* order, const uint8_t* bp,
+                 const uint8_t* syn, uint8_t* out, uint8_t* consistent,
+                 CsWorkspace& ws) {
+  Rref& rr = ws.rr;
+  rr.reset(Hcols, n, m, mw, pw, bp, syn);
+  int64_t n_np = eliminate_full(Hcols, n, mw, pw, order, bp, ws);
+  *consistent = any_word(rr.rhs.data(), mw) ? 0 : 1;
+  cs_sweep(n, pw, lam, lam3, bp, rr.rank, rr.pivcol.data(), rr.acc.data(),
+           ws.npw.data(), ws.npcol.data(), n_np, ws.d1.data(), out);
 }
 
 }  // namespace
@@ -390,10 +431,7 @@ void gf2_osd_cs_host(const uint64_t* Hcols, int64_t n, int64_t m,
                      const uint8_t* syn, int64_t B, uint8_t* out,
                      uint8_t* consistent) {
   int64_t pw = (m + 63) / 64;
-  int nt = pick_threads_osd(B);
-  std::vector<std::thread> threads;
-  int64_t chunk = (B + nt - 1) / nt;
-  auto work = [&](int64_t lo, int64_t hi) {
+  run_lanes(B, [&](int64_t lo, int64_t hi) {
     CsWorkspace ws;
     ws.rr.size_for(m, mw, pw);
     ws.npw.resize(n * pw);
@@ -402,18 +440,74 @@ void gf2_osd_cs_host(const uint64_t* Hcols, int64_t n, int64_t m,
     for (int64_t l = lo; l < hi; ++l)
       osd_cs_lane(Hcols, n, m, mw, pw, lam, lam3, order + l * n, bp + l * n,
                   syn + l * m, out + l * n, consistent + l, ws);
-  };
-  if (nt <= 1) {
-    work(0, B);
-    return;
-  }
-  for (int t = 0; t < nt; ++t) {
-    int64_t lo = t * chunk;
-    int64_t hi = lo + chunk < B ? lo + chunk : B;
-    if (lo >= hi) break;
-    threads.emplace_back(work, lo, hi);
-  }
-  for (auto& th : threads) th.join();
+  });
+}
+
+// ------------------------------------------------- OSD-CS in a shared order
+//
+// A candidate whose column order and hard decisions (bp = 0) every lane
+// shares has one elimination for all lanes: the pivots, the basis and the
+// non-pivot combos depend on Hcols and the order alone.  A syndrome only
+// moves the tracked residual, linearly: at pivot k, if the residual holds
+// bit prow[k], it takes cand_k and the solution takes cw_k.  So
+// gf2_osd_cs_prepare eliminates once and records that, and
+// gf2_osd_cs_prepared_host replays the record on each lane's syndrome,
+// then sweeps as gf2_osd_cs_host does (same outputs, bitwise).
+//   prepare: order [n] i32; outputs prow [m] i64, cand [m, mw] u64,
+//     cw [m, pw] u64, pivcol [m] i32 (first `rank` rows), npw [n, pw] u64,
+//     npcol [n] i32 (first n - rank rows); returns rank.
+
+int64_t gf2_osd_cs_prepare(const uint64_t* Hcols, int64_t n, int64_t m,
+                           int64_t mw, const int32_t* order, int64_t* prow,
+                           uint64_t* cand, uint64_t* cw, int32_t* pivcol,
+                           uint64_t* npw, int32_t* npcol) {
+  int64_t pw = (m + 63) / 64;
+  CsWorkspace ws;
+  ws.rr.size_for(m, mw, pw);
+  ws.npw.resize(n * pw);
+  ws.npcol.resize(n);
+  std::vector<uint8_t> zeros(n > m ? n : m, 0);
+  ws.rr.reset(Hcols, n, m, mw, pw, zeros.data(), zeros.data());
+  int64_t n_np = eliminate_full(Hcols, n, mw, pw, order, zeros.data(), ws,
+                                cand, cw);
+  int64_t rank = ws.rr.rank;
+  std::memcpy(prow, ws.rr.prow.data(), rank * 8);
+  std::memcpy(pivcol, ws.rr.pivcol.data(), rank * 4);
+  std::memcpy(npw, ws.npw.data(), n_np * pw * 8);
+  std::memcpy(npcol, ws.npcol.data(), n_np * 4);
+  return rank;
+}
+
+void gf2_osd_cs_prepared_host(int64_t n, int64_t m, int64_t mw, int64_t lam,
+                              int64_t lam3, int64_t rank,
+                              const int64_t* prow, const uint64_t* cand,
+                              const uint64_t* cw, const int32_t* pivcol,
+                              const uint64_t* npw, const int32_t* npcol,
+                              const uint8_t* syn, int64_t B, uint8_t* out,
+                              uint8_t* consistent) {
+  int64_t pw = (m + 63) / 64;
+  int64_t n_np = n - rank;
+  run_lanes(B, [&](int64_t lo, int64_t hi) {
+    std::vector<uint64_t> rhs(mw), acc(pw);
+    std::vector<int64_t> d1(n_np);
+    std::vector<uint8_t> zeros(n, 0);
+    for (int64_t l = lo; l < hi; ++l) {
+      const uint8_t* s = syn + l * m;
+      std::memset(rhs.data(), 0, mw * 8);
+      std::memset(acc.data(), 0, pw * 8);
+      for (int64_t r = 0; r < m; ++r)
+        if (s[r]) rhs[r >> 6] ^= 1ull << (r & 63);
+      for (int64_t k = 0; k < rank; ++k) {
+        if (rhs[prow[k] >> 6] >> (prow[k] & 63) & 1) {
+          xor_words(rhs.data(), cand + k * mw, mw);
+          xor_words(acc.data(), cw + k * pw, pw);
+        }
+      }
+      consistent[l] = any_word(rhs.data(), mw) ? 0 : 1;
+      cs_sweep(n, pw, lam, lam3, zeros.data(), rank, pivcol, acc.data(), npw,
+               npcol, n_np, d1.data(), out + l * n);
+    }
+  });
 }
 
 }  // extern "C"

@@ -9,8 +9,15 @@ same column order, which is how the host route of the decoders stands in
 for the elimination kernels.
 """
 
+import ctypes
+import functools
+import pathlib
+import re
+import subprocess
+
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import ldpcdecoders_tpu.native as ref_native
@@ -36,9 +43,21 @@ def test_library_builds_beside_the_package():
     assert path.parent.parent.name == "ldpcdecoders_tpu_torch"
     assert sorted(p.name for p in native._SRCS) == [
         "gf2_host.cpp", "gf2_osd.cpp", "graph_compiler.cpp"]
-    for src in native._SRCS:  # the reference's C++, comments aside
+    for src in native._SRCS:
         ref_src = ref_native._SRCS[[p.endswith(src.name) for p in ref_native._SRCS].index(True)]
-        assert code_of(src.read_text()) == code_of(open(ref_src).read())
+        port, ref = src.read_text(), open(ref_src).read()
+        if src.name == "gf2_osd.cpp":
+            # the port adds the shared-order OSD-CS and the sweep's popcount
+            # clones; the reference's entry points stay, held bitwise below
+            assert set(entry_points(ref)) < set(entry_points(port))
+        else:  # the reference's C++, comments aside
+            assert code_of(port) == code_of(ref)
+
+
+def entry_points(cpp: str) -> list[str]:
+    """The names of a C++ source's ``extern "C"`` functions."""
+    blocks = re.findall(r'extern "C" \{(.*?)\n\}  // extern "C"', cpp, re.S)
+    return [name for b in blocks for name in re.findall(r"^\w[\w\s*]* (\w+)\(", b, re.M)]
 
 
 def code_of(cpp: str) -> list[str]:
@@ -146,3 +165,95 @@ def test_host_osd_validation_matches_reference():
     for mod in (native, ref_native):
         with pytest.raises(ValueError, match="lam and lam3"):
             mod.gf2_osd_cs_host(Hc, 10, -1, order, bp, syn)
+
+
+BB144 = pathlib.Path(__file__).parents[1] / "portbench" / "data" / "bb144_r6_p0.003.npz"
+
+
+@functools.lru_cache(maxsize=None)
+def shared_order_inputs(case):
+    """A system (sparse), the channel-prior-like column order every lane
+    shares, and syndromes: from sparse errors (in span) and, the last
+    three, uniform (out of span where the rank is deficient)."""
+    rng = np.random.default_rng(len(case))
+    if case == "bb144":
+        d = np.load(BB144)
+        H = sp.csr_matrix((d["data"], d["indices"], d["indptr"]), shape=tuple(d["shape"]))
+        pr = d["priors"]
+        order = np.argsort(-np.log((1 - pr) / pr), kind="stable").astype(np.int32)
+        x = rng.random((16, H.shape[1])) < 3 * pr
+    else:
+        m, n = (24, 70) if case == "full_rank" else (40, 90)
+        H = random_H(rng, m, n, 0.12)
+        if case == "deficient":
+            H[20:] = H[:20] ^ H[1:21]  # rank at most 21
+        H = sp.csr_matrix(H)
+        order = rng.permutation(n).astype(np.int32)
+        x = rng.random((12, n)) < 0.1
+    syn = syndromes(H, x)
+    syn[-3:] = rng.random((3, H.shape[0])) < 0.5
+    return H, native.gf2_pack_cols(H.toarray()), order, syn
+
+
+def syndromes(H, x):
+    return ((H @ x.T.astype(np.int64)).T % 2).astype(np.uint8)
+
+
+@pytest.mark.parametrize("case,lam,lam3", [
+    *((c, lam, lam3) for c in ("full_rank", "deficient") for lam in (0, 5, 40) for lam3 in (0, 4)),
+    ("bb144", 40, 0), ("bb144", 5, 4)])
+def test_osd_cs_prepared_matches_full_elimination(case, lam, lam3):
+    """The shared-order OSD-CS (one elimination, replayed per syndrome) is
+    bitwise the per-lane OSD-CS given that order on every lane and bp = 0."""
+    H, Hc, order, syn = shared_order_inputs(case)
+    m, n = H.shape
+    state = native.gf2_osd_cs_prepare(Hc, m, order)
+    out, cons = native.gf2_osd_cs_prepared_host(state, lam, syn, lam3=lam3)
+    lanes = (np.broadcast_to(order, (len(syn), n)), np.zeros((len(syn), n), np.uint8), syn)
+    want, wcons = native.gf2_osd_cs_host(Hc, m, lam, *lanes, lam3=lam3)
+    assert np.array_equal(out, want) and np.array_equal(cons, wcons)
+    if case != "bb144":
+        ref, rcons = ref_native.gf2_osd_cs_host(Hc, m, lam, *lanes, lam3=lam3)
+        assert np.array_equal(out, ref) and np.array_equal(cons, rcons)
+    rank = len(state.prow)
+    assert state.npw.shape == (n - rank, (m + 63) // 64)
+    assert cons[:-3].all()  # sparse errors: in span
+    if case == "deficient":
+        assert rank < m and not cons.all()
+    if case == "full_rank":
+        assert rank == m and cons.all()
+    # consistent lanes satisfy their syndrome
+    assert np.array_equal(syndromes(H, out[cons]), syn[cons])
+
+
+def test_osd_cs_prepared_state_is_the_orders_alone():
+    """Preparing twice gives equal arrays, and solving leaves them as they
+    were: the state holds nothing of a syndrome."""
+    H, Hc, order, syn = shared_order_inputs("deficient")
+    a = native.gf2_osd_cs_prepare(Hc, H.shape[0], order)
+    b = native.gf2_osd_cs_prepare(Hc, H.shape[0], order)
+    fields = ("prow", "cand", "cw", "pivcol", "npw", "npcol")
+    kept = [getattr(a, f).copy() for f in fields]
+    native.gf2_osd_cs_prepared_host(a, 40, syn, lam3=4)
+    for f, k in zip(fields, kept):
+        assert np.array_equal(getattr(a, f), getattr(b, f)) and np.array_equal(getattr(a, f), k)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        native.gf2_osd_cs_prepared_host(a, 4, syn[:, :-1])
+    with pytest.raises(ValueError, match="lam and lam3"):
+        native.gf2_osd_cs_prepared_host(a, -1, syn)
+
+
+def test_portable_popcount_build_matches(tmp_path):
+    """The build a host without the popcount instruction runs (the sweep's
+    portable code, as on a non-x86 host) loads and gives the same outputs."""
+    so = tmp_path / "portable.so"
+    subprocess.run(["g++", *native._FLAGS, "-DLDPC_PORTABLE_POPCOUNT", "-o", str(so),
+                    *map(str, native._SRCS)], check=True, capture_output=True, timeout=300)
+    portable = native._bind(ctypes.CDLL(str(so)))
+    H, order, bp, syn = osd_inputs(21, 6, 24, 70, 0.15)
+    Hc = native.gf2_pack_cols(H)
+    want = native.gf2_osd_cs_host(Hc, 24, 12, order, bp, syn, lam3=6)
+    out, cons = np.empty_like(want[0]), np.empty(6, np.uint8)
+    portable.gf2_osd_cs_host(Hc.ctypes.data, 70, 24, 1, 12, 6, order.ctypes.data, bp.ctypes.data,
+                             syn.ctypes.data, 6, out.ctypes.data, cons.ctypes.data)
+    assert np.array_equal(out, want[0]) and np.array_equal(cons.astype(bool), want[1])

@@ -228,3 +228,104 @@ def test_batch_and_bucket_ceilings_follow_the_memory_model(monkeypatch):
     big = pt.StagedDemDecoder(A, pr, hbm_bytes=80_000_000_000, device="cpu", **kw)
     for a, b in zip(small.batch_decode_detailed(det)[:3], big.batch_decode_detailed(det)[:3]):
         assert np.array_equal(a, b)
+
+
+def osd_pick_oracle(sd, syn_np, bp_np, order_np, llr0_np):
+    """``_host_osd_pick`` as it was before the posterior-free candidate's
+    elimination was shared: every candidate through ``gf2_osd_cs_host``."""
+    from ldpcdecoders_tpu_torch.native import gf2_osd_cs_host
+
+    K, nf, _ = bp_np.shape
+    prior_order = np.argsort(-np.abs(llr0_np), kind="stable").astype(np.int32)
+    bp_ext = np.concatenate([bp_np, np.zeros((1, nf, sd.N), np.uint8)])
+    order_ext = np.concatenate(
+        [order_np, np.broadcast_to(prior_order, (1, nf, sd.N))]).astype(np.int32)
+    outs = np.empty((K + 1, nf, sd.N), np.uint8)
+    cons = np.empty((K + 1, nf), bool)
+    for k in range(K + 1):
+        outs[k], cons[k] = gf2_osd_cs_host(sd._Hcols, sd.D, sd.lam, order_ext[k], bp_ext[k],
+                                           syn_np, lam3=sd.lam3)
+    score = outs.astype(np.float32) @ llr0_np
+    score[~cons] = np.inf
+    pick = np.argmin(score, axis=0)
+    pick[~cons.any(axis=0)] = 0
+    return outs[pick, np.arange(nf)], cons.any(axis=0)
+
+
+def osd_pick_inputs(sd, A, pr, nf, seed):
+    """Stage 2's inputs for ``nf`` lanes: syndromes (the last two uniform),
+    members' hard decisions and reliability orders."""
+    rng = np.random.default_rng(seed)
+    syn = records(A, pr, nf, seed, 20.0)
+    syn[-2:] = rng.random((2, sd.D)) < 0.5
+    bp = (rng.random((sd.K, nf, sd.N)) < 0.02).astype(np.uint8)
+    order = np.stack([[rng.permutation(sd.N) for _ in range(nf)]
+                      for _ in range(sd.K)]).astype(np.int32)
+    return syn, bp, order
+
+
+@pytest.mark.parametrize("gammas", [(0.3,), (0.3, 0.5)])
+def test_host_osd_pick_matches_every_candidate_eliminated(gammas):
+    """Stage 2 with the posterior-free candidate's elimination made once
+    per channel prior: the outputs of the per-lane eliminations, bitwise,
+    for the default priors and a ``per=`` override (a second order), and
+    the counters split ``osd_candidates``."""
+    from ldpcdecoders_tpu_torch.utils import profiling
+
+    A, pr, O = _small_dem(3)
+    sd = pt.StagedDemDecoder(A, pr, observables=O, gammas=gammas, stage0_iters=8,
+                             deep_iters=16, lam=12, lam3=5, device="cpu")
+    syn, bp, order = osd_pick_inputs(sd, A, pr, 10, 4)
+    with profiling.recording() as rec:
+        for per in (None, 0.004, None):
+            llr0_np = sd._channel(per)[1]
+            got = sd._host_osd_pick(syn, bp, order, llr0_np)
+            want = osd_pick_oracle(sd, syn, bp, order, llr0_np)
+            assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert len(sd._osd_states) == 2
+    c = rec.counters
+    assert c["osd_lanes"] == 30 and c["osd_fixed_order_lanes"] == 30
+    assert c["osd_full_eliminations"] == 30 * sd.K
+    assert c["osd_fixed_order_lanes"] + c["osd_full_eliminations"] == c["osd_candidates"]
+
+
+def test_host_osd_pick_from_worker_threads(monkeypatch):
+    """run_eval calls stage 2 from a worker thread: calls there beside one
+    on the main thread, all racing to build the shared elimination (more
+    threads than cores, a short switch interval), give the same outputs,
+    and the elimination is made once."""
+    import os
+    import sys
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ldpcdecoders_tpu_torch import native
+
+    prepared = []
+
+    def slow_prepare(*a, _prepare=native.gf2_osd_cs_prepare):
+        prepared.append(1)
+        time.sleep(0.05)  # widens the window in which another call could build it too
+        return _prepare(*a)
+
+    monkeypatch.setattr(native, "gf2_osd_cs_prepare", slow_prepare)
+
+    A, pr, O = _small_dem(3)
+    sd = pt.StagedDemDecoder(A, pr, observables=O, gammas=(0.3, 0.5), stage0_iters=8,
+                             deep_iters=16, lam=12, device="cpu")
+    syn, bp, order = osd_pick_inputs(sd, A, pr, 12, 5)
+    want = osd_pick_oracle(sd, syn, bp, order, sd._llr0)
+    workers = (os.cpu_count() or 4) + 4
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(workers) as pool:
+            futs = [pool.submit(sd._host_osd_pick, syn, bp, order, sd._llr0)
+                    for _ in range(workers)]
+            here = sd._host_osd_pick(syn, bp, order, sd._llr0)
+            there = [f.result(timeout=120) for f in futs]
+    finally:
+        sys.setswitchinterval(interval)
+    for got in (here, *there):
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert len(prepared) == 1 and len(sd._osd_states) == 1
