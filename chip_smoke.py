@@ -32,10 +32,9 @@ public decoder API on ``cuda:0`` and prints, in order:
      two eliminations' device-memory body, which takes a lane past a block
      (the launcher finds no panel), against the plain forms at the (2400, 6,
      3) code's [75, 1200] lane (256 lanes) and the bb144 R=6 DEM's
-     [989, 864] (16 lanes), with its bound from the plain forms' work; since
-     the cluster body took the route (a cluster of CTAs a lane, panels of 32
-     columns), the first such body (``_body="v1"``) timed in turns with it
-     and each cluster size (2, 4, 8), bitwise;
+     [989, 864] (16 lanes), with its bound from the plain forms' work, and
+     the cluster body (a cluster of CTAs a lane, panels of 32 columns) timed
+     at each cluster size (2, 4, 8), bitwise;
   4. the main paths, each one with every launch count set to 0 just before
      it and read just after it, and failing if a kernel of that path was
      never launched: (a), (b) BP+OSD-0 at per 0.01 and 0.2, (c) BP+OSD-2 at
@@ -382,8 +381,8 @@ def global_body_cases(torch, pt, dev, dem_graph, dem_pr):
     integer rate, or the bytes, whichever is larger; the plain forms count
     that work on their first call.  Returns the cases and, for
     :func:`global_body_turns`, ``(kernel, label, osd0, lanes, m, call)``
-    with ``call(**kw)`` the wrapper with private arguments (``_body``,
-    ``_cluster``)."""
+    with ``call(**kw)`` the wrapper with private arguments (``_cluster``,
+    ``_lib``)."""
     from ldpcdecoders_tpu_torch.models.bposd import OSD
     from ldpcdecoders_tpu_torch.ops import cuda_gf2, gf2
 
@@ -459,41 +458,29 @@ def global_body_cases(torch, pt, dev, dem_graph, dem_pr):
 
 
 def global_body_turns(torch, cuda_gf2, turns, kernels, card, clock_lib=None):
-    """The device-memory body against the first one (``_body="v1"``), timed
-    in turns on the card (body, first, first, body: means of 3 launches
-    each), and at each cluster size (2, 4, 8 CTAs a lane); every result
-    bitwise the launcher's choice.  The times go into the kernels line as
-    the variant's ``v1_ms`` and ``by_cluster_ms``.  With ``clock_lib`` (the
-    build with ``-DLDPC_GF2_PHASE_CLOCKS``; ``--profile``) lane 0's SM
+    """The device-memory body at each cluster size (2, 4, 8 CTAs a lane),
+    timed on the card (means of 3 launches each), every result bitwise the
+    launcher's choice.  The times go into the kernels line as the variant's
+    ``by_cluster_ms``.  With ``clock_lib``
+    (the build with ``-DLDPC_GF2_PHASE_CLOCKS``; ``--profile``) lane 0's SM
     clocks by phase at the launcher's cluster: the leader's word in, trips,
     codes and waits at the cluster barrier, rank 1's pass and waits."""
     for key, label, osd0, lanes, m, call in turns:
         want = call()
         plan = cuda_gf2.cluster_plan(lanes, m, osd0=osd0)
-        errs = {}
-        for name, kw in (("v1", dict(_body="v1")), ("2", dict(_cluster=2)),
-                         ("4", dict(_cluster=4)), ("8", dict(_cluster=8))):
-            errs[name] = max_abs_err(torch, call(**kw), want)
-        ms_a = event_ms(torch, call, 3)
-        v1_a = event_ms(torch, lambda: call(_body="v1"), 3)
-        v1_b = event_ms(torch, lambda: call(_body="v1"), 3)
-        ms_b = event_ms(torch, call, 3)
+        errs = {str(c): max_abs_err(torch, call(_cluster=c), want) for c in (2, 4, 8)}
         by_cluster = {str(c): event_ms(torch, lambda c=c: call(_cluster=c), 3) for c in (2, 4, 8)}
-        body, first = (ms_a + ms_b) / 2, (v1_a + v1_b) / 2
-        print(f"kernel {key} {label} against the first device-memory body, in turns: "
-              f"{ms_a:.3f} / {v1_a:.3f} / {v1_b:.3f} / {ms_b:.3f} ms (body / first / first / "
-              f"body; {first / body:.1f}x), max_abs_err against the first body and clusters "
-              f"of 2, 4, 8: {errs} (bitwise required) | the launcher's cluster: {plan.size} CTAs "
-              f"of {plan.bytes} B shared memory ({plan.active} such clusters fit the card) | "
-              f"by cluster size: "
+        print(f"kernel {key} {label} by cluster size: max_abs_err against the launcher's choice "
+              f"of clusters of 2, 4, 8: {errs} (bitwise required) | the launcher's cluster: "
+              f"{plan.size} CTAs of {plan.bytes} B shared memory ({plan.active} such clusters "
+              f"fit the card) | by cluster size: "
               + ", ".join(f"{c}: {t:.3f} ms" for c, t in by_cluster.items())
               + f" | B={lanes} | {card}")
         if any(errs.values()):
-            raise AssertionError(f"{key} {label}: the bodies or cluster sizes differ")
+            raise AssertionError(f"{key} {label}: the cluster sizes differ")
         entry = kernels[key]["variants"].get(label, kernels[key])  # the first case: the entry
-        entry.update(turns_ms=[ms_a, v1_a, v1_b, ms_b], v1_ms=first, cluster=plan.size,
-                     cluster_smem_bytes=plan.bytes, active_clusters=plan.active,
-                     by_cluster_ms=by_cluster, max_abs_err_v1=errs["v1"])
+        entry.update(cluster=plan.size, cluster_smem_bytes=plan.bytes,
+                     active_clusters=plan.active, by_cluster_ms=by_cluster)
         if clock_lib is not None:
             if max_abs_err(torch, call(_lib=clock_lib), want) != 0:
                 raise AssertionError(f"{key} {label}: the build with phase clocks differs")
@@ -1112,7 +1099,7 @@ def an_child(rank: int, tmp: str) -> int:
     out["multihost"] = sweep.multihost
     out["sweep"] = {str(p): {k: v for k, v in r.items() if k != "throughput_syndromes_per_s"}
                     for p, r in res.items()}
-    out["sweep_launches"] = read_counts(wrappers, routed, "an")
+    out["sweep_launches"] = read_counts(wrappers, routed)
     stop = FERSweep(H, factory, pers, batch=batch, seed=0).run(
         trials_per_point=trials, max_seconds=1e9 if rank == 0 else 0.0)
     out["stopped_trials"] = [r["trials"] for r in stop.values()]
@@ -1123,7 +1110,7 @@ def an_child(rank: int, tmp: str) -> int:
     t0 = time.perf_counter()
     e, c, i = fn(syn)
     out["check_s"] = time.perf_counter() - t0
-    out["check_launches"] = read_counts(wrappers, routed, "an")
+    out["check_launches"] = read_counts(wrappers, routed)
     np.savez(os.path.join(tmp, f"out{rank}.npz"), err=e, conv=c, iters=i)
     Path(tmp, f"out{rank}.json").write_text(json.dumps(out))
     dist.destroy_process_group()
@@ -1554,7 +1541,7 @@ def zero_counts(wrappers, routed):
             w.routes.update(dict.fromkeys(w.routes, 0))
 
 
-def read_counts(wrappers, routed, path):
+def read_counts(wrappers, routed):
     """Each kernel's launches since :func:`zero_counts`; K1/K2 and K5 also
     by body, K3/K4 also those on lane tiles (``<kernel>_tiled``)."""
     counts = {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
@@ -1563,8 +1550,6 @@ def read_counts(wrappers, routed, path):
     for k, w in routed.items():
         counts[k] = w.routes["shared"]
         counts[f"{k}_global"] = w.routes["global"]
-        if w.routes["global_v1"]:
-            raise AssertionError(f"main ({path}) took the first device-memory body")
     for body, n in wrappers["qc_minsum"][0].routes.items():
         counts[f"qc_minsum_{body}"] = n
     return counts
@@ -2422,7 +2407,7 @@ def main() -> int:
         read just after it; a kernel of ``expect`` never launched fails."""
         zero_counts(wrappers, routed)
         out = fn()
-        counts = read_counts(wrappers, routed, path)
+        counts = read_counts(wrappers, routed)
         drive.last_routes = {k: dict(w.routes) for k, w in routed.items()}
         for k in expect:
             if counts[k] == 0:

@@ -95,10 +95,6 @@ def load_library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.ldpc_gf2_eliminate.restype = i32
     lib.ldpc_gf2_osd0.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
     lib.ldpc_gf2_osd0.restype = i32
-    lib.ldpc_gf2_eliminate_global.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
-    lib.ldpc_gf2_eliminate_global.restype = i32
-    lib.ldpc_gf2_osd0_global.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
-    lib.ldpc_gf2_osd0_global.restype = i32
     lib.ldpc_gf2_eliminate_cluster.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
     lib.ldpc_gf2_eliminate_cluster.restype = i32
     lib.ldpc_gf2_osd0_cluster.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]

@@ -1146,145 +1146,6 @@ cudaError_t launch_cluster(const void* ht_in, const void* s_in, const void* bp, 
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// gf2_global_kernel: the first device-memory body, one block a lane and the
-// plain forms' trips one by one in device memory; no route takes it (the
-// wrappers reach it with _body="v1", for comparison).  Shared memory keeps
-// one state word per row (pivot column, sentinel n; syndrome bit) and the
-// list of the rows with the trip's bit.  A trip is
-//   (a) a scan of word j/32 of every row: a key (row << 1 | syndrome bit)
-//       for the unused rows with the bit, the least per warp, and the rows
-//       with the bit appended to the list (a warp ballot, one shared atomic
-//       per warp: rows stay in runs of 32); one block barrier;
-//   (b) the pivot k, the least key; every listed row but k XORs row k into
-//       itself over the words [j/32, W), the (word, listed row) pairs
-//       spread over all threads, a warp on consecutive list entries of one
-//       word: coalesced while the rows are in runs; one block barrier.
-// The words before j/32 are zero in row k (the argument above).  Its trips
-// run in series, each a device-memory pass over one word of every row and
-// the listed rows' words, behind two barriers: latency, at one lane per SM.
-template <bool OSD0>
-__global__ void __launch_bounds__(1024, 1)
-gf2_global_kernel(const uint32_t* __restrict__ ht_in, const uint32_t* __restrict__ s_in,
-                  const int32_t* __restrict__ bp, uint32_t* __restrict__ work,
-                  uint32_t* __restrict__ s_out, int32_t* __restrict__ piv_out,
-                  int32_t* __restrict__ corr, int W, int m, int n) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nthreads = blockDim.x, nwarps = nthreads >> 5;
-  uint32_t* state = smem;                             // [m] pivot column | syndrome bit << 31
-  int* rows = reinterpret_cast<int*>(smem + round4(m));  // [m] the rows with the trip's bit
-  uint32_t* slot_key = smem + 2 * round4(m);          // [32] least candidate key per warp
-  uint32_t* slot_rem = slot_key + 32;                 // [32] OSD-0: residual left, per warp
-  int* count = reinterpret_cast<int*>(slot_rem + 32);  // [2] rows listed, by trip parity
-  const size_t lane_off = (size_t)blockIdx.x * W * m;
-  const size_t col_off = (size_t)blockIdx.x * n;
-  uint32_t* ht = work + lane_off;
-  for (size_t e = tid; e < (size_t)W * m; e += nthreads) ht[e] = ht_in[lane_off + e];
-  for (int i = tid; i < m; i += nthreads)
-    state[i] = (uint32_t)n | ((s_in[(size_t)blockIdx.x * m + i] & 1u) << kSynShift);
-  if (tid < 2) count[tid] = 0;
-  __syncthreads();
-
-  int rank = 0;  // identical in every thread
-  for (int j = 0; j < n && (OSD0 || rank < m); ++j) {
-    const int wd = j >> 5, bit = j & 31;
-    const uint32_t* colw = ht + (size_t)wd * m;
-    int* cnt = count + (j & 1);
-    // (a) scan
-    uint32_t best = kNoKey;
-    bool rem = false;
-    for (int i0 = 0; i0 < m; i0 += nthreads) {
-      const int i = i0 + tid;
-      const uint32_t sv = i < m ? state[i] : 0u;
-      const bool has = i < m && ((colw[i] >> bit) & 1u);
-      const bool unused = i < m && (sv & kPivMask) == (uint32_t)n;
-      if (OSD0) rem |= unused && (sv >> kSynShift);
-      if (has && unused) best = min(best, ((uint32_t)i << 1) | (sv >> kSynShift));
-      const unsigned ballot = __ballot_sync(kFull, has);
-      if (ballot) {
-        int base = 0;
-        if (lane == 0) base = atomicAdd(cnt, __popc(ballot));
-        base = __shfl_sync(kFull, base, 0);
-        if (has) rows[base + __popc(ballot & ((1u << lane) - 1u))] = i;
-      }
-    }
-    best = __reduce_min_sync(kFull, best);
-    const bool wrem = __any_sync(kFull, rem);
-    if (lane == 0) {
-      slot_key[warp] = best;
-      slot_rem[warp] = wrem;
-    }
-    __syncthreads();
-    if (OSD0 && !__any_sync(kFull, lane < nwarps && slot_rem[lane])) break;  // uniform
-    const uint32_t key = __reduce_min_sync(kFull, lane < nwarps ? slot_key[lane] : kNoKey);
-    // the next trip's count was last read before this trip's first barrier
-    if (tid == 0) count[(j + 1) & 1] = 0;
-    // (b) the pivot's row into the listed rows
-    if (key != kNoKey) {
-      const int k = (int)(key >> 1);
-      const uint32_t sk = key & 1u;
-      const int c = *cnt;  // k is listed
-      const int dw = nthreads / c, dr = nthreads % c;
-      int w = wd + tid / c, r = tid % c;
-      const uint32_t* piv_row = ht + k;
-      while (w < W) {
-        const int i = rows[r];
-        if (i != k) ht[(size_t)w * m + i] ^= piv_row[(size_t)w * m];
-        w += dw, r += dr;
-        if (r >= c) r -= c, ++w;
-      }
-      for (int q = tid; q < c; q += nthreads) {
-        const int i = rows[q];
-        if (i == k) {
-          const uint32_t fold = OSD0 ? (uint32_t)(bp[col_off + j] != 0) << kSynShift : 0u;
-          state[i] = ((state[i] & ~kPivMask) | (uint32_t)j) ^ fold;
-        } else {
-          state[i] ^= sk << kSynShift;
-        }
-      }
-      ++rank;
-    }
-    __syncthreads();
-  }
-
-  if (OSD0) {
-    for (int c = tid; c < n; c += nthreads) corr[col_off + c] = bp[col_off + c];
-    __syncthreads();
-    for (int i = tid; i < m; i += nthreads) {
-      const uint32_t piv = state[i] & kPivMask;
-      if (piv < (uint32_t)n) corr[col_off + piv] = (int32_t)(state[i] >> kSynShift);
-    }
-  } else {
-    for (int i = tid; i < m; i += nthreads) {
-      s_out[(size_t)blockIdx.x * m + i] = state[i] >> kSynShift;
-      piv_out[(size_t)blockIdx.x * m + i] = (int32_t)(state[i] & kPivMask);
-    }
-  }
-}
-
-// Shared memory of gf2_global_kernel: the state and the row list, m words
-// each, rounded to 4; the warps' slots; the two counts.
-size_t global_smem_bytes(int m) { return 4 * (2 * (size_t)round4(m) + 64 + 4); }
-
-template <bool OSD0>
-cudaError_t launch_global(const void* ht_in, const void* s_in, const void* bp, void* work,
-                          void* s_out, void* piv_out, void* corr, int B, int W, int m, int n,
-                          void* stream) {
-  if ((uint32_t)n > kPivMask || m < 1 || W != (n + 31) / 32) return cudaErrorInvalidValue;
-  const size_t bytes = global_smem_bytes(m);
-  if (bytes > kMaxSmemBytes) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(gf2_global_kernel<OSD0>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  gf2_global_kernel<OSD0><<<B, block_threads(m), bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(ht_in), static_cast<const uint32_t*>(s_in),
-      static_cast<const int32_t*>(bp), static_cast<uint32_t*>(work),
-      static_cast<uint32_t*>(s_out), static_cast<int32_t*>(piv_out),
-      static_cast<int32_t*>(corr), W, m, n);
-  return cudaGetLastError();
-}
-
 struct Plan {
   int panel;     // 0: the lane does not fit
   bool pad;      // row stride padded against bank conflicts
@@ -1406,20 +1267,6 @@ int ldpc_gf2_cluster_plan(int B, int m, int osd0, int* out) {
   if (err != cudaSuccess) return (int)err;
   out[0] = osd0 ? pick_cluster<true>(B, bytes, &out[2]) : pick_cluster<false>(B, bytes, &out[2]);
   return out[0] == 0 ? (int)cudaGetLastError() : 0;
-}
-
-// The first device-memory body (one block a lane), for comparison only:
-// the elimination works in ht_out; OSD-0 in `work`, B lanes of W * m words.
-int ldpc_gf2_eliminate_global(const void* ht_in, const void* s_in, void* ht_out, void* s_out,
-                              void* piv_out, int B, int W, int m, int n, void* stream) {
-  return launch_global<false>(ht_in, s_in, nullptr, ht_out, s_out, piv_out, nullptr, B, W, m,
-                              n, stream);
-}
-
-int ldpc_gf2_osd0_global(const void* ht_in, const void* resid, const void* bp, void* corr,
-                         void* work, int B, int W, int m, int n, void* stream) {
-  return launch_global<true>(ht_in, resid, bp, work, nullptr, nullptr, corr, B, W, m, n,
-                             stream);
 }
 
 // What the launcher takes for a [W, m] lane: out[0] the panel width (0: the

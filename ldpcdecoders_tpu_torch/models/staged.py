@@ -381,19 +381,26 @@ class StagedDemDecoder(Decoder):
 
     # -- Decoder contract ----------------------------------------------------
 
-    def _decode_batch(self, syndromes, seed: int = 0, per=None):
-        B = syndromes.shape[0]
-        # the largest batch one stage-0 decode carries (utils/hbm.py);
-        # bigger inputs decode in chunks
-        cap = self._max_stage0_batch
-        if B > cap:
-            parts = [self._decode_batch(syndromes[lo:lo + cap], seed, per)[:3]
-                     for lo in range(0, B, cap)]
-            return (*(torch.cat(p) for p in zip(*parts)), {})
+    def _decode_batch(self, syndromes, seed: int = 0, per=None, stage0=None):
+        """The stages in order.  ``stage0(syndromes, L0)`` replaces
+        :meth:`_run_stage0` as the step that gives ``(err0, conv0, it0)``
+        for the whole batch (``parallel/staged.py`` runs it on a rank's
+        slice and gathers); the tail then runs once on the whole batch."""
         with span("ldpc.staged.stage0"):
             L0, llr0_np, llr0_d = self._channel(per)
-            err0, conv0, it0, _ = self.stage0(syndromes, L0)
+            err0, conv0, it0 = (stage0 or self._run_stage0)(syndromes, L0)
         return self._post_stage0(syndromes, err0, conv0, it0, L0, llr0_np, llr0_d)
+
+    def _run_stage0(self, syndromes, L0):
+        """Stage 0 on a batch of any size: ``(err0, conv0, it0)``.  A batch
+        past ``_max_stage0_batch``, the largest one stage-0 decode carries
+        (utils/hbm.py), decodes in chunks of that size; lanes decode
+        independently, so the chunks give the bits of one decode."""
+        B, cap = syndromes.shape[0], self._max_stage0_batch
+        if B <= cap:
+            return self.stage0(syndromes, L0)[:3]
+        parts = [self.stage0(syndromes[lo:lo + cap], L0)[:3] for lo in range(0, B, cap)]
+        return tuple(torch.cat(p) for p in zip(*parts))
 
     def _channel(self, per=None):
         """Channel LLRs for a decode call: ``(L0 device, llr0 numpy, llr0

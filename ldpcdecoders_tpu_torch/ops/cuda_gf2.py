@@ -35,10 +35,7 @@ own, allocated per chunk of lanes under ``utils/hbm.py``'s budget) and a
 thread-block cluster takes each lane by panels of 32 columns: one CTA makes
 a panel's trips on bit slices in its shared memory, the others apply the
 panel to the later words through XOR tables.  :func:`cluster_plan` asks the
-built library for its cluster size.  The first device-memory body, one
-block a lane and the plain forms' trips one by one in device memory
-(``gf2_global_kernel``), stays reachable through ``_body="v1"`` for
-comparison; no route takes it.  :func:`route` names the body a shape
+built library for its cluster size.  :func:`route` names the body a shape
 takes; ``<wrapper>.routes`` counts the launches of each body.
 """
 
@@ -177,12 +174,6 @@ def global_smem_bytes(m: int) -> int:
     return 4 * max(leader, applier)
 
 
-def _v1_smem_bytes(m: int) -> int:
-    """Shared memory of the first device-memory body: a state word and a
-    list entry per row, 64 words of warp slots and two counts."""
-    return 4 * (2 * _round4(m) + 64 + 4)
-
-
 class ClusterPlan(NamedTuple):
     """What the launcher of the device-memory body takes for B lanes."""
 
@@ -234,7 +225,7 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _prepare(Ht, n, osd0, panel, lib, body, cluster):
+def _prepare(Ht, n, osd0, panel, lib, cluster):
     """Validate the packed system; return ``(lib, B, W, m, stream, plan)``."""
     from .._build import load_library
 
@@ -251,12 +242,11 @@ def _prepare(Ht, n, osd0, panel, lib, body, cluster):
                          f"got [{m}, {n}]")
     if panel not in (1, 2, 4, 8):
         raise ValueError(f"panel must be 1, 2, 4 or 8, got {panel}")
-    if body not in ("cluster", "v1") or cluster not in (0, 2, 4, 8):
-        raise ValueError(f"body must be 'cluster' or 'v1' and cluster 0, 2, 4 or 8, "
-                         f"got {body!r}, {cluster}")
+    if cluster not in (0, 2, 4, 8):
+        raise ValueError(f"cluster must be 0, 2, 4 or 8, got {cluster}")
     lib = lib or load_library()
     plan = launcher_plan(W, m, osd0=osd0, panel=panel, lib=lib)
-    need = (_v1_smem_bytes if body == "v1" else global_smem_bytes)(m)
+    need = global_smem_bytes(m)
     if body_of(plan) == "global" and need > MAX_SMEM_BYTES:
         raise ValueError(f"a lane of {m} rows takes {need} bytes of shared memory in the "
                          f"device-memory body; a block holds {MAX_SMEM_BYTES}")
@@ -269,8 +259,7 @@ def _raise_on(lib, rc, what):
         raise RuntimeError(f"{what} launch failed: {lib.ldpc_cuda_error_string(rc).decode()}")
 
 
-def gf2_osd0_cuda(Ht, resid, bp_err, n, *, _max_panel=8, _lib=None, _body="cluster",
-                  _cluster=0):
+def gf2_osd0_cuda(Ht, resid, bp_err, n, *, _max_panel=8, _lib=None, _cluster=0):
     """Batched OSD-0 elimination; returns the ``[B, n]`` int32 correction.
 
     Args:
@@ -281,13 +270,13 @@ def gf2_osd0_cuda(Ht, resid, bp_err, n, *, _max_panel=8, _lib=None, _body="clust
 
     ``_max_panel`` (8, 4, 2 or 1) caps the launcher's panel width, ``_lib``
     names another build of the library, and for a lane past a block
-    ``_body="v1"`` takes the first device-memory body and ``_cluster`` (2,
-    4 or 8; 0 the launcher's choice) sets the cluster: for the tests and
-    timings of every instantiation; the result depends on none of them.
+    ``_cluster`` (2, 4 or 8; 0 the launcher's choice) sets the cluster: for
+    the tests and timings of every instantiation; the result depends on none
+    of them.
     """
     if Ht.device.type == "cpu":
         return gf2_osd0_ref(Ht, resid, bp_err, n)
-    lib, B, W, m, stream, plan = _prepare(Ht, n, True, _max_panel, _lib, _body, _cluster)
+    lib, B, W, m, stream, plan = _prepare(Ht, n, True, _max_panel, _lib, _cluster)
     _check("resid", resid, (B, m), Ht.device)
     _check("bp_err", bp_err, (B, n), Ht.device)
     corr = torch.empty((B, n), dtype=torch.int32, device=Ht.device)
@@ -301,22 +290,16 @@ def gf2_osd0_cuda(Ht, resid, bp_err, n, *, _max_panel=8, _lib=None, _body="clust
         chunk = min(B, gf2_workspace_lanes(W, m, device=Ht.device))
         work = torch.empty((chunk, W, m), dtype=torch.int32, device=Ht.device)
         pivw = torch.empty((chunk, m), dtype=torch.int32, device=Ht.device)
-        route = "global_v1" if _body == "v1" else "global"
         for b0 in range(0, B, chunk):
             b = min(chunk, B - b0)
             with torch.cuda.device(Ht.device):
-                if _body == "v1":
-                    rc = lib.ldpc_gf2_osd0_global(Ht[b0].data_ptr(), resid[b0].data_ptr(),
-                                                  bp_err[b0].data_ptr(), corr[b0].data_ptr(),
-                                                  work.data_ptr(), b, W, m, n, stream)
-                else:
-                    rc = lib.ldpc_gf2_osd0_cluster(Ht[b0].data_ptr(), resid[b0].data_ptr(),
-                                                   bp_err[b0].data_ptr(), corr[b0].data_ptr(),
-                                                   work.data_ptr(), pivw.data_ptr(), b, W, m, n,
-                                                   _cluster, stream)
+                rc = lib.ldpc_gf2_osd0_cluster(Ht[b0].data_ptr(), resid[b0].data_ptr(),
+                                               bp_err[b0].data_ptr(), corr[b0].data_ptr(),
+                                               work.data_ptr(), pivw.data_ptr(), b, W, m, n,
+                                               _cluster, stream)
             _raise_on(lib, rc, "gf2_osd0 (device-memory body)")
             gf2_osd0_cuda.launches += 1
-            gf2_osd0_cuda.routes[route] += 1
+            gf2_osd0_cuda.routes["global"] += 1
         return corr
     with torch.cuda.device(Ht.device):  # the launch goes to the current device
         rc = lib.ldpc_gf2_osd0(Ht.data_ptr(), resid.data_ptr(), bp_err.data_ptr(),
@@ -327,7 +310,7 @@ def gf2_osd0_cuda(Ht, resid, bp_err, n, *, _max_panel=8, _lib=None, _body="clust
     return corr
 
 
-def gf2_eliminate_cuda(Ht, s, n, *, _max_panel=8, _lib=None, _body="cluster", _cluster=0):
+def gf2_eliminate_cuda(Ht, s, n, *, _max_panel=8, _lib=None, _cluster=0):
     """Batched Gauss–Jordan RREF of packed columns.
 
     Args:
@@ -337,12 +320,11 @@ def gf2_eliminate_cuda(Ht, s, n, *, _max_panel=8, _lib=None, _body="cluster", _c
 
     Returns ``(Ht' [B, W, m], s' [B, m], pivcol [B, m])`` (int32) with
     ``pivcol[b, i]`` = row i's pivot column or the sentinel ``n``.
-    ``_max_panel``, ``_lib``, ``_body``, ``_cluster``: as in
-    :func:`gf2_osd0_cuda`.
+    ``_max_panel``, ``_lib``, ``_cluster``: as in :func:`gf2_osd0_cuda`.
     """
     if Ht.device.type == "cpu":
         return gf2_eliminate_ref(Ht, s, n)
-    lib, B, W, m, stream, plan = _prepare(Ht, n, False, _max_panel, _lib, _body, _cluster)
+    lib, B, W, m, stream, plan = _prepare(Ht, n, False, _max_panel, _lib, _cluster)
     _check("s", s, (B, m), Ht.device)
     Ht2 = torch.empty_like(Ht)
     s2 = torch.empty_like(s)
@@ -351,12 +333,7 @@ def gf2_eliminate_cuda(Ht, s, n, *, _max_panel=8, _lib=None, _body="cluster", _c
         return Ht2, s2, piv
     body = body_of(plan)
     with torch.cuda.device(Ht.device):
-        if body == "global" and _body == "v1":
-            body = "global_v1"
-            rc = lib.ldpc_gf2_eliminate_global(Ht.data_ptr(), s.data_ptr(), Ht2.data_ptr(),
-                                               s2.data_ptr(), piv.data_ptr(), B, W, m, n,
-                                               stream)
-        elif body == "global":  # the lane in device memory: the kernel works in Ht2
+        if body == "global":  # the lane in device memory: the kernel works in Ht2
             rc = lib.ldpc_gf2_eliminate_cluster(Ht.data_ptr(), s.data_ptr(), Ht2.data_ptr(),
                                                 s2.data_ptr(), piv.data_ptr(), B, W, m, n,
                                                 _cluster, stream)
@@ -373,6 +350,6 @@ def gf2_eliminate_cuda(Ht, s, n, *, _max_panel=8, _lib=None, _body="cluster", _c
 gf2_osd0_cuda.launches = 0
 gf2_eliminate_cuda.launches = 0
 #: launches per body: "shared" (a block holds the lane), "global" (device
-#: memory, the cluster body), "global_v1" (device memory, the first body)
-gf2_osd0_cuda.routes = {"shared": 0, "global": 0, "global_v1": 0}
-gf2_eliminate_cuda.routes = {"shared": 0, "global": 0, "global_v1": 0}
+#: memory, the cluster body)
+gf2_osd0_cuda.routes = {"shared": 0, "global": 0}
+gf2_eliminate_cuda.routes = {"shared": 0, "global": 0}

@@ -9,7 +9,8 @@ parallel shapes:
     its slice and the stage-0 outputs are gathered;
   * stages 1-2 (deep ensemble buckets, relay legs, the native host OSD)
     touch a few percent of the shots: every rank runs the single-device
-    tail (``_post_stage0``) on the whole batch.  Under several processes
+    tail on the whole batch (``StagedDemDecoder._decode_batch`` with this
+    module's stage-0 step).  Under several processes
     :func:`staged_local_eval` runs each process's own slice of the shots
     end to end and sums the counts.
 """
@@ -36,18 +37,15 @@ def sharded_staged_decode(dec, detectors, mesh, *, data_axis: str = "data", per=
     ``solved=True``; OSD-repaired lanes report False but reproduce their
     syndrome whenever it is in the column span.
     """
-    syn = np.asarray(detectors, np.uint8)
-    rows = batch_sharding(mesh, 2, data_axis).bounds(syn.shape[0])
-    L0, llr0_np, llr0_d = dec._channel(per)
     dev = dec.device
-    local = torch.as_tensor(syn[rows], device=dev)
-    cap = dec._max_stage0_batch  # the largest batch one stage-0 decode carries
-    parts = [dec.stage0(local[lo:lo + cap], L0)[:3] for lo in range(0, local.shape[0], cap)]
-    err0, conv0, it0 = (torch.cat(p) for p in zip(*parts))
-    err0, conv0, it0 = (torch.as_tensor(a, device=dev)
-                        for a in _gather_batch([err0, conv0, it0], mesh, data_axis))
-    out, solved, _, _ = dec._post_stage0(torch.as_tensor(syn, device=dev), err0, conv0, it0,
-                                         L0, llr0_np, llr0_d)
+    syn = torch.as_tensor(np.asarray(detectors, np.uint8), device=dev)
+    rows = batch_sharding(mesh, 2, data_axis).bounds(syn.shape[0])
+
+    def stage0(syndromes, L0):  # this rank's slice, then every rank's rows
+        return tuple(torch.as_tensor(a, device=dev) for a in
+                     _gather_batch(dec._run_stage0(syndromes[rows], L0), mesh, data_axis))
+
+    out, solved = dec._decode_batch(syn, per=per, stage0=stage0)[:2]
     return out.cpu().numpy(), solved.cpu().numpy()
 
 

@@ -1208,6 +1208,23 @@ def test_staged_on_card_matches_cpu(dev, tier):
     assert np.array_equal((got[0].astype(np.int64) @ A.T.toarray()) % 2, det)
 
 
+def test_staged_on_card_chunks_stage0_with_the_bits_of_one_decode(dev):
+    """Past the stage-0 cap (a 1 MB budget: 256 lanes a decode), 320 records
+    run stage 0 in two chunks and the tail once, pooling both chunks'
+    stragglers into smaller deep buckets: bitwise an unchunked decode on the
+    card in out, solved and iters."""
+    A, pr, O, det = surface_d5_records(320, 2, 4.0)
+    kw = dict(observables=O, device=dev, **STAGED_TIERS["fast"])
+    chunked = pt.StagedDemDecoder(A, pr, hbm_bytes=1_000_000, **kw)
+    whole = pt.StagedDemDecoder(A, pr, **kw)
+    assert chunked._max_stage0_batch == 256 < det.shape[0] <= whole._max_stage0_batch
+    assert chunked.max_bucket < whole.max_bucket
+    got, want = chunked.batch_decode_detailed(det), whole.batch_decode_detailed(det)
+    for a, b in zip(got[:3], want[:3]):
+        assert np.array_equal(a, b)
+    assert (got[2] > chunked.stage0_iters).any() and (~got[1]).any()
+
+
 def test_detector_decoder_routes_and_launches_on_card(dev):
     """The d5 DEM's OSD lane fits a block: the device route, OSD-0 in K1,
     OSD-CS on K2's output; the card equals the CPU but for reliability
@@ -1322,11 +1339,11 @@ def test_cluster_body_at_small_lanes_and_every_cluster_size(dev, B, m, n, dens):
 
 
 @pytest.mark.parametrize("shape", ["gallager_2400", "bb144_dem"])
-def test_cluster_body_against_the_first_body(dev, shape):
-    """Past a block: every cluster size and the first device-memory body
-    (``_body="v1"``, counted apart) give the same bits; the launcher's
+def test_cluster_body_every_size_against_the_launchers_choice(dev, shape):
+    """Past a block: every cluster size gives the bits of the launcher's
+    own choice, each counted as a device-memory launch; the launcher's
     cluster plan is one of 2, 4, 8 with the shared memory of
-    ``global_smem_bytes``."""
+    ``global_smem_bytes``; a size outside those is refused."""
     if shape == "gallager_2400":
         Hs, Ht = permuted_lanes(pt.parity_check_matrix(2400, 6, 3, rng=0), 3, 11)
     else:
@@ -1343,14 +1360,14 @@ def test_cluster_body_against_the_first_body(dev, shape):
     want = cuda_gf2.gf2_eliminate_cuda(Ht, s, n)
     want0 = cuda_gf2.gf2_osd0_cuda(Ht, resid, bp, n)
     before = dict(cuda_gf2.gf2_eliminate_cuda.routes), dict(cuda_gf2.gf2_osd0_cuda.routes)
-    for kw in (dict(_body="v1"), dict(_cluster=2), dict(_cluster=4), dict(_cluster=8)):
-        for a, b in zip(cuda_gf2.gf2_eliminate_cuda(Ht, s, n, **kw), want):
-            assert torch.equal(a, b), kw
-        assert torch.equal(cuda_gf2.gf2_osd0_cuda(Ht, resid, bp, n, **kw), want0), kw
-    assert cuda_gf2.gf2_eliminate_cuda.routes["global_v1"] == before[0]["global_v1"] + 1
-    assert cuda_gf2.gf2_osd0_cuda.routes["global_v1"] == before[1]["global_v1"] + 1
+    for cluster in (2, 4, 8):
+        for a, b in zip(cuda_gf2.gf2_eliminate_cuda(Ht, s, n, _cluster=cluster), want):
+            assert torch.equal(a, b), cluster
+        assert torch.equal(cuda_gf2.gf2_osd0_cuda(Ht, resid, bp, n, _cluster=cluster),
+                           want0), cluster
     assert cuda_gf2.gf2_eliminate_cuda.routes["global"] == before[0]["global"] + 3
-    with pytest.raises(ValueError, match="body must be"):
+    assert cuda_gf2.gf2_osd0_cuda.routes["global"] == before[1]["global"] + 3
+    with pytest.raises(ValueError, match="cluster must be"):
         cuda_gf2.gf2_eliminate_cuda(Ht, s, n, _cluster=3)
 
 

@@ -2,17 +2,13 @@
 
 A lane whose packed system does not fit one Hopper block of the
 elimination kernels (``cuda_gf2.launch_plan(...).panel == 0``) takes the
-device-memory body of ``csrc/gf2_elim.cu`` (``gf2_cluster_kernel``; the
-first such body, ``gf2_global_kernel``, stays for comparison), whose plain
-versions are the column-by-column forms ``ops/gf2.py::gf2_osd0`` /
-``gf2_eliminate``.  Here, on the CPU:
+device-memory body of ``csrc/gf2_elim.cu`` (``gf2_cluster_kernel``),
+whose plain versions are the column-by-column forms
+``ops/gf2.py::gf2_osd0`` / ``gf2_eliminate``.  Here, on the CPU:
 
   * those plain forms at such a lane (``parity_check_matrix(2000, 10, 5)``,
     1000 x 2000, 252,000 bytes a lane) are bitwise the JAX package's
     ``gf2_osd0`` / ``gf2_eliminate``;
-  * a numpy model of the first body's trips (the pivot by the least key,
-    the listed rows, the XOR from the pivot's word on) is bitwise the plain
-    forms: the words before the pivot's word are zero in the pivot row;
   * a numpy model of the cluster body (``gf2_cluster_kernel``): panels of
     32 columns, the trips on bit slices with the listed rows replacing
     their slice, M by XOR reductions, every row's code in terms of the
@@ -63,47 +59,6 @@ def systems(H, B, seed):
     return Hs, jnp.transpose(Hp, (0, 2, 1))
 
 
-def global_body_model(Hs, s, n, bp=None):
-    """One lane as ``gf2_global_kernel`` computes it, in numpy on bits:
-    the least key (row << 1 | syndrome bit) over the unused rows with bit
-    j is the pivot; every row with bit j but the pivot XORs the pivot row
-    into itself from the pivot's word on; OSD-0 stops at the first column
-    at whose entry no residual is left outside the pivot space and keeps
-    ``bp[j]`` on the pivot row.  Returns ``(Ht rows, s, pivcol)`` or, for
-    OSD-0, the correction."""
-    H = Hs.astype(np.uint8).copy()
-    s = s.astype(np.uint8).copy()
-    m = H.shape[0]
-    piv = np.full(m, n, np.int64)
-    rank = 0
-    for j in range(n):
-        unused = piv == n
-        if bp is None and rank >= m:
-            break
-        if bp is not None and not (unused & (s == 1)).any():
-            break
-        has = H[:, j] == 1
-        cand = np.flatnonzero(has & unused)
-        if cand.size == 0:
-            continue
-        k = int(cand.min())  # the least key is the least row
-        w0 = 32 * (j // 32)
-        assert not H[k, :w0].any(), "the pivot row has a bit before its word"
-        listed = np.flatnonzero(has)
-        for i in listed[listed != k]:
-            H[i, w0:] ^= H[k, w0:]
-            s[i] ^= s[k]
-        piv[k] = j
-        if bp is not None:
-            s[k] ^= bp[j]
-        rank += 1
-    if bp is None:
-        return H, s, piv
-    corr = bp.astype(np.int64).copy()
-    corr[piv[piv < n]] = s[piv < n]
-    return corr
-
-
 def test_plain_forms_past_a_block_match_reference(H_big):
     m, n = H_big.shape
     W = (n + 31) // 32
@@ -125,30 +80,6 @@ def test_plain_forms_past_a_block_match_reference(H_big):
         jnp.transpose(Ht, (0, 2, 1)), jnp.asarray(bp), jnp.asarray(resid)))
     got0 = cuda_gf2.gf2_osd0_cuda(i32(Ht), i32(resid), i32(bp), n)  # CPU: the plain form
     assert np.array_equal(got0.numpy(), want0.astype(np.int32))
-
-
-@pytest.mark.parametrize("osd0", [False, True])
-def test_global_body_model_matches_plain_forms(H_big, osd0):
-    """The body's trips (least key, row list, XOR from the pivot's word on)
-    give the plain forms' bits, at a small lane and at the lane past a block."""
-    for H, B, seed in ((lt.parity_check_matrix(120, 6, 3, rng=5), 3, 4), (H_big, 1, 6)):
-        m, n = H.shape
-        Hs, Ht = systems(H, B, seed)
-        rng = np.random.default_rng(seed)
-        s = (rng.random((B, m)) < 0.5).astype(np.uint32)
-        bp = (rng.random((B, n)) < 0.05).astype(np.uint32)
-        if osd0:
-            want = port_gf2.gf2_osd0(i32(Ht), i32(s), i32(bp), n).numpy()
-            for b in range(B):
-                assert np.array_equal(global_body_model(Hs[b], s[b], n, bp[b]), want[b])
-        else:
-            Ht2, s2, piv, _ = port_gf2.gf2_eliminate(i32(Ht), i32(s), n)
-            for b in range(B):
-                Hm, sm, pm = global_body_model(Hs[b], s[b], n)
-                packed = np.asarray(ref_gf2.pack_bits(jnp.asarray(Hm.astype(np.uint32))))
-                assert np.array_equal(packed.T, Ht2[b].numpy().view(np.uint32))
-                assert np.array_equal(sm, s2[b].numpy())
-                assert np.array_equal(pm, piv[b].numpy())
 
 
 U32 = np.uint32

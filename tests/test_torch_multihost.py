@@ -105,6 +105,7 @@ from ldpcdecoders_tpu_torch.parallel import allreduce_counts, initialize_multiho
 initialize_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo")
 initialize_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo")  # already set up: a no-op
 print("RESULT " + json.dumps({"rank": rank, "red": allreduce_counts({"x": rank + 1})}))
+torch.distributed.destroy_process_group()
 """
 
 COUNTS = ("trials", "ler", "ler_ci95", "syndrome_match_rate", "converged_fraction",

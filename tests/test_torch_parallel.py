@@ -327,6 +327,35 @@ def test_one_rank_mesh_without_a_launcher(one_rank, inputs):
     assert np.array_equal(par.multihost.broadcast_from_host0(np.arange(3.0)), np.arange(3.0))
 
 
+@pytest.mark.parametrize("hbm_bytes", [60_000_000, 80_000_000_000])
+def test_sharded_staged_decode_on_one_rank(one_rank, hbm_bytes, monkeypatch):
+    """The staged decoder through ``sharded_staged_decode`` on a one-rank
+    mesh, stage 0 in two chunks (a 60 MB budget carries 256 lanes a decode)
+    and in one, bitwise the JAX package's decoder at the same budget, run
+    op by op.  At 60 MB the reference runs its tail once a chunk, the port
+    once on the whole batch; lanes decode independently, so the bits agree.
+    Also bitwise the port's own ``batch_decode_detailed``."""
+    import jax
+    from ldpcdecoders_tpu.models.staged import StagedDemDecoder as RefStaged
+    from ldpcdecoders_tpu.utils import hbm as ref_hbm
+    from ldpcdecoders_tpu_torch.utils import hbm
+    from test_torch_staged import chunk_case
+
+    monkeypatch.setattr(ref_hbm, "_HEADROOM", hbm._HEADROOM)
+    A, pr, _, det, kw = chunk_case()
+    dec = pt.StagedDemDecoder(A, pr, hbm_bytes=hbm_bytes, device="cpu", **kw)
+    err, solved = par.sharded_staged_decode(dec, det, par.make_mesh(device="cpu"))
+    with jax.disable_jit():
+        ref = RefStaged(A, pr, hbm_bytes=hbm_bytes, **kw)
+        want_err, want_solved = ref.batch_decode_detailed(det)[:2]
+    assert dec._max_stage0_batch == ref._max_stage0_batch
+    assert (dec._max_stage0_batch < det.shape[0]) == (hbm_bytes == 60_000_000)
+    assert not want_solved.all()  # the tail runs: deep buckets and the host OSD
+    assert np.array_equal(err, want_err) and np.array_equal(solved, want_solved)
+    one = dec.batch_decode_detailed(det)
+    assert np.array_equal(err, one[0]) and np.array_equal(solved, one[1])
+
+
 def test_batch_sharding_splits_in_rank_order():
     from ldpcdecoders_tpu_torch.parallel.mesh import BatchSharding
 

@@ -208,6 +208,15 @@ def test_staged_validation_errors():
         sd.run_eval(10)
 
 
+def chunk_case():
+    """300 records and a two-member decoder whose stage 0 takes two chunks
+    under a 60 MB budget (256 lanes a decode): ``(A, pr, O, det, kw)``."""
+    A, pr, O = _small_dem(2)
+    kw = dict(observables=O, gammas=(0.3, (0.0, 0.4)), stage0_iters=16, deep_iters=32,
+              lam=8)
+    return A, pr, O, records(A, pr, 300, 3, 3.0), kw
+
+
 def test_batch_and_bucket_ceilings_follow_the_memory_model(monkeypatch):
     """Inputs past the stage-0 ceiling decode in chunks with the same
     result; the ceilings come from utils/hbm.py (equal to the reference's
@@ -216,10 +225,7 @@ def test_batch_and_bucket_ceilings_follow_the_memory_model(monkeypatch):
     from ldpcdecoders_tpu_torch.utils import hbm
 
     monkeypatch.setattr(ref_hbm, "_HEADROOM", hbm._HEADROOM)
-    A, pr, O = _small_dem(2)
-    det = records(A, pr, 300, 3, 3.0)
-    kw = dict(observables=O, gammas=(0.3, (0.0, 0.4)), stage0_iters=16, deep_iters=32,
-              lam=8)
+    A, pr, O, det, kw = chunk_case()
     small = pt.StagedDemDecoder(A, pr, hbm_bytes=60_000_000, device="cpu", **kw)
     ref = RefStaged(A, pr, hbm_bytes=60_000_000, **kw)
     assert (small._max_stage0_batch, small.max_bucket) == (ref._max_stage0_batch,
