@@ -16,9 +16,18 @@ public decoder API on ``cuda:0`` and prints, in order:
      the card could take (bytes over 3.35 TB/s, or the operations these
      inputs need over 67 TFLOP/s in float32 and a quarter of that for
      32-bit integer work, whichever is larger); the two eliminations also
-     against their plain blocked forms; K4 also in its iteration form (the
-     damped messages in place) and against ``torch.sparse.mm`` of the slot
-     incidence (its ``library_ms``); K3/K4 also at the bb144 R=6 DEM's shape
+     against their plain blocked forms; K3's gathered form and K4's
+     iteration form (its messages in place, undamped and damped) on the lane
+     tile the main path's decode keeps (``MinSumDecode`` in the variable
+     layout at this batch: 128 lanes in float32, lane-major in bfloat16,
+     whose messages fit L2), then lane-major; K4 also against
+     ``torch.sparse.mm`` of the slot incidence (its ``library_ms``); K3's
+     gathered form and K4's in-place form (damping 0.4, the freeze) at the
+     bb144 R=6 DEM's shape in the variable layout, as the BP+OSD
+     configuration runs them, on tiles at 2048 and 256 lanes, untiled and
+     held against the plain lane-major versions, with their lane-major
+     times and bounds (K4's form on tiles counted apart as
+     ``minsum_var_tiled_nu``); K3/K4 also at the bb144 R=6 DEM's shape
      in the forms the staged decoder's iteration launches (K3 rebuilding,
      damping and updating in place, staged and flat; K4 with the freeze), on
      the real slots, and the same forms and K3's first iteration on lane
@@ -40,7 +49,8 @@ public decoder API on ``cuda:0`` and prints, in order:
      never launched: (a), (b) BP+OSD-0 at per 0.01 and 0.2, (c) BP+OSD-2 at
      per 0.01; (e), (f) min-sum in float32 and bfloat16 at per 0.01; (g),
      (h) BP+OSD with the damped min-sum inner decoder at per 0.2 (OSD-0,
-     and OSD-2 on the failing lanes).  Every OSD output is
+     and OSD-2 on the failing lanes); (e), (g), (m), (n) launch K3/K4 on
+     lane tiles (``minsum_check_tiled``, ``minsum_var_tiled_nu``).  Every OSD output is
      syndrome-consistent.  (d), (i): the card's BP and min-sum against the
      CPU's on 64 lanes.  (j) ``QCMinSumDecoder`` layered at per 0.04, 32
      sweeps; (k) ``SpaceTimeDecoder.for_bicycle("bb144", "x", 6, 0.003, 60)``
@@ -1517,6 +1527,134 @@ def reliability_order(torch, logp):
     return torch.argsort(-torch.maximum(p, 1 - p), dim=1, stable=True)
 
 
+def var_layout_rows(torch, pt, dev, card, kernels, dem_graph, dem_det, dem_llr):
+    """K3's gathered form and K4's in-place form at the bb144 R=6 DEM's shape
+    as the BP+OSD configuration's variable layout launches them (float32,
+    damping 0.4, the freeze on every iteration, every second lane done), at
+    a stage's 2048 lanes and at 256, the configuration's tail of failing
+    lanes: on the batch's tile (``MinSumDecode(layout="var")._tile``),
+    untiled and held bitwise against the plain lane-major versions at the
+    real slots, each with the lane-major form's time beside it.  The inputs
+    are the second iteration's (``nu`` after one damped update).  Bounds, the
+    least the functions need: K3 reads ``nu`` and writes ``mu`` at the real
+    slots (K4 reads no padded slot of ``mu``) and reads the syndrome and the
+    table, 14 operations an edge; K4 gathers ``mu`` and reads and writes
+    ``nu`` at the real slots (3 x E x 4 B), reads ``L0`` and writes the
+    active lanes' ``err`` / ``llrs``, 5 operations an edge.  K4's launches
+    on tiles are counted apart, under the wrapper's ``lane_tiled_nu`` route;
+    the row fails if that count misses one of its launches."""
+    from ldpcdecoders_tpu_torch.ops import cuda_minsum
+    from ldpcdecoders_tpu_torch.ops import minsum as plain_minsum
+
+    src = "ldpcdecoders_tpu_torch/csrc/minsum.cu"
+    dv, n, m, dc = dem_graph.max_dv, dem_graph.n, dem_graph.m, dem_graph.max_dc
+    for lanes in (BDEM, DEEP_BUCKET):
+        ms = pt.MinSumDecode(dem_graph, 0.01, 2, device=dev, damping=0.4)
+        T, real_c, real_v = ms._tile(lanes, dev), ms.chk_mask.reshape(-1), ms.var_mask.reshape(-1)
+        E, size = int(ms.var_mask.sum()), 4
+        kw3, kw4 = dict(chk_deg=ms.chk_deg), dict(var_deg=ms.var_deg)
+        L0 = torch.broadcast_to(dem_llr.to(torch.float32), (lanes, n)).contiguous()
+        flip = dem_det[:lanes].contiguous()
+        done = torch.arange(lanes, device=dev) % 2 == 1
+        nu1 = L0[:, None, :].expand(lanes, dv, n).contiguous()
+        mu0 = cuda_minsum.minsum_check_cuda(nu1.reshape(lanes, -1), ms.c2v, flip, ms.chk_mask,
+                                            ms.alpha, 0.0, **kw3)
+        cuda_minsum.minsum_var_iter_cuda(mu0.reshape(lanes, -1), ms.v2c, ms.var_mask, L0,
+                                         nu=nu1, gamma=ms.gam, **kw4)
+        mu1 = cuda_minsum.minsum_check_cuda(nu1.reshape(lanes, -1), ms.c2v, flip, ms.chk_mask,
+                                            ms.alpha, 0.0, **kw3).reshape(lanes, -1)
+        del mu0
+
+        def tile(t, T=T):
+            return t if t.ndim == 0 else plain_minsum.tile_lanes(t, T)
+
+        def untile(t, T=T, lanes=lanes):
+            return plain_minsum.untile_lanes(t, T)[:lanes]
+
+        shape = (f"B={lanes} dc={dc} m={m} dv={dv} n={n} (bb144 R=6 DEM, variable layout, "
+                 f"float32, gamma 0.4, lane tile {T})")
+        # K3 gathered from nu
+        x_t, flip_t = tile(nu1.reshape(lanes, -1)), tile(flip)
+        k3t = (lambda x_t=x_t, flip_t=flip_t, ms=ms, kw3=kw3, T=T: cuda_minsum.minsum_check_cuda(
+            x_t, ms.c2v, flip_t, ms.chk_mask, ms.alpha, 0.0, **kw3, lane_tile=T))
+        k3 = (lambda nu1=nu1, flip=flip, ms=ms, kw3=kw3, lanes=lanes:
+              cuda_minsum.minsum_check_cuda(nu1.reshape(lanes, -1), ms.c2v, flip, ms.chk_mask,
+                                            ms.alpha, 0.0, **kw3))
+        p3 = (lambda nu1=nu1, flip=flip, ms=ms, lanes=lanes: plain_minsum.check_update_ref(
+            nu1.reshape(lanes, -1), ms.c2v, flip, ms.chk_mask, ms.alpha, 0.0))
+        want = p3().reshape(lanes, -1)[:, real_c]
+        err3 = max_abs_err(torch, [untile(k3t()).reshape(lanes, -1)[:, real_c],
+                                   k3().reshape(lanes, -1)[:, real_c]], [want, want])
+        del want, x_t
+        row3 = {"ms": event_ms(torch, k3t, 10), "lane_major_ms": event_ms(torch, k3, 10),
+                "plain_ms": event_ms(torch, p3, 1),
+                **dict(zip(("bound_ms", "bound_by"), bound(
+                    lanes * (2 * E * size + m) + E * 4, 14 * lanes * E, PEAK_F32_OPS_PER_S)[:2])),
+                "max_abs_err": err3}
+        # K4 in place with the freeze: kernel on tiles, kernel lane-major and
+        # plain lane-major, each on its own copy of the state
+        state = {}
+        for where in ("tiled", "lane-major", "plain"):
+            t = tile if where == "tiled" else (lambda x: x)
+            nu, err_s = t(nu1.clone()), t(torch.zeros((lanes, n), device=dev))
+            mu_s, L0_s, done_s, llrs = t(mu1), t(L0), t(done), t(L0.clone())
+            if where == "plain":
+                call = (lambda mu_s=mu_s, L0_s=L0_s, nu=nu, done_s=done_s, err_s=err_s,
+                        llrs=llrs, ms=ms: plain_minsum.var_iter_ref(
+                            mu_s, ms.v2c, ms.var_mask, L0_s, nu=nu, gamma=ms.gam, done=done_s,
+                            err=err_s, llrs=llrs))
+            else:
+                call = (lambda mu_s=mu_s, L0_s=L0_s, nu=nu, done_s=done_s, err_s=err_s,
+                        llrs=llrs, ms=ms, kw4=kw4, T=(T if where == "tiled" else 1):
+                        cuda_minsum.minsum_var_iter_cuda(
+                            mu_s, ms.v2c, ms.var_mask, L0_s, nu=nu, gamma=ms.gam, done=done_s,
+                            err=err_s, llrs=llrs, **kw4, lane_tile=T))
+            call()
+            torch.cuda.synchronize()
+            u = untile if where == "tiled" else (lambda x: x)
+            state[where] = ([u(nu).reshape(lanes, -1)[:, real_v], u(err_s), u(llrs)], call)
+        want = state["plain"][0]
+        err4 = max(max_abs_err(torch, state[w][0], want) for w in ("tiled", "lane-major"))
+        before = cuda_minsum.minsum_var_iter_cuda.routes["lane_tiled_nu"]
+        ms4 = event_ms(torch, state["tiled"][1], 10)
+        counted = cuda_minsum.minsum_var_iter_cuda.routes["lane_tiled_nu"] - before
+        if counted != 11:
+            raise AssertionError(f"minsum_var_tiled_nu: 11 launches counted {counted} times")
+        active = int((~done).sum())
+        row4 = {"ms": ms4, "lane_major_ms": event_ms(torch, state["lane-major"][1], 10),
+                "plain_ms": event_ms(torch, state["plain"][1], 1),
+                **dict(zip(("bound_ms", "bound_by"), bound(
+                    lanes * (3 * E * size + n * size) + E * 4 + nbytes(done, ms.var_deg)
+                    + active * n * (4 + size), 5 * lanes * E, PEAK_F32_OPS_PER_S)[:2])),
+                "max_abs_err": err4}
+        del state, want, mu1, nu1
+        for name, what, row in (("minsum_check_tiled", "gathered from nu", row3),
+                                ("minsum_var_tiled_nu", "in place, damping 0.4, freeze", row4)):
+            row.update(lane_tile=T, us_per_lane_iter=row["ms"] * 1e3 / lanes,
+                       bound_us_per_lane_iter=row["bound_ms"] * 1e3 / lanes)
+            print(f"kernel {name} bb144 var layout f32 B={lanes} {what}: max_abs_err "
+                  f"{row['max_abs_err']} (bitwise required: untiled, and the lane-major kernel, "
+                  f"against the plain lane-major version at the real slots) | kernel "
+                  f"{row['ms']:.3f} ms, {row['us_per_lane_iter']:.3f} us a lane-iteration "
+                  f"(lane-major {row['lane_major_ms']:.3f} ms) | plain torch "
+                  f"{row['plain_ms']:.3f} ms | bound {row['bound_ms']:.4f} ms by "
+                  f"{row['bound_by']} ({row['bound_us_per_lane_iter']:.3f} us a lane-iteration) "
+                  f"| library call: none | {shape} | {card}")
+            if row["max_abs_err"] != 0:
+                raise AssertionError(f"{name} bb144 var layout B={lanes}: kernel differs from "
+                                     "its plain version")
+            if name not in kernels:  # the first batch's row is the entry's
+                kernels[name] = {"name": name, "route": "cuda", "source": src,
+                                 "replaces": kernels["minsum_var"]["replaces"],
+                                 "max_abs_err": 0, "library_ms": None, "variants": {},
+                                 **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                        "lane_major_ms")},
+                                 "shape": f"bb144 var layout f32 B={lanes}"}
+            kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], row["max_abs_err"])
+            kernels[name]["variants"][f"bb144 var layout f32 B={lanes} {what}"] = row
+        torch.cuda.empty_cache()
+
+
 def launch_wrappers():
     """``(wrappers, routed)``: each kernel's wrappers (K3 and K4 have two
     forms each), and K1/K2's, which count their launches by body: the
@@ -1543,10 +1681,12 @@ def zero_counts(wrappers, routed):
 
 def read_counts(wrappers, routed):
     """Each kernel's launches since :func:`zero_counts`; K1/K2 and K5 also
-    by body, K3/K4 also those on lane tiles (``<kernel>_tiled``)."""
+    by body, K3/K4 also those on lane tiles (``<kernel>_tiled``; K4's
+    variable-layout form on tiles apart, ``minsum_var_tiled_nu``)."""
     counts = {k: sum(w.launches for w in ws) for k, ws in wrappers.items()}
     for k in FAMILY_MINSUM:
         counts[f"{k}_tiled"] = sum(w.routes["lane_tiled"] for w in wrappers[k])
+    counts["minsum_var_tiled_nu"] = wrappers["minsum_var"][1].routes["lane_tiled_nu"]
     for k, w in routed.items():
         counts[k] = w.routes["shared"]
         counts[f"{k}_global"] = w.routes["global"]
@@ -1871,56 +2011,85 @@ def main() -> int:
             library["minsum_var"] = event_ms(torch, lambda S=S, mu2=mu2: torch.sparse.mm(
                 S, mu2.t()), 10)
         # the in-place forms: kernel and plain version each on its own copy
-        # of the previous messages (this code has no padded slot)
+        # of the previous messages (this code has no padded slot).  Path (e)
+        # launches K3's gathered form and K4's iteration form on the batch's
+        # lane tile (MinSumDecode's rule in the variable layout): those rows
+        # come first, the kernel's outputs tiled and the plain lane-major
+        # version's tiled after it (its time includes that copy); the
+        # lane-major forms follow as variants
         gam = torch.tensor(0.4).to(dtype).to(dev)
-        nu_k, nu_p = nu1.reshape(B, dv, n).clone(), nu1.reshape(B, dv, n).clone()
-        nu_k0, nu_p0 = nu1.reshape(B, dv, n).clone(), nu1.reshape(B, dv, n).clone()
+        Te = ms._tile(B, dev)
+
+        def tl(t, Te=Te):
+            return t if t.ndim == 0 else plain_minsum.tile_lanes(t, Te)
+
+        def fresh():  # a copy of the previous messages for one case's kernel or plain version
+            return nu1.reshape(B, dv, n).clone()
+
         tot_k, tot_p = torch.empty_like(L0), torch.empty_like(L0)
+        tot_kt, mu2_t, L0_t, nu1_t, flip05_t = tl(tot_k), tl(mu2), tl(L0), tl(nu1), tl(flip05)
+        kt = dict(lane_tile=Te)
 
-        def chk(x, idx, ms=ms, deg=deg):
-            return lambda: (cuda_minsum.minsum_check_cuda(x, idx, flip05, ms.chk_mask,
-                                                          ms.alpha, 0.0, **deg),)
+        def chk(x, idx, ms=ms, deg=deg, flip=flip05, kw=None):
+            return lambda: (cuda_minsum.minsum_check_cuda(x, idx, flip, ms.chk_mask,
+                                                          ms.alpha, 0.0, **deg, **(kw or {})),)
 
-        def chk_plain(x, idx, ms=ms):
+        def chk_plain(x, idx, ms=ms, out=lambda t: t):
             if idx is None:
                 return lambda: (plain_minsum.check_core_ref(x, flip05, ms.chk_mask,
                                                             ms.alpha, 0.0),)
-            return lambda: (plain_minsum.check_update_ref(x, idx, flip05, ms.chk_mask,
-                                                          ms.alpha, 0.0),)
+            return lambda: (out(plain_minsum.check_update_ref(x, idx, flip05, ms.chk_mask,
+                                                              ms.alpha, 0.0)),)
 
+        def var_kern(nu, tot, gamma=None, mu=mu2, L0=L0, ms=ms, vdeg=vdeg, kw=None):
+            return lambda: (nu, cuda_minsum.minsum_var_iter_cuda(
+                mu, ms.v2c, ms.var_mask, L0, nu=nu, gamma=gamma, total=tot, **vdeg,
+                **(kw or {})))
+
+        def var_plain(nu, tot, gamma=None, out=lambda t: t, ms=ms, L0=L0, mu2=mu2):
+            def run():
+                total = plain_minsum.var_iter_ref(mu2, ms.v2c, ms.var_mask, L0, nu=nu,
+                                                  gamma=gamma, total=tot)
+                return out(nu), out(total)
+            return run
+
+        b_chk = bound(nbytes(nu1, ms.c2v, flip05, ms.chk_mask) + out_chk, chk_ops,
+                      PEAK_F32_OPS_PER_S)
+        b_var = bound(nbytes(mu2, ms.v2c, ms.var_mask, L0) + out_var + nbytes(nu1), var_ops,
+                      PEAK_F32_OPS_PER_S)
+        # 4 operations a slot more for the mix
+        b_mix = bound(nbytes(mu2, ms.v2c, ms.var_mask, L0) + out_var + nbytes(nu1),
+                      var_ops * 2, PEAK_F32_OPS_PER_S)
+        shape_c, shape_v = f"B={B} dc={dc} m={m}", f"B={B} dv={dv} n={n}"
         cases += [
-            (f"minsum_check {tag} gathered", minsum_src,
-             "ldpcdecoders_tpu/ops/pallas_minsum.py:53", f"B={B} dc={dc} m={m}",
-             chk(nu1, ms.c2v), chk_plain(nu1, ms.c2v),
-             bound(nbytes(nu1, ms.c2v, flip05, ms.chk_mask) + out_chk, chk_ops,
-                   PEAK_F32_OPS_PER_S)),
+            (f"minsum_check {tag} gathered, lane tile {Te}", minsum_src,
+             "ldpcdecoders_tpu/ops/pallas_minsum.py:53", shape_c,
+             chk(nu1_t, ms.c2v, flip=flip05_t, kw=kt), chk_plain(nu1, ms.c2v, out=tl), b_chk),
+            (f"minsum_check {tag} gathered lane-major", minsum_src,
+             "ldpcdecoders_tpu/ops/pallas_minsum.py:53", shape_c,
+             chk(nu1, ms.c2v), chk_plain(nu1, ms.c2v), b_chk),
             (f"minsum_check {tag} direct", minsum_src,
-             "ldpcdecoders_tpu/ops/pallas_minsum.py:53", f"B={B} dc={dc} m={m}",
+             "ldpcdecoders_tpu/ops/pallas_minsum.py:53", shape_c,
              chk(Ng1, None), chk_plain(Ng1, None),
              bound(nbytes(Ng1, flip05, ms.chk_mask) + out_chk, chk_ops,
                    PEAK_F32_OPS_PER_S)),
-            # the main path's form first: path (e)'s undamped update in place
-            (f"minsum_var {tag} iteration form", minsum_src,
-             "ldpcdecoders_tpu/ops/pallas_minsum.py:91", f"B={B} dv={dv} n={n}",
-             lambda mu2=mu2, ms=ms, L0=L0, vdeg=vdeg, nu=nu_k0, tot=tot_k: (
-                 nu, cuda_minsum.minsum_var_iter_cuda(mu2, ms.v2c, ms.var_mask, L0, nu=nu,
-                                                      total=tot, **vdeg)),
-             lambda mu2=mu2, ms=ms, L0=L0, nu=nu_p0, tot=tot_p: (
-                 nu, plain_minsum.var_iter_ref(mu2, ms.v2c, ms.var_mask, L0, nu=nu,
-                                               total=tot)),
-             bound(nbytes(mu2, ms.v2c, ms.var_mask, L0) + out_var + nbytes(nu1), var_ops,
-                   PEAK_F32_OPS_PER_S)),
-            # 4 operations a slot more for the mix
-            (f"minsum_var {tag} iteration form, damped in place", minsum_src,
-             "ldpcdecoders_tpu/ops/pallas_minsum.py:91", f"B={B} dv={dv} n={n} gamma 0.4",
-             lambda mu2=mu2, ms=ms, L0=L0, vdeg=vdeg, gam=gam, nu=nu_k, tot=tot_k: (
-                 nu, cuda_minsum.minsum_var_iter_cuda(mu2, ms.v2c, ms.var_mask, L0, nu=nu,
-                                                      gamma=gam, total=tot, **vdeg)),
-             lambda mu2=mu2, ms=ms, L0=L0, gam=gam, nu=nu_p, tot=tot_p: (
-                 nu, plain_minsum.var_iter_ref(mu2, ms.v2c, ms.var_mask, L0, nu=nu, gamma=gam,
-                                               total=tot)),
-             bound(nbytes(mu2, ms.v2c, ms.var_mask, L0) + out_var + nbytes(nu1), var_ops * 2,
-                   PEAK_F32_OPS_PER_S), (10, 2)),
+            # path (e)'s undamped update in place, then the damped one of
+            # (g), (h), (m)
+            (f"minsum_var {tag} iteration form, lane tile {Te}", minsum_src,
+             "ldpcdecoders_tpu/ops/pallas_minsum.py:91", shape_v,
+             var_kern(tl(fresh()), tot_kt, mu=mu2_t, L0=L0_t, kw=kt),
+             var_plain(fresh(), tot_p, out=tl), b_var),
+            (f"minsum_var {tag} iteration form, damped in place, lane tile {Te}", minsum_src,
+             "ldpcdecoders_tpu/ops/pallas_minsum.py:91", f"{shape_v} gamma 0.4",
+             var_kern(tl(fresh()), tot_kt, gam, mu=mu2_t, L0=L0_t, kw=kt),
+             var_plain(fresh(), tot_p, gam, out=tl), b_mix, (10, 2)),
+            # the same forms lane-major
+            (f"minsum_var {tag} iteration form lane-major", minsum_src,
+             "ldpcdecoders_tpu/ops/pallas_minsum.py:91", shape_v,
+             var_kern(fresh(), tot_k), var_plain(fresh(), tot_p), b_var),
+            (f"minsum_var {tag} iteration form, damped in place lane-major", minsum_src,
+             "ldpcdecoders_tpu/ops/pallas_minsum.py:91", f"{shape_v} gamma 0.4",
+             var_kern(fresh(), tot_k, gam), var_plain(fresh(), tot_p, gam), b_mix, (10, 2)),
             # the TPU kernel's interface: fresh leave-one-out messages
             (f"minsum_var {tag} fresh", minsum_src,
              "ldpcdecoders_tpu/ops/pallas_minsum.py:91", f"B={B} dv={dv} n={n}",
@@ -2341,6 +2510,9 @@ def main() -> int:
         del outs, mu0, total0, nu0, L0_t, flip_t, gam_t, total0_t
         torch.cuda.empty_cache()
 
+    # the same DEM in the variable layout, as the BP+OSD configuration runs it
+    var_layout_rows(torch, pt, dev, card, kernels, dem_graph, dem_det, dem_llr)
+
     # the two eliminations once more: against the plain BLOCKED forms (the
     # kernel's own algorithm in torch), with the launcher's plan, at the 128
     # lanes of path (h), and with the panel capped at 4, 2 and 1 columns
@@ -2462,10 +2634,14 @@ def main() -> int:
     osd2_ms = pt.BeliefPropagationOSDDecoder(graph, 0.2, MAX_ITERS, inner="minsum", damping=0.4,
                                              osd_order=2, osd_scope="failed", device=dev)
     minsum_kernels = ["minsum_check", "minsum_var"]
+    # the float32 decodes of 1024 lanes, (e), (g), (m), (n), run the
+    # variable layout on lane tiles (their messages outgrow L2): K3's
+    # gathered form and K4's in-place form on tiles
+    var_tiled = ["minsum_check_tiled", "minsum_var_tiled_nu"]
     # the check layout's decodes, (p)-(s), run K3/K4 on lane tiles
     tiled_kernels = ["minsum_check_tiled", "minsum_var_tiled"]
     for path, what, dec in (("e", "min-sum float32", ms32), ("f", "min-sum bfloat16", ms16)):
-        g, c, iters, aux, _ = drive(path, minsum_kernels,
+        g, c, iters, aux, _ = drive(path, minsum_kernels + (var_tiled if path == "e" else []),
                                     lambda dec=dec: dec.batch_decode_detailed(syn01))
         if g.shape != (B, n) or g.dtype != np.int8 or not np.isfinite(aux["llrs"]).all():
             raise AssertionError(f"({path}) {what}: output {g.shape} {g.dtype} or non-finite LLRs")
@@ -2475,7 +2651,8 @@ def main() -> int:
               f"iterations mean {iters.mean():.2f} max {iters.max()}")
         if c.mean() < 0.99:
             raise AssertionError(f"({path}) {what}: only {c.mean():.4f} of the lanes converged")
-    gm, cm = drive("g", minsum_kernels + ["gf2_osd0"], lambda: osd_ms.batch_decode(syn20))
+    gm, cm = drive("g", minsum_kernels + var_tiled + ["gf2_osd0"],
+                   lambda: osd_ms.batch_decode(syn20))
     assert_consistent(H, gm, syn20, "min-sum+OSD-0 per 0.2")
     print(f"main (g) BP+OSD-0, inner min-sum damping 0.4, per 0.2: converged {cm.mean():.4f}, "
           f"exact recovery {(gm.astype(bool) == errs20).all(axis=1).mean():.4f}, "
@@ -2549,7 +2726,7 @@ def main() -> int:
     # columns
     cs_kw = dict(inner="minsum", damping=0.4, osd_method="combination_sweep", osd_order=10)
     dec_cs = pt.BeliefPropagationOSDDecoder(graph, 0.2, MAX_ITERS, device=dev, **cs_kw)
-    g_m, c_m = drive("m", minsum_kernels + ["gf2_eliminate"],
+    g_m, c_m = drive("m", minsum_kernels + var_tiled + ["gf2_eliminate"],
                      lambda: dec_cs.batch_decode(syn20))
     assert_consistent(H, g_m, syn20, "(m) BP+OSD-CS per 0.2")
     cs_cpu = pt.BeliefPropagationOSDDecoder(graph, 0.2, MAX_ITERS, device="cpu", **cs_kw)
@@ -2566,7 +2743,7 @@ def main() -> int:
     # (n) the same through the native host OSD-CS
     dec_host = pt.BeliefPropagationOSDDecoder(graph, 0.2, MAX_ITERS, device=dev,
                                               osd_impl="host", **cs_kw)
-    g_n, c_n = drive("n", minsum_kernels, lambda: dec_host.batch_decode(syn20))
+    g_n, c_n = drive("n", minsum_kernels + var_tiled, lambda: dec_host.batch_decode(syn20))
     assert_consistent(H, g_n, syn20, "(n) BP+host OSD-CS per 0.2")
     if path_launches["n"]["gf2_eliminate"] or path_launches["n"]["gf2_osd0"]:
         raise AssertionError("(n): the host OSD launched an elimination kernel")
@@ -2763,7 +2940,7 @@ def main() -> int:
     # launch the kernel; ``launches_by_path`` has every path's own count
     own_path = {"gf2_osd0": "b", "gf2_eliminate": "c", "minsum_check": "e", "minsum_var": "e",
                 "qc_minsum": "j", "gf2_osd0_global": "ad", "gf2_eliminate_global": "ac 0.5",
-                "minsum_check_tiled": "p", "minsum_var_tiled": "p"}
+                "minsum_check_tiled": "p", "minsum_var_tiled": "p", "minsum_var_tiled_nu": "e"}
     for k, path in own_path.items():
         kernels[k]["launches"] = path_launches[path][k]
         kernels[k]["launches_path"] = path

@@ -3,7 +3,8 @@
 // Replaces the two Pallas TPU kernels of ldpcdecoders_tpu/ops/pallas_minsum.py:
 //   minsum_check_kernel <- pallas_minsum.py:_check_kernel (wrapper check_update_pallas)
 //   minsum_var_kernel   <- pallas_minsum.py:_var_kernel   (wrapper var_update_pallas)
-//   (on lane tiles also minsum_check_floor_kernel and minsum_var_tiled_kernel)
+//   (on lane tiles also minsum_check_floor_kernel, minsum_var_tiled_kernel and
+//   minsum_var_inplace_tiled_kernel)
 // and, beyond the TPU kernels, the plain passes of the min-sum iteration
 // around them (ldpcdecoders_tpu/models/minsum.py decode / decode_check): the
 // cross-layout gathers, the check-layout rebuild ``total[var] - mu``, the
@@ -23,20 +24,25 @@
 // (``deg``) and a padded slot is neither loaded nor, in the forms that update
 // in place, written.
 //
-// Lane tiles (the check layout's state, lane_tile T = 64 or 128).  The
-// tiled form of a [B, len] array of lanes is [B / T, len, T]: element e of
-// lane b lies at tiled<T>(b, len) + e * T, so that T lanes of one node sit
-// side by side.  The check form keeps a thread a (lane, check), mapped lanes
-// fastest, so a warp is 32 lanes of one check; the variable form gives a
-// thread T / 32 neighbouring lanes of one variable, so a warp is a whole
-// tile row.  Each gather of a message, a total or a gamma is then whole
-// lines (128 bytes a warp and load in float32 on the check side, 512 on the
-// variable side at T = 128) where a lane's own row costs a 32-byte sector
-// for the 4 or 2 bytes used, and the node's degree and index entries are
-// one broadcast load with no divergence.  The per-lane arithmetic and its
-// order are the same for every T, so the result is bitwise the same.  T = 1
-// is [B, len]; the staged check form and the variable layout's forms take
-// T = 1 only.
+// Lane tiles (lane_tile T = 64 or 128: the check layout's state and the
+// variable layout's).  The tiled form of a [B, len] array of lanes is
+// [B / T, len, T]: element e of lane b lies at tiled<T>(b, len) + e * T, so
+// that T lanes of one node sit side by side.  The check form keeps a thread a
+// (lane, check), mapped lanes fastest, so a warp is 32 lanes of one check;
+// the variable forms give a thread T / 32 neighbouring lanes of one
+// variable, so a warp is a whole tile row.  Each gather of a message, a
+// total or a gamma is then whole lines (128 bytes a warp and load in float32
+// on the check side, 512 on the variable side at T = 128) where a lane's own
+// row costs a 32-byte sector for the 4 or 2 bytes used, and the node's
+// degree, index and weight entries are one broadcast load with no
+// divergence.  The per-lane arithmetic and its order are the same for every
+// T, so the result is bitwise the same.  T = 1 is [B, len].  On tiles the
+// check update takes its GATHER form (the variable layout's nu through c2v,
+// the check layout's first iteration) and its ITER form; the variable update
+// takes the check layout's form (the totals and the freeze) and the variable
+// layout's in-place form (leave-one-out messages, weights, the damping mix
+// and the freeze); the staged check form and the fresh-message variable form
+// take T = 1 only.
 //
 // Check update (minsum_check_kernel), one thread per (lane, check), three
 // forms of its input message:
@@ -72,9 +78,27 @@
 // sector traffic on top (8x the bytes used in float32), which staging
 // removes for the first and registers-in-flight hide for the second.  On
 // lane tiles every gathered line is used whole, and what holds the variable
-// form is the gathers in flight: its vectors of T / 32 lanes make fewer,
+// forms is the gathers in flight: their vectors of T / 32 lanes make fewer,
 // larger requests, and the asynchronous copies into shared memory keep
 // them in flight without registers (var_tiled_node).
+//
+// The variable layout's in-place form on tiles must read each edge's mu
+// (gathered) and, damped, its previous nu, and write its nu: 3 x 4 bytes an
+// edge in float32, with L0 and the frozen outputs about 2.8 MB a
+// lane-iteration at the bb144 DEM, where lane-major a warp's 32 lanes of a
+// gathered mu and of a nu slot are 32 sectors each (about 9.7 MB of sector
+// traffic).  Its design keeps every one of those reads whole and in flight:
+// the previous nu vectors are copied into shared memory beside the gathered
+// mu vectors, as a second group of asynchronous copies that lands while the
+// totals are summed, so a thread holds neither in registers; a damped block
+// takes half the threads to keep the shared memory at 48 KB; the leave-one-
+// out messages are written back as whole vectors at the real slots only.
+// Measured at that shape in float32 (damping 0.4, the freeze, 2048 lanes on
+// 128-lane tiles; chip_smoke.py, H100 80GB HBM3, 700 W): 1.05 us a
+// lane-iteration, 1.31x its 0.80 us bound of bytes, against 2.22 us
+// lane-major; the gathered check form on the same tiles 0.87 us against 2.45
+// us, 1.8x its 0.49 us bound (nu read and mu written at the real slots: it
+// writes every padded slot of mu too).
 //
 // Plain C interface (pointers, sizes, stream), loaded with ctypes.  Each
 // launcher returns the cudaError_t of its launch; 0 is success.
@@ -395,22 +419,47 @@ __device__ __forceinline__ void copy_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// The check layout's variable update on lane tiles: the totals and, given
-// the done flags, the freeze.  A warp is 32 threads of one variable, each
-// taking L = TILE / 32 neighbouring lanes, so that every gathered message
-// of a slot is one vector of L values (4-16 bytes a thread, 128-512 a
-// warp) and the degree and v2c entries are one broadcast load, issued
-// together (a padded slot's entry is never used).  The gathered vectors
-// wait in shared memory, each thread's own column, copied asynchronously:
-// no register waits on a load in flight, so more of them are (on 128-lane
-// tiles 0.40x the time of the same body with the vectors in registers in
-// float32, 0.55x in bfloat16; tools/minsum_kernel_compare.py, H100 80GB
-// HBM3, 700 W).  Each lane's sum runs in the lane-major kernel's order.
-// ``e`` is the thread's first entry in the tiled [B, n] arrays (L0, total,
-// err, llrs).
-template <typename T, int TILE>
+// Close the thread's copies issued so far into a group; wait until at most N
+// of its groups are still in flight.
+__device__ __forceinline__ void copy_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void copy_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Threads of a block of the variable update on lane tiles: a damped form
+// stages the previous messages beside the gathered ones, so its blocks take
+// half the threads and the same shared memory (48 KB at most).
+template <int GAMMA>
+__host__ __device__ constexpr int var_tiled_threads() {
+  return GAMMA == GAMMA_NONE ? kThreads : kThreads / 2;
+}
+
+// The variable update on lane tiles.  NU_NONE: the check layout's form, the
+// totals and, given the done flags, the freeze.  NU_INPLACE: the variable
+// layout's form besides: the leave-one-out messages total - msg (weighted by
+// W where WEIGHTED) written in place over nu at the real slots, mixed with
+// the previous ones by GAMMA.  A warp is 32 threads of one variable, each
+// taking L = TILE / 32 neighbouring lanes, so that every gathered message of
+// a slot is one vector of L values (4-16 bytes a thread, 128-512 a warp) and
+// the degree, v2c and W entries are one broadcast load, issued together (a
+// padded slot's entry is never used).  The gathered vectors wait in shared
+// memory, each thread's own column, copied asynchronously: no register
+// waits on a load in flight, so more of them are (on 128-lane tiles 0.40x
+// the time of the same body with the vectors in registers in float32, 0.55x
+// in bfloat16; tools/minsum_kernel_compare.py, H100 80GB HBM3, 700 W).  A
+// damped form copies the previous nu vectors the same way, as a second group
+// that lands while the totals are summed.  Each lane's arithmetic runs in
+// the lane-major kernel's order.  ``e`` is the thread's first entry in the
+// tiled [B, n] arrays (L0, total, err, llrs, a [B, n] gamma).
+template <typename T, int TILE, int NU, bool WEIGHTED, int GAMMA>
 __device__ __forceinline__ void var_tiled_node(const VarArgs<T>& a) {
   constexpr int L = TILE / 32;
+  constexpr int THREADS = var_tiled_threads<GAMMA>();
+  constexpr bool kOld = NU == NU_INPLACE && GAMMA != GAMMA_NONE;  // the previous nu read
   typedef Pack<T, L> P;
   const long long e = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * L;
   if (e >= a.B * a.n) return;
@@ -421,32 +470,99 @@ __device__ __forceinline__ void var_tiled_node(const VarArgs<T>& a) {
   const int d = a.deg[j];
   const T* ml = a.mu + tiled<TILE>(lane, a.mu_stride);
   auto gather = [&](int at) { return *reinterpret_cast<const P*>(ml + (long long)at * TILE); };
+  // NU_INPLACE: slot k's vector of the lanes' [dv, n] messages
+  T* nl = NU == NU_INPLACE ? a.nu + tiled<TILE>(lane, (long long)a.dv * n) : nullptr;
+  auto nu_at = [&](int k) { return nl + ((long long)k * n + j) * TILE; };
+  // the masked, weighted message as a float32 product (exact for bfloat16
+  // factors): the sum takes it as it is, the difference rounds it first
+  auto msg = [&](T v, float w) {
+    float x = to_f(v);
+    if (WEIGHTED) x = __fmul_rn(x, w);
+    return x;
+  };
+  auto weight = [&](int k) { return WEIGHTED ? load_f(a.W, (long long)k * n + j) : 1.f; };
 
   float acc[L];
 #pragma unroll
   for (int q = 0; q < L; ++q) acc[q] = 0.f;
+  float tf[L];  // the totals, rounded to T
+  float g[L], g1[L];  // kOld: each lane's damping factor and round(1 - g)
+  if constexpr (kOld) {
+    if constexpr (GAMMA == GAMMA_LANE) {
+#pragma unroll
+      for (int q = 0; q < L; ++q) g[q] = load_f(a.gamma, (lane + q) * a.gamma_stride);
+    } else {  // [B, n] lane-tiled, as L0
+      const P gv = *reinterpret_cast<const P*>(a.gamma + e);
+#pragma unroll
+      for (int q = 0; q < L; ++q) g[q] = to_f(gv.v[q]);
+    }
+#pragma unroll
+    for (int q = 0; q < L; ++q) g1[q] = round_to<T>(__fsub_rn(1.f, g[q]));
+  }
+  // slot k's leave-one-out messages from its gathered vector v (weight w),
+  // mixed with the previous ones (old) where damped, written over them
+  auto emit = [&](int k, const P& v, float w, const P& old) {
+    P r;
+#pragma unroll
+    for (int q = 0; q < L; ++q) {
+      float x = round_to<T>(__fsub_rn(tf[q], round_to<T>(msg(v.v[q], w))));
+      if constexpr (kOld) x = damp<T>(g[q], g1[q], to_f(old.v[q]), x);
+      r.v[q] = from_f<T>(x);
+    }
+    *reinterpret_cast<P*>(nu_at(k)) = r;
+  };
+
   if (a.dv <= kVarCap) {  // one window: every load in flight, then the sums in order
     int at[kVarCap];
+    float w[kVarCap];
 #pragma unroll
     for (int k = 0; k < kVarCap; ++k)
-      if (k < a.dv) at[k] = a.v2c[(long long)k * n + j];
+      if (k < a.dv) {
+        at[k] = a.v2c[(long long)k * n + j];
+        w[k] = weight(k);
+      }
     // a vector is 4-16 bytes (L >= 2), a size cp.async copies whole
     constexpr int kWords = sizeof(P) / 4;
+    constexpr int kSlot = THREADS * kWords;  // a slot's words in a buffer
     static_assert(sizeof(P) % 4 == 0, "a lane tile of at least 64 lanes");
-    __shared__ __align__(16) uint32_t staged[kVarCap * kThreads * kWords];
+    __shared__ __align__(16) uint32_t staged[(kOld ? 2 : 1) * kVarCap * kSlot];
     uint32_t* col = staged + threadIdx.x * kWords;
+    uint32_t* old_col = col + kVarCap * kSlot;  // kOld: the previous nu vectors
 #pragma unroll
     for (int k = 0; k < kVarCap; ++k)
-      if (k < d) copy_async<sizeof(P)>(col + k * kThreads * kWords, ml + (long long)at[k] * TILE);
-    copy_async_wait();
+      if (k < d) copy_async<sizeof(P)>(col + k * kSlot, ml + (long long)at[k] * TILE);
+    if constexpr (kOld) {
+      copy_async_commit();
+#pragma unroll
+      for (int k = 0; k < kVarCap; ++k)
+        if (k < d) copy_async<sizeof(P)>(old_col + k * kSlot, nu_at(k));
+      copy_async_commit();
+      copy_async_wait_group<1>();  // the gathered vectors; the previous ones still in flight
+    } else {
+      copy_async_wait();
+    }
 #pragma unroll
     for (int k = 0; k < kVarCap; ++k)
       if (k < d) {
         P v;
-        memcpy(&v, col + k * kThreads * kWords, sizeof(P));
+        memcpy(&v, col + k * kSlot, sizeof(P));
 #pragma unroll
-        for (int q = 0; q < L; ++q) acc[q] = __fadd_rn(acc[q], to_f(v.v[q]));
+        for (int q = 0; q < L; ++q) acc[q] = __fadd_rn(acc[q], msg(v.v[q], w[k]));
       }
+    const P l0 = *reinterpret_cast<const P*>(a.L0 + e);
+#pragma unroll
+    for (int q = 0; q < L; ++q) tf[q] = round_to<T>(__fadd_rn(to_f(l0.v[q]), round_to<T>(acc[q])));
+    if constexpr (NU == NU_INPLACE) {
+      if constexpr (kOld) copy_async_wait();
+#pragma unroll
+      for (int k = 0; k < kVarCap; ++k)
+        if (k < d) {
+          P v, old;
+          memcpy(&v, col + k * kSlot, sizeof(P));
+          if constexpr (kOld) memcpy(&old, old_col + k * kSlot, sizeof(P));
+          emit(k, v, w[k], old);
+        }
+    }
   } else {  // windows of 32 slots, as the lane-major kernel sums them
     float part[L];
 #pragma unroll
@@ -454,8 +570,9 @@ __device__ __forceinline__ void var_tiled_node(const VarArgs<T>& a) {
     const int low = (((a.dv + 31) / 32) * 32 - a.dv) / 2;
     for (int k = 0, edge = 32 - low; k < d; ++k) {
       const P v = gather(a.v2c[(long long)k * n + j]);
+      const float w = weight(k);
 #pragma unroll
-      for (int q = 0; q < L; ++q) part[q] = __fadd_rn(part[q], to_f(v.v[q]));
+      for (int q = 0; q < L; ++q) part[q] = __fadd_rn(part[q], msg(v.v[q], w));
       if (k + 1 == edge) {
 #pragma unroll
         for (int q = 0; q < L; ++q) {
@@ -465,21 +582,30 @@ __device__ __forceinline__ void var_tiled_node(const VarArgs<T>& a) {
         edge += 32;
       }
     }
+    const P l0 = *reinterpret_cast<const P*>(a.L0 + e);
 #pragma unroll
-    for (int q = 0; q < L; ++q) acc[q] = __fadd_rn(acc[q], part[q]);
+    for (int q = 0; q < L; ++q) {
+      acc[q] = __fadd_rn(acc[q], part[q]);
+      tf[q] = round_to<T>(__fadd_rn(to_f(l0.v[q]), round_to<T>(acc[q])));
+    }
+    if constexpr (NU == NU_INPLACE) {
+      for (int k = 0; k < d; ++k) {
+        P old;
+        if constexpr (kOld) old = *reinterpret_cast<const P*>(nu_at(k));
+        emit(k, gather(a.v2c[(long long)k * n + j]), weight(k), old);
+      }
+    }
   }
 
-  const P l0 = *reinterpret_cast<const P*>(a.L0 + e);
   P tot;
 #pragma unroll
-  for (int q = 0; q < L; ++q)
-    tot.v[q] = from_f<T>(round_to<T>(__fadd_rn(to_f(l0.v[q]), round_to<T>(acc[q]))));
+  for (int q = 0; q < L; ++q) tot.v[q] = from_f<T>(tf[q]);
   if (a.total) *reinterpret_cast<P*>(a.total + e) = tot;
   if (a.done) {  // the freeze: done lanes keep their outputs
 #pragma unroll
     for (int q = 0; q < L; ++q)
       if (!a.done[lane + q]) {
-        a.err[e + q] = to_f(tot.v[q]) < 0.f ? 1.f : 0.f;
+        a.err[e + q] = tf[q] < 0.f ? 1.f : 0.f;
         a.llrs[e + q] = tot.v[q];
       }
   }
@@ -571,7 +697,14 @@ minsum_var_kernel(const VarArgs<T> a) {
 
 template <typename T, int TILE>
 __global__ void __launch_bounds__(kThreads) minsum_var_tiled_kernel(const VarArgs<T> a) {
-  var_tiled_node<T, TILE>(a);
+  var_tiled_node<T, TILE, NU_NONE, false, GAMMA_NONE>(a);
+}
+
+// The variable layout's in-place form on lane tiles.
+template <typename T, int TILE, bool WEIGHTED, int GAMMA>
+__global__ void __launch_bounds__(var_tiled_threads<GAMMA>())
+minsum_var_inplace_tiled_kernel(const VarArgs<T> a) {
+  var_tiled_node<T, TILE, NU_INPLACE, WEIGHTED, GAMMA>(a);
 }
 
 unsigned grid_for(long long threads, int block) {
@@ -685,24 +818,45 @@ int launch_var_g(const VarArgs<T>& a, int gamma_kind, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// The check layout's variable update on lane tiles: the totals and the
-// freeze (no messages out, no weights, no damping).
+// The variable update on lane tiles: the check layout's form (the totals
+// and the freeze: no messages out, no weights, no damping), or the variable
+// layout's in place over nu, with or without W, at every damping kind.
 template <typename T, int TILE>
-int launch_var_tiled(const VarArgs<T>& a, cudaStream_t st) {
+int launch_var_tiled(const VarArgs<T>& a, int nu_mode, int gamma_kind, cudaStream_t st) {
   if (a.B % TILE) return cudaErrorInvalidValue;
-  minsum_var_tiled_kernel<T, TILE>
-      <<<grid_for(a.B * a.n / (TILE / 32), kThreads), kThreads, 0, st>>>(a);
-  return cudaGetLastError();
+  const long long threads = a.B * a.n / (TILE / 32);
+  if (nu_mode == NU_NONE) {
+    if (a.W != nullptr || gamma_kind != GAMMA_NONE) return cudaErrorInvalidValue;
+    minsum_var_tiled_kernel<T, TILE><<<grid_for(threads, kThreads), kThreads, 0, st>>>(a);
+    return cudaGetLastError();
+  }
+  if (nu_mode != NU_INPLACE) return cudaErrorInvalidValue;
+  auto go = [&](auto kernel, int block) {
+    kernel<<<grid_for(threads, block), block, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  };
+  const bool w = a.W != nullptr;
+  constexpr int kHalf = var_tiled_threads<GAMMA_LANE>();
+  switch (gamma_kind) {
+    case GAMMA_NONE:
+      return w ? go(minsum_var_inplace_tiled_kernel<T, TILE, true, GAMMA_NONE>, kThreads)
+               : go(minsum_var_inplace_tiled_kernel<T, TILE, false, GAMMA_NONE>, kThreads);
+    case GAMMA_LANE:
+      return w ? go(minsum_var_inplace_tiled_kernel<T, TILE, true, GAMMA_LANE>, kHalf)
+               : go(minsum_var_inplace_tiled_kernel<T, TILE, false, GAMMA_LANE>, kHalf);
+    case GAMMA_VAR:
+      return w ? go(minsum_var_inplace_tiled_kernel<T, TILE, true, GAMMA_VAR>, kHalf)
+               : go(minsum_var_inplace_tiled_kernel<T, TILE, false, GAMMA_VAR>, kHalf);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
 int launch_var(const VarArgs<T>& a, int nu_mode, int gamma_kind, int lane_tile,
                cudaStream_t st) {
   if (lane_tile != 1) {
-    if (nu_mode != NU_NONE || a.W != nullptr || gamma_kind != GAMMA_NONE)
-      return cudaErrorInvalidValue;
-    if (lane_tile == kTiles[0]) return launch_var_tiled<T, kTiles[0]>(a, st);
-    if (lane_tile == kTiles[1]) return launch_var_tiled<T, kTiles[1]>(a, st);
+    if (lane_tile == kTiles[0]) return launch_var_tiled<T, kTiles[0]>(a, nu_mode, gamma_kind, st);
+    if (lane_tile == kTiles[1]) return launch_var_tiled<T, kTiles[1]>(a, nu_mode, gamma_kind, st);
     return cudaErrorInvalidValue;
   }
   const bool w = a.W != nullptr;
@@ -794,8 +948,8 @@ int ldpc_minsum_check_iter(void* mu, void* nu, const void* total, const void* id
 // msg on every slot; 2: in place over nu_prev on the real slots, mixed with
 // it by gamma (kinds as above).  total [B, n] out where not null; with done
 // [B], err [B, n] float32 and llrs [B, n] take the active lanes' outputs.
-// lane_tile 64 or 128 (nu_mode 0, no W, no gamma): every [B, ...] array
-// lane-tiled, B a multiple of it.
+// lane_tile 64 or 128 (nu_mode 0 with no W and no gamma, or nu_mode 2):
+// every [B, ...] array lane-tiled, B a multiple of it (a [B, n] gamma too).
 int ldpc_minsum_var(const void* mu, const void* v2c, const void* deg, const void* L0,
                     const void* W, void* nu, int nu_mode, const void* gamma, int gamma_kind,
                     long long gamma_stride, void* total, const void* done, void* err, void* llrs,

@@ -17,15 +17,19 @@ is two launches of the hand-written kernels of ops/cuda_minsum.py on a card
     leave-one-out messages and the damping mix in place, and on the
     iterations that run the syndrome check the freeze of ``err`` / ``llrs``.
 
-In the check layout the kernels' state (``mu``, damped ``nu``, the totals,
-``L0``, the gammas, the syndrome bits and the frozen ``err`` / ``llrs``) is
-lane-tiled, T lanes innermost (ops/minsum.py ``tile_lanes``;
-:func:`lane_tile_for`: 64 or 128 lanes by batch on a card, lane-major below
-64 lanes and on the CPU; the lanes padded to a multiple of T, the padded lanes out of ``done``,
+In both layouts the kernels' state (the check layout's ``mu``, damped
+``nu`` and totals; the variable layout's ``nu``; ``L0``, the gammas, the
+syndrome bits and the frozen ``err`` / ``llrs``) is lane-tiled, T lanes
+innermost (ops/minsum.py ``tile_lanes``; ``MinSumDecode._tile``: 64 or
+128 lanes by batch on a card (:func:`lane_tile_for`), lane-major in the
+check layout below 64 lanes, in the variable layout while the lanes'
+messages fit the card's L2, and on the CPU; the lanes padded to a
+multiple of T, the padded lanes out of ``done``,
 ``iters`` and the checks): tiled once at entry, untiled once at exit, and
 ``err`` (with ``track_best`` also ``llrs``) untiled for each syndrome
 check.  The tiling changes no lane's arithmetic, so every output is the
-lane-major decode's bit for bit.
+lane-major decode's bit for bit.  The counter ``minsum_lane_iters_tiled``
+is the part of ``minsum_lane_iters_launched`` that ran on tiles.
 
 The syndrome check, ``iters`` / ``done`` and ``track_best`` are plain torch
 and run only where the check runs: ``done`` changes nowhere else, and the
@@ -96,6 +100,11 @@ def lane_tile_for(B: int) -> int:
     return min(LANE_TILES, key=lambda t: (-(-B // t) * t, -t))
 
 
+def _l2_bytes(device) -> int:
+    """The L2 cache of the card ``device`` in bytes."""
+    return torch.cuda.get_device_properties(device).L2_cache_size
+
+
 def from_reference_params(alpha, beta, edge_weights, *, max_iters, max_dv, n, dtype, device):
     """Carry a min-sum schedule across from numpy.
 
@@ -161,6 +170,12 @@ class MinSumDecode(torch.nn.Module):
     ``track_best`` returns, for a lane that never converges, the hard
     decision and LLRs of the iterate with the fewest syndrome mismatches
     seen at any check instead of the last one.
+
+    Either layout runs on lane tiles on a card (``_tile``: the check layout
+    from 64 lanes on, the variable layout where its lanes' messages outgrow
+    the card's L2), lane-major below and on the CPU; ``_lane_tile``
+    forces a tile (1: lane-major) for tests and measurements.  The outputs
+    are bitwise the same at every tile.
     """
 
     def __init__(self, graph: TannerGraph, per, max_iters: int, *, device,
@@ -196,10 +211,10 @@ class MinSumDecode(torch.nn.Module):
         self.lane_damping = bool(lane_damping)
         self.layout = layout
         self.track_best = bool(track_best)
-        # the check layout's lane tile: None, by batch on a card
-        # (lane_tile_for) and lane-major on the CPU; the variable layout is
-        # lane-major
-        self._lane_tile = _lane_tile if layout == "check" else 1
+        # the lane tile: None, by batch on a card (_tile) and lane-major on
+        # the CPU
+        self._lane_tile = _lane_tile
+        self._itemsize = torch.empty((), dtype=dtype).element_size()
 
         c2v_t, v2c_t, chk_mask_t, var_mask_t = graph.slot_major()
 
@@ -232,11 +247,27 @@ class MinSumDecode(torch.nn.Module):
             return self._forward(syndromes, L0, gamma, early_exit)
 
     def _tile(self, lanes: int, device) -> int:
-        """The check layout's lane tile for ``lanes`` lanes (1: lane-major)."""
+        """The lane tile for ``lanes`` lanes (1: lane-major): in the check
+        layout :func:`lane_tile_for`; in the variable layout lane-major while
+        the lanes' messages (a row of ``nu`` and one of ``mu`` each) fit the
+        card's L2, whose lane-major gathers then hit it, and past that
+        :func:`lane_tile_for`'s tile, 64 lanes below 64.  Measured (H100
+        80GB HBM3, 700 W; PERF.md): on the bb144 R=6 DEM (2.5 MB a lane in
+        float32: 21 lanes outgrow the card's 50 MB) a decode took 0.93x the
+        lane-major time at 24 lanes on a 64-lane tile, 0.73x at 64, and
+        1.0-1.5x at 16; on the (1000, 10, 9) Gallager code (72 KB a lane:
+        729 lanes) 1.4-1.9x at 24-256 lanes and 0.88x at 1024."""
         if self._lane_tile is not None:
             return self._lane_tile
         # the CPU's plain versions gain nothing from tiles
-        return lane_tile_for(lanes) if device.type == "cuda" else 1
+        if device.type != "cuda":
+            return 1
+        if self.layout == "check":
+            return lane_tile_for(lanes)
+        row = (self.max_dv * self.n + self.max_dc * self.m) * self._itemsize
+        if lanes * row <= _l2_bytes(device):
+            return 1
+        return lane_tile_for(max(lanes, LANE_TILES[0]))
 
     def _compact_tile(self, width: int, live: int, it: int, lane_bytes: float,
                       device) -> int | None:
@@ -271,8 +302,8 @@ class MinSumDecode(torch.nn.Module):
             g = torch.as_tensor(gamma, device=device).to(self.dtype)
             g = (g.reshape(B) if g.ndim == 1 else g.reshape(B, n)).contiguous()
 
-        # the kernels' state, lane-tiled in the check layout: the tiled form
-        # of a [Bc, ...] tensor is [bt, ..., T] (T = 1: the tensor itself,
+        # the kernels' state, lane-tiled: the tiled form of a [Bc, ...]
+        # tensor is [bt, ..., T] (T = 1: the tensor itself,
         # bt = Bc), the lanes past Bc padded (done there, so never frozen).
         # Bc counts the rows still held: the caller's lanes, until the
         # first compaction keeps those still decoding (lane_of maps them)
@@ -306,8 +337,8 @@ class MinSumDecode(torch.nn.Module):
             total = torch.empty_like(L0_k)
             nu = (None if g is None else
                   L0_k.index_select(1, self.chk_varidx).reshape(lanes(self.max_dc, m)))
-        else:
-            nu = torch.broadcast_to(L0[:, None, :], (B, self.max_dv, n)).contiguous()
+        else:  # nu [B, dv, n] (tiled [bt, dv, n, T]): L0 at every slot
+            nu = L0_k.unsqueeze(1).expand(bt, self.max_dv, *L0_k.shape[1:]).contiguous()
 
         def results():
             """The held rows' outputs as the decode returns them."""
@@ -338,7 +369,9 @@ class MinSumDecode(torch.nn.Module):
             return (syn_f, done, iters, *best)
 
         lane_of = out = lane_bytes = None
-        it = start = launched = 0  # start: the iteration the held width began at
+        # start: the iteration the held width began at; launched / on_tiles:
+        # the lane-iterations of the widths held before it, all and tiled
+        it = start = launched = on_tiles = 0
         while it < self.max_iters and B:
             # the iterations up to the next check (the last always checks)
             with span("ldpc.minsum.iters"):
@@ -362,13 +395,13 @@ class MinSumDecode(torch.nn.Module):
                                              self.var_mask, L0_k, total=total, **freeze,
                                              var_deg=self.var_deg, lane_tile=T)
                     else:
-                        mu = minsum_check_cuda(nu.reshape(bt, self.max_dv * n), self.c2v,
+                        mu = minsum_check_cuda(nu.reshape(lanes(self.max_dv * n)), self.c2v,
                                                flip_k, self.chk_mask, alpha, beta,
-                                               chk_deg=self.chk_deg)
+                                               chk_deg=self.chk_deg, lane_tile=T)
                         W = None if self.edge_weights is None else self.edge_weights[it]
-                        minsum_var_iter_cuda(mu.reshape(bt, self.max_dc * m), self.v2c,
+                        minsum_var_iter_cuda(mu.reshape(lanes(self.max_dc * m)), self.v2c,
                                              self.var_mask, L0_k, W=W, nu=nu, gamma=g_k,
-                                             **freeze, var_deg=self.var_deg)
+                                             **freeze, var_deg=self.var_deg, lane_tile=T)
                     it += 1
             with span("ldpc.minsum.check"):
                 err = untile(err_k)
@@ -413,6 +446,7 @@ class MinSumDecode(torch.nn.Module):
                 # the kept rows' state in the tiling T2, padded with copies of
                 # the first (done there); a lane's arithmetic reads no other lane
                 launched += bt * T * (it - start)
+                on_tiles += bt * T * (it - start) if T > 1 else 0
                 bt, start = -(-live // T2), it
                 src = torch.cat([keep, keep[:1].expand(bt * T2 - live)])
                 state = [x for x in tiled() if x is not None and x.ndim > 0]
@@ -425,8 +459,9 @@ class MinSumDecode(torch.nn.Module):
                 count("minsum_compactions")
                 count("minsum_compact_bytes", sum(_nbytes(x) for x in (*tiled(), *rows())))
         # lanes launched (tile padding and ensemble members included) times
-        # the iterations run, summed over the widths held
+        # the iterations run, summed over the widths held; the tiled part
         count("minsum_lane_iters_launched", launched + bt * T * (it - start))
+        count("minsum_lane_iters_tiled", on_tiles + (bt * T * (it - start) if T > 1 else 0))
         if out is None:
             return results()
         flush(torch.arange(Bc, device=device))

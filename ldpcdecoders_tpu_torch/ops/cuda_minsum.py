@@ -26,13 +26,17 @@ first (codes/graph.py).  ``chk_deg`` / ``var_deg`` pass the degrees
 them, which reads the result back to the host.
 
 ``lane_tile`` (64 or 128; :func:`minsum_check_cuda` gathered,
-:func:`minsum_check_iter_cuda`, and :func:`minsum_var_iter_cuda` without
-``nu``, ``W`` or ``gamma``) takes the check layout's state lane-tiled: every
-per-lane argument in its tiled form ``[B / T, *rest, T]``
-(ops/minsum.py :func:`~ops.minsum.tile_lanes`), B a multiple of T, so that a
-warp of the kernels reads 32 lanes of one node (csrc/minsum.cu, "Lane
-tiles").  ``<wrapper>.routes`` counts the launches by layout:
-``"lane_major"`` (``lane_tile=1``) and ``"lane_tiled"``.
+:func:`minsum_check_iter_cuda`, and :func:`minsum_var_iter_cuda`) takes
+``MinSumDecode``'s state lane-tiled, in either layout: every per-lane
+argument in its tiled form ``[B / T, *rest, T]`` (ops/minsum.py
+:func:`~ops.minsum.tile_lanes`), B a multiple of T, so that a warp of the
+kernels reads 32 lanes of one node (csrc/minsum.cu, "Lane tiles").
+:func:`minsum_var_iter_cuda` on tiles takes the check layout's form (no
+``nu``: the totals and the freeze) and the variable layout's (``nu`` in
+place, with ``W`` and every ``gamma`` kind).  ``<wrapper>.routes`` counts
+the launches by layout: ``"lane_major"`` (``lane_tile=1``) and
+``"lane_tiled"``, and for :func:`minsum_var_iter_cuda` the variable
+layout's form on tiles apart, ``"lane_tiled_nu"``.
 """
 
 from __future__ import annotations
@@ -145,9 +149,9 @@ def _tail(lane_tile):
     return () if lane_tile == 1 else (lane_tile,)
 
 
-def _count(wrapper, lane_tile):
+def _count(wrapper, lane_tile, tiled_route="lane_tiled"):
     wrapper.launches += 1
-    wrapper.routes["lane_major" if lane_tile == 1 else "lane_tiled"] += 1
+    wrapper.routes["lane_major" if lane_tile == 1 else tiled_route] += 1
 
 
 def _launch(fn, what, x, *args):
@@ -355,11 +359,13 @@ def minsum_var_iter_cuda(mu_flat, v2c, var_mask, L0, *, W=None, nu=None, gamma=N
         [B, n]`` in the message dtype: the lanes not done take
         ``err = total < 0`` and ``llrs = total`` (``llrs`` must not alias
         ``L0``).
-      lane_tile: 1, or 64 / 128 (no ``nu``, ``W`` or ``gamma``: the
-        check layout's form): ``mu_flat [B / T, dc*m, T]``, ``L0``,
-        ``total``, ``err`` and ``llrs [B / T, n, T]``, ``done [B / T, T]``;
-        the kernel loads and stores a thread's T / 32 lanes as one vector,
-        so ``mu_flat``, ``L0`` and ``total`` must be 16-byte aligned.
+      lane_tile: 1, or 64 / 128: ``mu_flat [B / T, dc*m, T]``, ``L0``,
+        ``total``, ``err`` and ``llrs [B / T, n, T]``, ``done [B / T, T]``,
+        ``nu [B / T, dv, n, T]``, ``gamma`` ``[B / T, T]`` or ``[B / T, n,
+        T]`` (0-dim as it is); ``W`` only with ``nu`` (the variable
+        layout's form).  The kernel loads and stores a thread's T / 32
+        lanes as one vector, so ``mu_flat``, ``L0``, ``total``, ``nu`` and a
+        ``[B, n]`` ``gamma`` must be 16-byte aligned.
     """
     on_cpu = _messages("mu_flat", mu_flat)
     tail = _tail(lane_tile)
@@ -368,16 +374,16 @@ def minsum_var_iter_cuda(mu_flat, v2c, var_mask, L0, *, W=None, nu=None, gamma=N
                          f"{tuple(mu_flat.shape)}")
     if (done is None) != (err is None) or (done is None) != (llrs is None):
         raise ValueError("done, err and llrs go together")
-    if tail and (nu is not None or W is not None or gamma is not None):
-        raise ValueError("lane tiles take the check layout's form: no nu, W or gamma")
+    if tail and nu is None and W is not None:
+        raise ValueError("lane tiles take W with nu only (the variable layout's form)")
     if on_cpu:
         return var_iter_ref(mu_flat, v2c, var_mask, L0, W=W, nu=nu, gamma=gamma, total=total,
                             done=done, err=err, llrs=llrs, lane_tile=lane_tile)
     B, dv, n, L0, deg = _var_common(mu_flat, v2c, var_mask, L0, W, var_deg, tail)
     dtype, device = mu_flat.dtype, mu_flat.device
-    g_ptr, g_kind, g_stride = _gamma(gamma, nu, B, n, (B, dv, n), dtype, device)
+    g_ptr, g_kind, g_stride = _gamma(gamma, nu, B, n, (B, dv, n, *tail), dtype, device, tail)
     if nu is not None:
-        _check("nu", nu, (B, dv, n), dtype, device)
+        _check("nu", nu, (B, dv, n, *tail), dtype, device)
     if total is not None:
         _check("total", total, (B, n, *tail), dtype, device)
     if done is not None:
@@ -386,8 +392,9 @@ def minsum_var_iter_cuda(mu_flat, v2c, var_mask, L0, *, W=None, nu=None, gamma=N
         _check("llrs", llrs, (B, n, *tail), dtype, device)
         if llrs.data_ptr() == L0.data_ptr():
             raise ValueError("llrs must not alias L0")
-    if tail and any(t.data_ptr() % 16 for t in (mu_flat, L0, total) if t is not None):
-        raise ValueError("lane-tiled mu_flat, L0 and total must be 16-byte aligned")
+    if tail and any(t.data_ptr() % 16 for t in (mu_flat, L0, total, nu, gamma)
+                    if t is not None and t.ndim > 0):
+        raise ValueError("lane-tiled mu_flat, L0, total, nu and gamma must be 16-byte aligned")
     if B == 0:
         return total
     _launch("ldpc_minsum_var", "minsum_var_iter", mu_flat,
@@ -395,7 +402,7 @@ def minsum_var_iter_cuda(mu_flat, v2c, var_mask, L0, *, W=None, nu=None, gamma=N
             _ptr(nu), 0 if nu is None else 2, g_ptr, g_kind, g_stride, _ptr(total),
             _ptr(done), _ptr(err), _ptr(llrs), B * lane_tile, n, dv, mu_flat.shape[1],
             lane_tile)
-    _count(minsum_var_iter_cuda, lane_tile)
+    _count(minsum_var_iter_cuda, lane_tile, "lane_tiled" if nu is None else "lane_tiled_nu")
     return total
 
 
@@ -403,4 +410,5 @@ for _wrapper in (minsum_check_cuda, minsum_check_iter_cuda, minsum_var_cuda,
                  minsum_var_iter_cuda):
     _wrapper.launches = 0
     _wrapper.routes = {"lane_major": 0, "lane_tiled": 0}
+minsum_var_iter_cuda.routes["lane_tiled_nu"] = 0
 del _wrapper

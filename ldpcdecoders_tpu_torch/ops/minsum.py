@@ -167,15 +167,16 @@ def gather_lanes_ref(x: torch.Tensor, lane_tile: int, lane_tile_out: int,
     """The lanes ``lanes`` (indices into the lanes of ``x``, a multiple of
     ``lane_tile_out`` of them) of the tiled ``x [bt, *rest, T]`` (T = 1:
     ``[B, *rest]``), tiled by ``lane_tile_out``: ``[len(lanes) / T2, *rest,
-    T2]``, in one indexed copy."""
+    T2]``.  Between tilings, an indexed copy into ``[*rest, bt2, T2]`` (two
+    index tensors of ``[bt2, T2]``: a card materializes no index of the
+    state's size) and one transposing copy."""
     T, T2 = lane_tile, lane_tile_out
     if T == 1 and T2 == 1:
         return x.index_select(0, lanes)
     rest = x.shape[1:-1] if T > 1 else x.shape[1:]
     R, bt2 = rest.numel(), lanes.shape[0] // T2
-    tile, lane = (lanes // T).view(bt2, 1, T2), (lanes % T).view(bt2, 1, T2)
-    pos = torch.arange(R, device=x.device).view(1, R, 1)
-    y = x.reshape(x.shape[0], R, T)[tile, pos, lane]
+    tile, lane = (lanes // T).view(bt2, T2), (lanes % T).view(bt2, T2)
+    y = x.reshape(x.shape[0], R, T).transpose(0, 1)[:, tile, lane].transpose(0, 1).contiguous()
     return y.reshape(bt2, *rest, T2) if T2 > 1 else y.reshape(bt2, *rest)
 
 

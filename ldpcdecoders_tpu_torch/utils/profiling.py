@@ -8,7 +8,10 @@ Counterpart of ``ldpcdecoders_tpu/utils/profiling.py`` on
   :func:`count` adds to a counter of the call; :func:`to_host`,
   :func:`host_int` and :func:`to_device` are the path's copies between
   the host and the decoder's device, counted as ``host_reads``,
-  ``d2h_bytes`` and ``h2d_bytes``.
+  ``d2h_bytes`` and ``h2d_bytes``.  The decoders count their own work
+  beside them, as the min-sum loop's ``minsum_lane_iters_launched`` (lanes
+  launched times iterations) and ``minsum_lane_iters_tiled`` (the part of
+  it that ran on lane tiles).
 * Recording is on inside :func:`recording`, which yields its
   :class:`Recorder`, and while a ``torch.profiler`` session runs, whose
   record :func:`profiled` returns.  Off, :func:`span` returns one shared

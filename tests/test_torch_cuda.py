@@ -1019,6 +1019,148 @@ def test_minsum_tiled_kernels_at_the_bb144_dem_shape(dev, dtype):
     check_tiled_kernels(dev, g, dtype, x, 64)
 
 
+def check_var_inplace_tiled(dev, g, dtype, lane_tile, gamma_kind, weighted, Bp, L0=None,
+                            seed=12):
+    """K4's variable-layout form on lane tiles (leave-one-out messages in
+    place, weights, the damping mix, the totals and the freeze) against its
+    plain lane-major twin on the card, bitwise; the padded slots of nu are
+    left as they were, and the launch counts as ``lane_tiled_nu``."""
+    T = lane_tile
+    rng = np.random.default_rng(seed)
+    dc, m, dv, n = g.max_dc, g.m, g.max_dv, g.n
+    ms = pt.MinSumDecode(g, 0.05, 2, device=dev, dtype=dtype)
+    mu_flat = torch.as_tensor(rng.normal(size=(Bp, dc * m)).astype(np.float32)
+                              * 10.0 ** rng.integers(-3, 4, (Bp, dc * m)),
+                              device=dev).to(dtype)
+    if L0 is None:
+        L0 = torch.as_tensor(rng.normal(size=(Bp, n)) * 2)
+    L0 = L0.to(dev).to(dtype).contiguous()
+    nu0 = torch.as_tensor(rng.normal(size=(Bp, dv, n)).astype(np.float32) * 3,
+                          device=dev).to(dtype)
+    W = (torch.as_tensor(rng.uniform(0.3, 1.4, size=(dv, n)), device=dev).to(dtype)
+         if weighted else None)
+    gamma = gamma_for(gamma_kind, rng, Bp, n, dtype)
+    gamma = None if gamma is None else gamma.to(dev)
+    done = torch.as_tensor(rng.random(Bp) < 0.4, device=dev)
+    err0 = torch.as_tensor((rng.random((Bp, n)) < 0.5).astype(np.float32), device=dev)
+    llr0 = torch.as_tensor(rng.normal(size=(Bp, n)), device=dev).to(dtype)
+    tile = lambda t: t if t is None or t.ndim == 0 else plain_minsum.tile_lanes(t, T)  # noqa: E731
+    untile = lambda t: plain_minsum.untile_lanes(t, T)  # noqa: E731
+
+    nu_w, tot_w, err_w, llr_w = nu0.clone(), torch.empty_like(L0), err0.clone(), llr0.clone()
+    plain_minsum.var_iter_ref(mu_flat, ms.v2c, ms.var_mask, L0, W=W, nu=nu_w, gamma=gamma,
+                              total=tot_w, done=done, err=err_w, llrs=llr_w)
+    w = cuda_minsum.minsum_var_iter_cuda
+    before = dict(w.routes)
+    nu_k, tot_k, err_k, llr_k = tile(nu0), tile(torch.empty_like(L0)), tile(err0), tile(llr0)
+    assert w(tile(mu_flat), ms.v2c, ms.var_mask, tile(L0), W=W, nu=nu_k, gamma=tile(gamma),
+             total=tot_k, done=tile(done), err=err_k, llrs=llr_k, var_deg=ms.var_deg,
+             lane_tile=T) is tot_k
+    torch.cuda.synchronize()
+    assert w.routes == dict(before, lane_tiled_nu=before["lane_tiled_nu"] + 1)
+    real = ms.var_mask.reshape(-1)
+    got = bits(untile(nu_k)).reshape(Bp, -1)
+    assert torch.equal(got[:, real], bits(nu_w).reshape(Bp, -1)[:, real])
+    assert torch.equal(got[:, ~real], bits(nu0).reshape(Bp, -1)[:, ~real])
+    for a, b in ((tot_k, tot_w), (err_k, err_w), (llr_k, llr_w)):
+        assert torch.equal(bits(untile(a)), bits(b))
+
+
+@pytest.mark.parametrize("graph_name", ["heavy", "dem", "gallager"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gamma_kind", GAMMAS)
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("lane_tile", LANE_TILES)
+def test_minsum_var_inplace_tiled_kernel_matches_plain_version(dev, graph_name, dtype,
+                                                               gamma_kind, weighted, lane_tile):
+    """The variable layout's K4 on two lane tiles, every damping kind, with
+    and without weights, on variables past the registers' 12 slots and past
+    32 (summed by windows): bitwise the plain version."""
+    check_var_inplace_tiled(dev, iter_graph(graph_name), dtype, lane_tile, gamma_kind, weighted,
+                            2 * lane_tile)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gamma_kind", GAMMAS)
+@pytest.mark.parametrize("lane_tile", LANE_TILES)
+def test_minsum_var_inplace_tiled_kernel_at_the_bb144_dem_shape(dev, dtype, gamma_kind,
+                                                                 lane_tile):
+    """The variable layout's K4 on lane tiles at the bb144 R=6 DEM's shape
+    (variables of 12 slots, all in flight), two tiles, with per-edge
+    weights and every damping kind: bitwise the plain version."""
+    A, pr, _ = bb144_dem()
+    g = pt.TannerGraph.from_pcm(np.asarray(A.todense()))
+    assert g.max_dv == 12
+    L0 = torch.as_tensor(np.log((1 - pr) / pr)).expand(2 * lane_tile, -1)
+    check_var_inplace_tiled(dev, g, dtype, lane_tile, gamma_kind, True, 2 * lane_tile, L0)
+
+
+@pytest.mark.parametrize("B", [200, 256, 2048])
+def test_minsum_var_layout_decode_on_card_is_lane_major(dev, B):
+    """``MinSumDecode(layout="var")`` at the BP+OSD cell's inner settings
+    (damping 0.4, a check every iteration) on the bb144 R=6 DEM, records
+    drawn from its priors: the batch's own tiles (``MinSumDecode._tile``:
+    128 lanes at 200, 256 and 2048; narrower, and lane-major where the
+    lanes' messages fit L2, where the loop compacts) bitwise the lane-major
+    decode (``_lane_tile=1``) on every output, K4's variable-layout form
+    launched on tiles."""
+    from ldpcdecoders_tpu_torch.utils import profiling
+
+    A, pr, _ = bb144_dem()
+    g = pt.TannerGraph.from_pcm(np.asarray(A.todense()))
+    rng = np.random.default_rng(B)
+    x = rng.random((B, g.n)) < pr
+    syn = torch.as_tensor(((A @ x.T.astype(np.int64)).T % 2).astype(np.uint8), device=dev)
+    outs = {}
+    for T in (None, 1):
+        ms = pt.MinSumDecode(g, pr, 120, device=dev, damping=0.4, _lane_tile=T)
+        wrappers = (cuda_minsum.minsum_check_cuda, cuda_minsum.minsum_var_iter_cuda)
+        before = [dict(w.routes) for w in wrappers]
+        with profiling.recording() as rec:
+            outs[T] = [t.cpu() for t in ms(syn)]
+        c = rec.counters
+        if T is None:
+            assert ms._tile(B, dev) == 128
+            assert 0 < c["minsum_lane_iters_tiled"] <= c["minsum_lane_iters_launched"]
+            assert wrappers[0].routes["lane_tiled"] > before[0]["lane_tiled"]
+            assert wrappers[1].routes["lane_tiled_nu"] > before[1]["lane_tiled_nu"]
+        else:
+            assert c["minsum_lane_iters_tiled"] == 0
+            for w, b in zip(wrappers, before):
+                assert w.routes == dict(b, lane_major=w.routes["lane_major"])
+    for a, b in zip(outs[None], outs[1]):
+        assert torch.equal(bits(a) if a.is_floating_point() else a,
+                           bits(b) if b.is_floating_point() else b)
+    conv = outs[1][1]
+    assert conv.any() and not conv.all(), "the case needs lanes on both sides"
+
+
+def test_bposd_cs_inner_on_tiles_is_lane_major_on_card(dev):
+    """BP+OSD-CS through ``DetectorGraphDecoder`` as the BP+OSD cell runs it
+    (portbench/configs/bb144_r6_bposd_cs.json: min-sum inner damped by 0.4,
+    1,000 iterations, the device OSD-CS of order 40 on the failed lanes), on
+    256 records drawn from the DEM's priors: bitwise the same decoder with
+    its inner decode forced lane-major."""
+    A, pr, O = bb144_dem()
+    rng = np.random.default_rng(25)
+    x = rng.random((256, A.shape[1])) < pr
+    det = ((A @ x.T.astype(np.int64)).T % 2).astype(np.uint8)
+    kw = dict(observables=O, device=dev, decoder="bposd", inner="minsum", damping=0.4,
+              osd_order=40, osd_method="combination_sweep", osd_scope="failed")
+    outs = []
+    for T in (None, 1):
+        dec = pt.DetectorGraphDecoder(A.astype(np.uint8), pr, 1000, **kw)
+        dec.inner.bp._lane_tile = T
+        before = cuda_minsum.minsum_var_iter_cuda.routes["lane_tiled_nu"]
+        outs.append(dec.batch_decode_detailed(det))
+        tiled = cuda_minsum.minsum_var_iter_cuda.routes["lane_tiled_nu"] - before
+        assert (tiled > 0) == (T is None)
+    (err_t, conv_t, iters_t, *_), (err_l, conv_l, iters_l, *_) = outs
+    assert np.array_equal(err_t, err_l) and np.array_equal(conv_t, conv_l)
+    assert np.array_equal(iters_t, iters_l)
+    assert not conv_l.all(), "the case needs lanes that reach the OSD"
+
+
 def test_minsum_tiled_launch_failure_raises(dev, monkeypatch):
     """A tiled launch the library refuses (a tile it was not built for)
     raises: no wrapper falls back to the plain version or to lane-major
@@ -1083,21 +1225,22 @@ def test_minsum_decode_tiled_on_card_matches_cpu(dev, config):
         assert w.routes["lane_tiled"] > before["lane_tiled"]
 
 
-@pytest.mark.parametrize("config", ["stage0", "deep"])
+@pytest.mark.parametrize("config", ["stage0", "deep", "var"])
 def test_minsum_compaction_on_card(dev, config, monkeypatch):
-    """The check-layout loop narrows its state at its checks, at the bb144
-    R=6 DEM's shape in the staged decoder's two inner configurations (96
-    iterations checked every 8): 256 records picked from a seeded pool by
+    """The loop narrows its state at its checks, at the bb144 R=6 DEM's
+    shape in the staged decoder's two inner configurations (check layout)
+    and in the variable layout damped by 0.4 (96 iterations checked every
+    8): 256 records picked from a seeded pool by
     how they converge, 80 empty (done at the first check), 120 that
     converge from iteration 24 on, 56 that never do, start on 128-lane
-    tiles, narrow to 64-lane tiles and end lane-major within one decode
+    tiles, narrow to 64-lane tiles and end lane-major (the check layout;
+    the variable layout keeps 56 lanes on a 64-lane tile) within one decode
     (the rule's costs set to 0, so that it narrows wherever the width
     shrinks: the rule itself is tests/test_torch_minsum.py's).
     Every output is bitwise each lane decoded alone on the card and the
     batch decoded with the kernels' plain versions on the card; the
     lane-iterations launched are the sum of the widths' segments."""
     from ldpcdecoders_tpu_torch.models import minsum as minsum_module
-    from ldpcdecoders_tpu_torch.models.minsum import lane_tile_for
     from ldpcdecoders_tpu_torch.utils import profiling
 
     monkeypatch.setattr(minsum_module, "_GATHER_LANE_ITERS", 0.0)
@@ -1109,12 +1252,12 @@ def test_minsum_compaction_on_card(dev, config, monkeypatch):
     kw, dtype = dict(damping=0.4), torch.float32
     if config == "deep":
         kw, dtype = dict(lane_damping=True, track_best=True), torch.bfloat16
-    ms = pt.MinSumDecode(g, float(pr.mean()), 96, device=dev, dtype=dtype, layout="check",
-                         check_every=8, **kw)
+    ms = pt.MinSumDecode(g, float(pr.mean()), 96, device=dev, dtype=dtype,
+                         layout="var" if config == "var" else "check", check_every=8, **kw)
     pool = 3072
     x = rng.random((pool, g.n)) < pr * rng.choice([1.0, 2.0, 3.0, 8.0], pool)[:, None]
     syn_pool = torch.as_tensor(((A @ x.T.astype(np.int64)).T % 2).astype(np.uint8), device=dev)
-    gam_pool = (None if config == "stage0" else torch.as_tensor(
+    gam_pool = (None if config != "deep" else torch.as_tensor(
         rng.uniform(-0.24, 0.66, (pool, g.n)), dtype=torch.float32, device=dev))
     _, conv, iters, _ = ms(syn_pool, None, gam_pool, early_exit=False)
     # the earliest 120 to converge from iteration 24 on: done well before the
@@ -1143,19 +1286,22 @@ def test_minsum_compaction_on_card(dev, config, monkeypatch):
                            bits(c) if c.is_floating_point() else c)
     conv, iters = got[1], got[2]
     # the segments: each compaction after a check narrows the width to the
-    # lanes not done there, on their tile
-    tiles, total, start, t, width = [lane_tile_for(256)], 0, 0, 0, 256
+    # lanes not done there, on the tile the loop's rule gives (by layout)
+    tiles, total, on_tiles, start, t, width = [ms._tile(256, dev)], 0, 0, 0, 0, 256
     for s in rec.spans:
         if s.name == "ldpc.minsum.check":
             t += 8
         elif s.name == "ldpc.minsum.compact":
             live = int((~(conv & (iters <= t))).sum())
-            tiles.append(lane_tile_for(live))
             total += width * (t - start)
+            on_tiles += width * (t - start) if tiles[-1] > 1 else 0
+            tiles.append(ms._tile(live, dev))
             start, width = t, -(-live // tiles[-1]) * tiles[-1]
-    assert tiles[:2] == [128, 64] and tiles[-1] == 1, tiles
+    assert tiles[:2] == [128, 64] and tiles[-1] == (64 if config == "var" else 1), tiles
     assert len(tiles) - 1 == rec.counters["minsum_compactions"]
     assert rec.counters["minsum_lane_iters_launched"] == total + width * (t - start)
+    on_tiles += width * (t - start) if tiles[-1] > 1 else 0
+    assert rec.counters["minsum_lane_iters_tiled"] == on_tiles > 0
 
 
 def test_minsum_stage_plan_is_the_launchers(dev):

@@ -125,12 +125,13 @@ def mixed_records(A, B, seed):
     return ((x.astype(np.int64) @ A.T) % 2).astype(np.uint8)
 
 
-def lane_iters_launched(spans, conv, iters, max_iters, check_every, tile):
+def lane_iters_launched(spans, conv, iters, max_iters, check_every, tile, tiled_only=False):
     """The loop's lane-iterations, segment by segment: each
     ``ldpc.minsum.compact`` span after a check narrows the width to the
     lanes not done there (not converged by that check's iteration), padded
-    to ``tile(live)`` lanes."""
-    padded = lambda k: -(-k // tile(k)) * tile(k)  # noqa: E731
+    to ``tile(live)`` lanes.  ``tiled_only``: the lane-major segments count
+    0 (``minsum_lane_iters_tiled``)."""
+    padded = lambda k: -(-k // tile(k)) * tile(k) * (tile(k) > 1 or not tiled_only)  # noqa: E731
     grid = [t for t in range(1, max_iters + 1) if t % check_every == 0 or t >= max_iters]
     width, start, k, t, total = padded(len(iters)), 0, 0, 0, 0
     for name in spans:
@@ -164,6 +165,11 @@ COMPACT_CASES = {
                         "cpu"),
     "var_edge_weights_alpha": (dict(edge_weights="weights_pow2", alpha="alpha"), None,
                                torch.float32, 3, 48, "cpu"),
+    "var_damped_tiles": (dict(damping=0.5), None, torch.float32, 1, 256, "card"),
+    "var_lane_Bn_best_tiles": (dict(lane_damping=True, track_best=True), "var_exact",
+                               torch.bfloat16, 3, 256, "card"),
+    "var_edge_weights_alpha_tiles": (dict(edge_weights="weights_pow2", alpha="alpha"), None,
+                                     torch.float32, 1, 200, "card"),
     "converged_at_once": (dict(layout="check", damping=0.5), None, torch.float32, 3, 48,
                           "cpu"),
 }
@@ -209,6 +215,8 @@ def test_compacted_decode_matches_reference_op_by_op(monkeypatch, name):
     conv, iters = got[1], got[2]
     launched = lane_iters_launched(names, conv, iters, max_iters, check_every, tile)
     assert rec.counters["minsum_lane_iters_launched"] == launched
+    assert rec.counters["minsum_lane_iters_tiled"] == lane_iters_launched(
+        names, conv, iters, max_iters, check_every, tile, tiled_only=True)
     if name == "converged_at_once":
         assert names.count("ldpc.minsum.check") == 1 and compactions == 0
         assert bool(conv.all()) and launched == B * check_every

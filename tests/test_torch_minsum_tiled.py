@@ -36,6 +36,7 @@ from ldpcdecoders_tpu_torch.ops import cuda_minsum
 from ldpcdecoders_tpu_torch.ops.minsum import (
     check_iter_ref,
     check_update_ref,
+    gather_lanes_ref,
     tile_lanes,
     untile_lanes,
     var_iter_ref,
@@ -86,6 +87,22 @@ def test_tile_lanes_round_trip(B, lane_tile, rest):
     # lane b's entry sits at [b // T, ..., b % T]
     b = B - 1
     assert torch.equal(t[b // lane_tile, ..., b % lane_tile], x[b])
+
+
+@pytest.mark.parametrize("tiles", [(1, 64), (64, 1), (128, 64), (64, 128), (128, 128)])
+@pytest.mark.parametrize("rest", [(), (7,), (3, 5)])
+def test_gather_lanes_between_tilings(tiles, rest):
+    """``gather_lanes_ref`` takes the listed lanes (reordered, repeated) of
+    a tiled tensor into another tiling: its untiled form is those lanes'
+    rows, bitwise."""
+    T, T2 = tiles
+    B, k = 300, 2 * T2 if T2 > 1 else 7
+    x = torch.randn(B, *rest)
+    lanes = torch.as_tensor(np.random.default_rng(T + T2).permutation(B)[:k - 3])
+    lanes = torch.cat([lanes, lanes[:1].expand(3)])
+    got = gather_lanes_ref(tile_lanes(x, T), T, T2, lanes)
+    assert got.shape == ((2, *rest, T2) if T2 > 1 else (k, *rest)) and got.is_contiguous()
+    assert torch.equal(untile_lanes(got, T2), x[lanes])
 
 
 def setup(dtype, B, seed=4):
@@ -190,10 +207,45 @@ def test_lane_tile_for(B, want):
     assert lane_tile_for(B) == want
 
 
-def test_var_layout_stays_lane_major():
+@pytest.mark.parametrize("B,want", [(1, 1), (16, 1), (20, 1), (21, 64), (48, 64), (63, 64),
+                                    (64, 64), (200, 128), (2048, 128)])
+def test_var_layout_tiles_where_its_messages_outgrow_l2(monkeypatch, B, want):
+    """On a card the variable layout is lane-major while its lanes'
+    messages (a row of nu and one of mu each, in the message dtype) fit the
+    card's L2, and past that takes lane_tile_for's tile, 64 lanes below 64;
+    the check layout keeps lane_tile_for; the CPU stays lane-major.  The L2
+    here holds 20 float32 lanes (40 in bfloat16)."""
     A, pr = small_dem()
-    mod = pt.MinSumDecode(pt.TannerGraph.from_pcm(A), pr, 4, device="cpu", _lane_tile=64)
-    assert mod._lane_tile == 1
+    g = pt.TannerGraph.from_pcm(A)
+    card, cpu = torch.device("cuda"), torch.device("cpu")
+    row = (g.max_dv * g.n + g.max_dc * g.m) * 4
+    monkeypatch.setattr(minsum_module, "_l2_bytes", lambda device: 20 * row)
+    var = pt.MinSumDecode(g, pr, 2, device="cpu")
+    var16 = pt.MinSumDecode(g, pr, 2, device="cpu", dtype=torch.bfloat16)
+    check = pt.MinSumDecode(g, pr, 2, device="cpu", layout="check")
+    assert var._tile(B, card) == want and var._tile(B, cpu) == 1
+    assert var16._tile(B, card) == (1 if B <= 40 else want)
+    assert check._tile(B, card) == lane_tile_for(B)
+
+
+def test_var_layout_stays_lane_major(monkeypatch):
+    """The variable layout stays lane-major on the CPU at any batch, as the
+    check layout does; a forced tile tiles its state (a card picks the tile
+    by batch in both layouts: tests/test_torch_cuda.py)."""
+    A, pr = small_dem()
+    g = pt.TannerGraph.from_pcm(A)
+    mod = pt.MinSumDecode(g, pr, 4, device="cpu")
+    assert mod._lane_tile is None and mod._tile(2048, torch.device("cpu")) == 1
+    seen = []
+    real = minsum_module.tile_lanes
+    monkeypatch.setattr(minsum_module, "tile_lanes",
+                        lambda x, T, *a: seen.append(T) or real(x, T, *a))
+    syn = torch.zeros((128, g.m), dtype=torch.uint8)
+    mod(syn)
+    assert seen and set(seen) == {1}
+    seen.clear()
+    pt.MinSumDecode(g, pr, 2, device="cpu", _lane_tile=64)(syn)
+    assert seen and set(seen) == {64}
 
 
 def test_cpu_decode_stays_lane_major(monkeypatch):
@@ -270,10 +322,9 @@ def test_tiled_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="lane-tiled"):
         cuda_minsum.minsum_check_iter_cuda(mu[..., 0], L0, ms.chk_varidx, tile_lanes(syn, 64),
                                            ms.chk_mask, 1.0, 0.0, lane_tile=64)
-    with pytest.raises(ValueError, match="no nu, W or gamma"):
+    with pytest.raises(ValueError, match="W with nu only"):
         cuda_minsum.minsum_var_iter_cuda(mu.reshape(1, dc * m, 64), ms.v2c, ms.var_mask, L0,
-                                         nu=torch.zeros((1, g.max_dv, n, 64)),
-                                         gamma=ms.gam, lane_tile=64)
+                                         W=torch.ones((g.max_dv, n)), lane_tile=64)
     with pytest.raises(ValueError, match="lane-tiled"):
         cuda_minsum.minsum_var_iter_cuda(mu.reshape(dc * m, 64), ms.v2c, ms.var_mask, L0,
                                          lane_tile=64)

@@ -4,6 +4,22 @@ revision's source and against other builds of the tree's.
 
     python3 tools/minsum_kernel_compare.py --parent OTHER/minsum.cu
         [--tiles 128,64] [--variant NAME=VALUE ...] [--out FILE]
+    python3 tools/minsum_kernel_compare.py --layout var [--tiles 128,64]
+        [--batches 2048,256,48] [--code dem|gallager] [--out FILE]
+
+``--layout var`` times the variable layout instead (no ``--parent``
+needed; one is timed lane-major beside the tree where given): at the bb144
+R=6 DEM's shape in float32, as the BP+OSD configuration runs it (damping
+0.4, the freeze every iteration), K3's gathered form from ``nu`` and K4's
+in-place form (leave-one-out messages, the damping mix, the freeze), each
+on lane tiles against the tree's own lane-major form in turns, and
+``MinSumDecode(layout="var")`` over 24 iterations checked every one; at
+the batches of ``--batches`` (by default 2048 lanes, 256, the
+configuration's tail of failing lanes, and 48, below the check layout's
+smallest tile); ``--code gallager`` the same on the (1000, 10, 9) Gallager
+code at per 0.05, whose rows fit in L2 lane-major.  Each
+line gives the kernel's bound (bytes at 3.35 TB/s against operations at
+67e12/s) and the time per lane-iteration.
 
 ``--parent`` takes a ``csrc/minsum.cu`` whose launchers have the tree's
 interface without the trailing ``lane_tile`` argument (a lane-major
@@ -22,8 +38,8 @@ seeded records, and batches that the tile rule sizes down (a (q) relay
 leg of 6 x 32 lanes on 64-lane tiles; below a tile, where the rule keeps
 them lane-major: float32 batches of 24 and 48, a bfloat16 batch of 48 with
 per-variable gammas); and the (1000, 10, 9) Gallager
-code at B=1024 in the variable layout (K3 gathered, K4 damped in place:
-lane-major callers, which must be unchanged).  The forms: K3's first
+code at B=1024 in the variable layout (K3 gathered, K4 damped in place,
+lane-major: the parent's forms, which must be unchanged).  The forms: K3's first
 iteration (gathered from L0), K3's iteration form (the launcher's choice,
 staged or flat, for the lane-major layout), K4's totals, K4's totals with
 the freeze (every second lane done), and ``MinSumDecode`` in the staged
@@ -221,7 +237,9 @@ def decoder(s: Setting):
     return f"MinSumDecode, {ITERS} iterations, check every {CHECK_EVERY}", make
 
 
-def settings(dev):
+def dem_inputs(dev):
+    """The bb144 R=6 p=0.003 DEM's graph, 2048 seeded records' detection
+    events and its prior LLRs, on ``dev``."""
     import scipy.sparse as sp
 
     z = np.load(ROOT / "benchmarks/results/bb144_r6_p0.003.npz")
@@ -230,7 +248,87 @@ def settings(dev):
     pr = z["priors"]
     x = (np.random.default_rng(21).random((2048, dem.n)) < pr).astype(np.float32)
     det = torch.as_tensor((x @ A.T.toarray().astype(np.float32)) % 2 == 1, device=dev)
-    llr = torch.as_tensor(np.log((1 - pr) / pr), device=dev)
+    return dem, det, torch.as_tensor(np.log((1 - pr) / pr), device=dev)
+
+
+PEAK_BYTES_PER_S, PEAK_F32_OPS_PER_S = 3.35e12, 67e12
+
+
+def var_inputs(dev, code):
+    """The graph, 2048 seeded records' syndromes and the prior LLRs of
+    ``code``: the bb144 R=6 p=0.003 DEM, or the (1000, 10, 9) Gallager code
+    at per 0.05."""
+    if code == "dem":
+        return dem_inputs(dev)
+    gal = pt.TannerGraph.from_pcm(pt.parity_check_matrix(1000, 10, 9, rng=42))
+    errs = np.random.default_rng(0).random((2048, gal.n)) < 0.05
+    flip = torch.as_tensor(((errs.astype(np.float32) @ gal.H.T.astype(np.float32)) % 2) == 1,
+                           device=dev)
+    return gal, flip, torch.full((gal.n,), float(np.log(0.95 / 0.05)), device=dev)
+
+
+def var_layout_cases(dev, batches, code="dem"):
+    """(label, make(T), lanes, bound line, lane-iterations) of the variable
+    layout at ``code`` (:func:`var_inputs`) in float32, damping 0.4, at each
+    batch of ``batches``: K3 gathered from nu, K4 in place with the freeze
+    (every second lane done), and the decode; ``make(T)`` as in
+    :func:`forms`."""
+    dem, det, llr = var_inputs(dev, code)
+    m, dv, n = dem.m, dem.max_dv, dem.n
+    name = "bb144 DEM" if code == "dem" else "Gallager (1000, 10, 9)"
+    for B in batches:
+        ms = pt.MinSumDecode(dem, 0.01, 2, device=dev, damping=0.4)
+        E, size = int(ms.var_mask.sum()), 4
+        L0 = torch.broadcast_to(llr.to(torch.float32), (B, n)).contiguous()
+        flip = det[:B].contiguous()
+        nu0 = L0[:, None, :].expand(B, dv, n).contiguous()
+        mu0 = cuda_minsum.minsum_check_cuda(nu0.reshape(B, -1), ms.c2v, flip, ms.chk_mask,
+                                            ms.alpha, 0.0, chk_deg=ms.chk_deg)
+        done = torch.arange(B, device=dev) % 2 == 1
+
+        def tile(t, T):
+            return t if t.ndim == 0 else tile_lanes(t, T)
+
+        def k3(T, nu0=nu0, flip=flip, ms=ms, B=B):
+            x, f = tile(nu0, T).reshape(-1, dv * n, *((T,) if T > 1 else ())), tile(flip, T)
+            return lambda: (cuda_minsum.minsum_check_cuda(x, ms.c2v, f, ms.chk_mask, ms.alpha,
+                                                          0.0, chk_deg=ms.chk_deg, lane_tile=T),)
+
+        def k4(T, nu0=nu0, mu0=mu0, L0=L0, done=done, ms=ms, B=B):
+            mu = tile(mu0.reshape(B, -1), T)
+            nu, L0t = tile(nu0.clone(), T), tile(L0, T)
+            err, llrs = tile(torch.zeros((B, n), device=dev), T), L0t.clone()
+            done_t = tile(done, T)
+            return lambda: (cuda_minsum.minsum_var_iter_cuda(
+                mu, ms.v2c, ms.var_mask, L0t, nu=nu, gamma=ms.gam, done=done_t, err=err,
+                llrs=llrs, var_deg=ms.var_deg, lane_tile=T), nu, err, llrs)
+
+        def decode(T, flip=flip, L0=L0):
+            dec = pt.MinSumDecode(dem, 0.01, ITERS, device=dev, damping=0.4, _lane_tile=T)
+            return lambda: dec(flip, L0, early_exit=False)
+
+        # the least the functions need: K3 reads nu and writes mu at the
+        # real slots (K4 reads no padded slot of mu) and reads the syndrome,
+        # 14 operations an edge; K4 gathers mu, reads and writes nu at the
+        # real slots, reads L0 and writes the active lanes' err / llrs, 5
+        # operations an edge (the sum, the difference, the mix's two
+        # products and its sum)
+        active = int((~done).sum())
+        b3 = (B * (2 * E * size + m), 14 * B * E)
+        b4 = (B * (3 * E * size + n * size + 1) + active * n * (4 + size), 5 * B * E)
+        for label, make, (nb, ops), per_iter in (
+                (f"B={B} K3 gathered from nu", k3, b3, 1),
+                (f"B={B} K4 in place, damping 0.4, freeze", k4, b4, 1),
+                (f"B={B} MinSumDecode(layout='var'), {ITERS} iterations", decode,
+                 (ITERS * (b3[0] + b4[0]), ITERS * (b3[1] + b4[1])), ITERS)):
+            least = max(nb / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S) * 1e3
+            note = (f"bound {least:.4f} ms ({nb / B / per_iter / 1e6:.3f} MB a lane-iteration, "
+                    f"{'bytes' if nb / PEAK_BYTES_PER_S >= ops / PEAK_F32_OPS_PER_S else 'ops'})")
+            yield f"{name} var layout f32 {label}", make, B, note, B * per_iter
+
+
+def settings(dev):
+    dem, det, llr = dem_inputs(dev)
     L0 = torch.broadcast_to(llr.to(torch.float32), (2048, dem.n)).contiguous()
     yield Setting("bb144 DEM (p) stage-0 batch f32 B=2048, damping 0.4", dem, 2048,
                   torch.float32, None, det, L0, dev)
@@ -255,7 +353,7 @@ def settings(dev):
 
 
 def gallager_cases(dev):
-    """The variable layout (lane-major only) at the Gallager code: K3
+    """The variable layout's lane-major forms at the Gallager code: K3
     gathered and K4 damped in place, float32 and bfloat16."""
     gal = pt.TannerGraph.from_pcm(pt.parity_check_matrix(1000, 10, 9, rng=42))
     errs = np.random.default_rng(0).random((1024, 1000)) < 0.05
@@ -294,8 +392,14 @@ def same(a, b, real=None):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", type=Path, required=True,
+    ap.add_argument("--parent", type=Path,
                     help="a minsum.cu whose launchers lack the trailing lane_tile")
+    ap.add_argument("--layout", choices=("check", "var"), default="check",
+                    help="the check layout's cases (needs --parent) or the variable layout's")
+    ap.add_argument("--batches", default="2048,256,48",
+                    help="--layout var: the batches, in lanes")
+    ap.add_argument("--code", choices=("dem", "gallager"), default="dem",
+                    help="--layout var: the bb144 R=6 DEM or the (1000, 10, 9) Gallager code")
     ap.add_argument("--tiles", default="128,64", help="lane tiles to time, the first as the tree's")
     ap.add_argument("--variant", action="append", default=[],
                     help="NAME=VALUE: the tree's source built with -DNAME=VALUE")
@@ -309,8 +413,12 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     _, _, tree_log = _build.build_library()
     print(f"tree: registers {registers(tree_log) or 'not in the log (a cached build)'}")
-    parent, regs = nvcc_build(args.parent, OUT_DIR / "minsum_parent.so")
-    print(f"parent {args.parent}: registers {regs}")
+    if args.parent is None and args.layout == "check":
+        ap.error("the check layout's cases take --parent")
+    parent = None
+    if args.parent is not None:
+        parent, regs = nvcc_build(args.parent, OUT_DIR / "minsum_parent.so")
+        print(f"parent {args.parent}: registers {regs}")
     src = ROOT / "ldpcdecoders_tpu_torch/csrc/minsum.cu"
     builds = []
     for i, v in enumerate(args.variant):
@@ -330,7 +438,7 @@ def main() -> int:
             return run
         return wrapped
 
-    def compare(label, variants, real=None, B=None, reps=10):
+    def compare(label, variants, real=None, B=None, reps=10, note=None, lane_iters=None):
         """``variants``: (name, make, T), the tree's first; each ``make()``
         returns a call on fresh state whose tensors are in tile T's layout:
         untiled, they are compared with the first variant's, then every
@@ -347,15 +455,40 @@ def main() -> int:
         mine = [event_ms(tree_fn, reps), event_ms(tree_fn, reps)]
         after = [event_ms(fn, reps) for fn in reversed(fns)][::-1]
         tree_ms = sum(mine) / 2
-        print(" | ".join([f"{label}: {variants[0][0]} {mine[0]:.4f} / {mine[1]:.4f} ms"]
+        per = (f" ({tree_ms * 1e3 / lane_iters:.3f} us a lane-iteration)" if lane_iters
+               else "")
+        print(" | ".join([f"{label}: {variants[0][0]} {mine[0]:.4f} / {mine[1]:.4f} ms{per}"]
                          + [f"{name} {b:.4f} / {a:.4f} ms ({(a + b) / 2 / tree_ms:.3f}x), "
                             f"bitwise equal: {k}"
                             for (name, _, _), b, a, k in zip(others, before, after, ok)]
-                         + [card]), flush=True)
-        results.append({"case": label, "tree": variants[0][0], "tree_ms": mine,
+                         + ([note] if note else []) + [card]), flush=True)
+        results.append({"case": label, "tree": variants[0][0], "tree_ms": mine, "note": note,
+                        "lane_iters": lane_iters,
                         "others": {name: {"ms": [b, a], "bitwise": k}
                                    for (name, _, _), b, a, k in zip(others, before, after, ok)}})
         return all(ok)
+
+    if args.layout == "var":
+        good = True
+        for label, make, B, note, lane_iters in var_layout_cases(
+                dev, [int(b) for b in args.batches.split(",")], args.code):
+            decode = "MinSumDecode" in label
+
+            def out(T, decode=decode):
+                return 1 if decode else T
+
+            variants = [(f"tree T={tiles[0]}", lambda make=make: make(tiles[0]), out(tiles[0])),
+                        ("tree T=1", lambda make=make: make(1), 1)]
+            variants += [(f"tree T={T}", lambda make=make, T=T: make(T), out(T))
+                         for T in tiles[1:]]
+            if parent is not None:
+                variants.append(("parent", run_in(parent, True, lambda make=make: make(1)), 1))
+            good &= compare(label, variants, None, B, 3 if decode else 10, note, lane_iters)
+            torch.cuda.empty_cache()
+        if args.out:
+            args.out.write_text(json.dumps({"card": card, "results": results}, indent=1))
+        print(f"all bitwise: {good}")
+        return 0 if good else 1
 
     good = True
     for s in settings(dev):
