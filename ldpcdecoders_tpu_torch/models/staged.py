@@ -12,9 +12,10 @@ decoding semantics, lane for lane:
     (``lane_damping``: members are ordinary batch lanes of one decode), and
     decoded deep with ``track_best``.  Each shot takes the
     syndrome-consistent member whose correction has maximum likelihood
-    (least sum of log((1-p)/p) over flipped mechanisms), picked on the
-    device.  Relay legs (``relay_legs``) re-decode the survivors with fresh
-    disordered-memory draws.
+    (least sum of log((1-p)/p) over flipped mechanisms, summed exactly),
+    picked on the device, the first member where scores tie.  Relay legs
+    (``relay_legs``) re-decode the survivors with fresh disordered-memory
+    draws.
   * **Stage 2 (host OSD)**: shots no member solved go to the native
     OSD-CS (native/gf2_osd.cpp), per member and for a posterior-free
     candidate in prior order, with the same ML pick.
@@ -28,6 +29,13 @@ host, as the reference's does (one lane of the bb144 R=6 model, 864 x
 (the reference draws with ``jax.random``, which torch cannot reproduce) and
 overlaps the host OSD, on a worker thread that touches only numpy, with
 the device work.
+
+Counters (utils/profiling.py): ``deep_lanes`` / ``deep_lanes_padded`` and
+``relay_lanes`` / ``relay_lanes_padded`` (a bucket's shots and its width,
+summed over buckets and legs); ``stage0_lane_iters`` (each shot's own
+stage-0 iterations) and ``member_lane_iters`` (each real member lane's own
+iterations in the deep and relay decodes, bucket padding left out), whose
+iteration tensors are read only while recording.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import numpy as np
 import torch
 
 from ..codes.graph import TannerGraph
-from ..utils.profiling import count, span, to_device, to_host
+from ..utils.profiling import count, count_sum, span, to_device, to_host
 from .base import Decoder, resolve_device
 from .minsum import MinSumDecode
 from .priors import next_pow2
@@ -231,10 +239,18 @@ class StagedDemDecoder(Decoder):
 
     # -- device steps -------------------------------------------------------
 
-    def _deep_step(self, det, L0, llr0_d, gam_rows, relay: bool = False):
+    def _deep_step(self, det, L0, llr0_d, gam_rows, relay: bool = False,
+                   real: int | None = None):
         """K-member deep ensemble on a ``[Bb, D]`` bucket with the
         syndrome-consistent ML pick on the device.  ``gam_rows`` is ``[K]``
-        or ``[K, N]``; ``relay`` selects the relay-leg iteration cap.
+        or ``[K, N]``; ``relay`` selects the relay-leg iteration cap;
+        ``real`` (default ``Bb``) counts the bucket's leading lanes that are
+        shots, not padding.
+
+        The score ``sum(err * llr0)`` is summed in float64: float32 terms,
+        so no partial sum rounds while their magnitudes span fewer than 53
+        bits (39 at the bb144 R=6 DEM), and the pick is the exact ML one,
+        whatever the order of the sum.
 
         Returns ``(err_pick [Bb, N] int8, solved [Bb], iters_pick [Bb],
         err3 [K, Bb, N] int8, llrs3 [K, Bb, N] float32)``."""
@@ -243,7 +259,8 @@ class StagedDemDecoder(Decoder):
         gam_t = gam_rows.repeat_interleave(Bb, dim=0)
         syn_t = det.repeat(K, 1)
         err, conv, iters, llrs = raw(syn_t, L0, gam_t)
-        score = (err.to(torch.float32) * llr0_d).sum(dim=1).reshape(K, Bb)
+        count_sum("member_lane_iters", iters.reshape(K, Bb)[:, :real])
+        score = (err.to(torch.float64) @ llr0_d.to(torch.float64)).reshape(K, Bb)
         conv2 = conv.reshape(K, Bb)
         pick = first_min_pick(torch.where(conv2, score, torch.inf))
         lanes = torch.arange(Bb, device=det.device)
@@ -280,9 +297,12 @@ class StagedDemDecoder(Decoder):
             Bb_leg = max(self.min_bucket, next_pow2(un.size))
             idxp = np.concatenate([un, np.repeat(un[:1], Bb_leg - un.size)])
             with span("ldpc.staged.relay"):
+                count("relay_lanes", un.size)
+                count("relay_lanes_padded", Bb_leg)
                 rows = to_device(self._relay_rows(leg), self.device)
                 ep, sv, it2, err3, llrs3 = self._deep_step(
-                    det[to_device(idxp, det.device)], L0, llr0_d, rows, relay=True)
+                    det[to_device(idxp, det.device)], L0, llr0_d, rows, relay=True,
+                    real=un.size)
                 # the leg's three reads in a row: one wait for the device
                 sv_np, ep_np, it_np = to_host(sv[: un.size], ep[: un.size], it2[: un.size])
                 newly = un[sv_np]
@@ -293,20 +313,24 @@ class StagedDemDecoder(Decoder):
                 pos_map[un] = np.arange(un.size)
         return err3, llrs3, pos_map
 
-    def _deep_relay(self, det_b, L0, llr0_d):
-        """Deep ensemble + relay restarts: leg 0 on the full bucket, then
-        :meth:`_run_relay` on its survivors.
+    def _deep_relay(self, det_b, L0, llr0_d, real: int):
+        """Deep ensemble + relay restarts: leg 0 on the full bucket (its
+        first ``real`` lanes shots), then :meth:`_run_relay` on its
+        survivors.
 
         Returns ``(out, solved, iters, err3, llrs3, pos_map)``, the first
         three as numpy arrays."""
         Bb = det_b.shape[0]
         err_pick, solved, it_pick, err3, llrs3 = self._deep_step(
-            det_b, L0, llr0_d, self.gamma_arg)
+            det_b, L0, llr0_d, self.gamma_arg, real=real)
         out, solved_np, iters_np = (a.copy() for a in to_host(err_pick, solved, it_pick))
         pos_map = np.arange(Bb)
-        if self.relay_legs and not solved_np.all():
+        if self.relay_legs and not solved_np[:real].all():
+            # the shots alone: the bucket's padding copies are never relayed
+            # (their rows of the numpy arrays are views, updated in place)
             err3, llrs3, pos_map = self._run_relay(
-                det_b, L0, llr0_d, out, solved_np, iters_np, err3, llrs3)
+                det_b[:real], L0, llr0_d, out[:real], solved_np[:real], iters_np[:real],
+                err3, llrs3)
         return out, solved_np, iters_np, err3, llrs3, pos_map
 
     def _gather_failed(self, err3, llrs3, pos):
@@ -418,6 +442,7 @@ class StagedDemDecoder(Decoder):
         the shots no member solved."""
         # the reads of stage 0's results belong to its span
         with span("ldpc.staged.stage0"):
+            count_sum("stage0_lane_iters", it0)
             (conv0_np,) = to_host(conv0)
             need = np.flatnonzero(~conv0_np)
             if need.size == 0:
@@ -436,7 +461,7 @@ class StagedDemDecoder(Decoder):
                 idx = np.concatenate([chunk, np.repeat(chunk[:1], Bb - chunk.size)])
                 det_b = syn[to_device(idx, syn.device)]
                 ep_np, deep_solved_f, it_np, err3, llrs3, pos_map = self._deep_relay(
-                    det_b, L0, llr0_d)
+                    det_b, L0, llr0_d, chunk.size)
                 deep_solved_np = deep_solved_f[: chunk.size]
                 out[chunk] = ep_np[: chunk.size]
                 iters[chunk] = self.stage0_iters + it_np[: chunk.size]
@@ -611,7 +636,7 @@ class StagedDemDecoder(Decoder):
                 _, det_b, obs_b, take, t_disp = item
                 det_t = torch.as_tensor(det_b, device=dev)
                 ep_d, solved_d, _, err3, llrs3 = self._deep_step(
-                    det_t, L0, llr0_d, self.gamma_arg)
+                    det_t, L0, llr0_d, self.gamma_arg, real=take)
                 ep, solved_np = to_host(ep_d, solved_d[:take])
                 deep_wall += time.perf_counter() - t_disp
                 deep_shots += take

@@ -11,7 +11,8 @@ Counterpart of ``ldpcdecoders_tpu/utils/profiling.py`` on
   ``d2h_bytes`` and ``h2d_bytes``.  The decoders count their own work
   beside them, as the min-sum loop's ``minsum_lane_iters_launched`` (lanes
   launched times iterations) and ``minsum_lane_iters_tiled`` (the part of
-  it that ran on lane tiles).
+  it that ran on lane tiles); :func:`count_sum` counts the sum of a device
+  tensor, read only while recording.
 * Recording is on inside :func:`recording`, which yields its
   :class:`Recorder`, and while a ``torch.profiler`` session runs, whose
   record :func:`profiled` returns.  Off, :func:`span` returns one shared
@@ -41,7 +42,7 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 __all__ = ["trace", "annotate", "recording", "profiled", "span", "call_span", "count",
-           "to_host", "host_int", "to_device", "settle", "Recorder", "Span", "Call"]
+           "count_sum", "to_host", "host_int", "to_device", "settle", "Recorder", "Span", "Call"]
 
 
 @dataclasses.dataclass
@@ -209,6 +210,16 @@ def count(name: str, n: int = 1) -> None:
     rec = _active()
     if rec is not None:
         _add(rec, name, n)
+
+
+def count_sum(name: str, t: torch.Tensor) -> None:
+    """Add the sum of the integer tensor ``t`` to the counter ``name``.
+    Only while recording: the sum is then read back (a wait for the device,
+    as :func:`settle`'s, and none of the path's ``host_reads``); off, ``t``
+    is not touched, so the path reads nothing more."""
+    rec = _active()
+    if rec is not None:
+        _add(rec, name, int(t.sum(dtype=torch.int64)))
 
 
 def _add(rec: Recorder, name: str, n: int) -> None:

@@ -7,9 +7,9 @@ agree bitwise on every lane, in two configurations (one gamma; three
 members with a disordered-memory pair, two relay legs, OSD-CS triples, the
 check layout and a bfloat16 deep dtype) on two DEMs (the small random DEM
 of tests/test_staged.py and ``surface_d3_r3_p005.dem``).  The deep
-ensemble's ML pick sums a lane's float32 prior weights in another order
-than XLA; a pick could then differ only where two members' scores tie
-within an ulp (none does here).
+ensemble's ML pick sums a lane's float32 prior weights exactly (in
+float64), XLA in float32; a pick could then differ only where two members'
+exact scores lie within XLA's rounding of each other (none does here).
 
 ``run_eval`` samples with ``torch.Generator`` (torch cannot reproduce
 ``jax.random``), so it is held against the port's own synchronous path on

@@ -358,3 +358,103 @@ def test_reader_without_its_inputs(profiled_ctx, name):
     ctx, _, _ = profiled_ctx
     assert reader(name)({"trace": None}) is None
     assert reader(name)({"trace": dict(ctx["trace"], calls=3)}) is None
+
+
+# -- the staged flagship: relay legs and the ensemble's work ---------------------
+
+
+def _flagship_dem(seed=3, D=48, N=260):
+    """Column weights 1-3 (every variable sums its messages one slot at a
+    time, as the benchmark's reference does) and priors of four levels."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    A = np.zeros((D, N), np.uint8)
+    for j in range(N):
+        A[rng.choice(D, rng.integers(1, 4), replace=False), j] = 1
+    return sp.csr_matrix(A), np.array([0.004, 0.01, 0.02, 0.03])[rng.integers(0, 4, N)]
+
+
+FLAGSHIP = dict(gammas=[0.4] + [[-0.24, 0.66]] * 5, stage0_iters=16, deep_iters=24,
+                relay_iters=24, relay_legs=3, relay_range=[-0.24, 0.66], lam=10, lam3=8,
+                check_every=8, layout="check", deep_dtype=torch.bfloat16)
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    A, priors = _flagship_dem()
+    dec = pt.StagedDemDecoder(A, priors, min_bucket=4, hbm_bytes=8 << 30, device="cpu",
+                              **FLAGSHIP)
+    x = (np.random.default_rng(4).random((64, A.shape[1])) < 3.0 * priors).astype(np.uint8)
+    det = (x @ A.T.toarray() % 2).astype(np.uint8)
+    with profiling.recording() as rec:
+        out = dec.batch_decode_detailed(det)
+    return dec, A, priors, det, rec, out
+
+
+def test_flagship_counts_relay_legs_and_the_ensemble_work(flagship):
+    dec, A, priors, det, rec, (err, conv, iters, _, _) = flagship
+    sys.path.insert(0, ROOT)
+    try:
+        from portbench.reference import relay as ref_relay
+    finally:
+        sys.path.remove(ROOT)
+    stated = dict(FLAGSHIP, deep_dtype="bfloat16", dtype="float32", alpha=1.0,
+                  osd_rank="abs_llr", dmem_seed=0xD3E, relay_seed=0xE1A9)
+    ref = ref_relay.decode_stated(A, priors, stated, det, "cpu")
+    assert np.array_equal(iters, ref["iters"])
+    c = rec.totals()
+    names = [s.name for s in rec.calls[0].spans]
+    legs = names.count("ldpc.staged.relay")
+    assert 1 <= legs <= FLAGSHIP["relay_legs"] and ((iters > 16 + 24) & conv).any()
+    assert 0 < c["relay_lanes"] <= c["relay_lanes_padded"]
+    assert c["relay_lanes_padded"] >= 4 * legs  # each leg's bucket is at least min_bucket
+    # each shot's own stage-0 iterations: its count where stage 0 converged, the cap else
+    assert c["stage0_lane_iters"] == int(np.minimum(iters, dec.stage0_iters).sum())
+    # each real member lane's own iterations, deep and relay, padding left out
+    assert c["member_lane_iters"] == int(ref["member_iters"].sum())
+    assert c["member_lane_iters"] < c["minsum_lane_iters_launched"]
+
+
+def test_flagship_reads_its_counters_only_while_recording(flagship, monkeypatch):
+    """Off, the path makes the reads it made before the counters; on, one
+    more a ``count_sum``: stage 0's, and one a deep bucket and relay leg."""
+    dec, _, _, det, rec, on = flagship
+    reads = {"n": 0}
+    for name in ("__int__", "__bool__", "item", "numpy", "tolist"):
+        orig = getattr(torch.Tensor, name)
+
+        def counted(self, *a, _orig=orig, **k):
+            reads["n"] += 1
+            return _orig(self, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, name, counted)
+
+    def run(record):
+        reads["n"] = 0
+        if record:
+            with profiling.recording() as r:
+                out = dec.batch_decode_detailed(det)
+        else:
+            r, out = None, dec.batch_decode_detailed(det)
+        return reads["n"], r, out
+
+    n_off, _, off = run(False)
+    n_on, r, _ = run(True)
+    names = [s.name for s in r.calls[0].spans]
+    sums = 1 + names.count("ldpc.staged.deep") + names.count("ldpc.staged.relay")
+    assert n_on - n_off == sums
+    assert r.totals()["host_reads"] == rec.totals()["host_reads"]
+    for a, b in zip(off[:3], on[:3]):
+        assert np.array_equal(a, b)
+
+
+def test_count_sum_touches_nothing_when_off():
+    class Untouchable:
+        def sum(self, *a, **k):
+            raise AssertionError("read while recording is off")
+
+    profiling.count_sum("x", Untouchable())
+    with profiling.recording() as rec:
+        profiling.count_sum("x", torch.tensor([2, 3], dtype=torch.int32))
+    assert rec.counters["x"] == 5
