@@ -120,6 +120,8 @@ def load_library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.ldpc_minsum_var.restype = i32
     lib.ldpc_minsum_stage_plan.argtypes = [i64, i32, i32, ctypes.POINTER(i32)]
     lib.ldpc_minsum_stage_plan.restype = None
+    lib.ldpc_minsum_packed_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+    lib.ldpc_minsum_packed_plan.restype = i32
     lib.ldpc_qc_minsum.argtypes = [ptr] * 7 + [i32] * 13 + [f32] * 3 + [i64, i32, ptr]
     lib.ldpc_qc_minsum.restype = i32
     lib.ldpc_qc_smem_bytes.argtypes = [i32] * 12

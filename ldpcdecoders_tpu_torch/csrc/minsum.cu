@@ -3,7 +3,7 @@
 // Replaces the two Pallas TPU kernels of ldpcdecoders_tpu/ops/pallas_minsum.py:
 //   minsum_check_kernel <- pallas_minsum.py:_check_kernel (wrapper check_update_pallas)
 //   minsum_var_kernel   <- pallas_minsum.py:_var_kernel   (wrapper var_update_pallas)
-//   (on lane tiles also minsum_check_floor_kernel, minsum_var_tiled_kernel and
+//   (on lane tiles also minsum_check_packed_kernel, minsum_var_tiled_kernel and
 //   minsum_var_inplace_tiled_kernel)
 // and, beyond the TPU kernels, the plain passes of the min-sum iteration
 // around them (ldpcdecoders_tpu/models/minsum.py decode / decode_check): the
@@ -27,10 +27,11 @@
 // Lane tiles (lane_tile T = 64 or 128: the check layout's state and the
 // variable layout's).  The tiled form of a [B, len] array of lanes is
 // [B / T, len, T]: element e of lane b lies at tiled<T>(b, len) + e * T, so
-// that T lanes of one node sit side by side.  The check form keeps a thread a
-// (lane, check), mapped lanes fastest, so a warp is 32 lanes of one check;
-// the variable forms give a thread T / 32 neighbouring lanes of one
-// variable, so a warp is a whole tile row.  Each gather of a message, a
+// that T lanes of one node sit side by side.  The float32 check form keeps a
+// thread a (lane, check), mapped lanes fastest, so a warp is 32 lanes of one
+// check; the bfloat16 check form (minsum_check_packed_kernel) and the
+// variable forms give a thread T / 32 neighbouring lanes of one node, so a
+// warp is a whole tile row.  Each gather of a message, a
 // total or a gamma is then whole lines (128 bytes a warp and load in float32
 // on the check side, 512 on the variable side at T = 128) where a lane's own
 // row costs a 32-byte sector for the 4 or 2 bytes used, and the node's
@@ -100,10 +101,30 @@
 // us, 1.8x its 0.49 us bound (nu read and mu written at the real slots: it
 // writes every padded slot of mu too).
 //
+// The check layout's iteration on tiles in bfloat16 (the staged decoder's
+// deep ensemble and relay legs) must read each edge's mu_prev and nu_prev
+// and write its nu and mu, 4 x 2 bytes an edge, with the totals and a
+// [B, n] gamma read once: 1.755 MB a lane-iteration at the bb144 DEM, 0.80
+// ms for (q)'s 6 x 256 lanes at 3.35 TB/s.  A thread a lane, as the float32
+// form keeps it, took 2.47 ms there (3.1x): each 2-byte load and store a
+// slot is an instruction with its own 64-bit address, and the registers
+// that the floor of 5 blocks an SM left held few loads in flight.  The
+// packed body (minsum_check_packed_kernel) gives a thread T / 32 lanes of
+// one check: one index load and one vector a slot and array for the
+// thread's lanes, the vectors of the next 8 slots copied into shared memory
+// while 8 are computed, two lanes rounded a conversion.  Measured (H100
+// 80GB HBM3, 700 W, tools/minsum_kernel_compare.py, in turns with the
+// floor kernel): (q) 1.08 ms, 1.34x its bound, against 2.47 ms; the relay
+// legs' 6 x 128 lanes 0.56 against 1.29 ms, 6 x 32 lanes on 64-lane tiles
+// 0.18 against 0.34 ms; the gathered first iteration at (q) 0.49 against
+// 0.82 ms.  With the vectors in registers instead it took 2.4x the time,
+// with one buffer 1.14x.
+//
 // Plain C interface (pointers, sizes, stream), loaded with ctypes.  Each
 // launcher returns the cudaError_t of its launch; 0 is success.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -128,6 +149,19 @@
 #ifndef LDPC_MINSUM_VAR_CAP
 #define LDPC_MINSUM_VAR_CAP 12
 #endif
+// The bfloat16 check form on lane tiles (minsum_check_packed_kernel): the
+// slots of a chunk whose vectors go out together, and the threads of a
+// block.  Measured at the flagship's shapes (tools/minsum_kernel_compare.py,
+// H100 80GB HBM3, 700 W; (q), 6 x 256 lanes on 128-lane tiles): chunks of 8
+// slots took 0.87x the time of chunks of 4 and 0.88x that of 6, chunks of
+// 12 1.41x; blocks of 128 threads 0.87x the time of 64 and 0.97x that of
+// 256.
+#ifndef LDPC_MINSUM_PACKED_UNROLL
+#define LDPC_MINSUM_PACKED_UNROLL 8
+#endif
+#ifndef LDPC_MINSUM_PACKED_THREADS
+#define LDPC_MINSUM_PACKED_THREADS 128
+#endif
 
 namespace {
 
@@ -138,21 +172,14 @@ constexpr int kFlatUnroll = sizeof(T) == 4 ? LDPC_MINSUM_FLAT_UNROLL_F32
                                            : LDPC_MINSUM_FLAT_UNROLL_BF16;
 constexpr int kStagedUnroll = LDPC_MINSUM_STAGED_UNROLL;
 constexpr int kVarCap = LDPC_MINSUM_VAR_CAP;
+constexpr int kPackedUnroll = LDPC_MINSUM_PACKED_UNROLL;
+constexpr int kPackedThreads = LDPC_MINSUM_PACKED_THREADS;
 constexpr int kThreads = 256;
 constexpr int kMaxStageThreads = 1024;
 constexpr long long kDefaultSmem = 48 * 1024;
 constexpr long long kMaxSmem = 232448;  // what one block may take on the H100
 constexpr long long kSmemPerSm = 233472;  // an SM's, each block reserving 1 KB of it
 constexpr long long kStageMinRow = 48 * 1024;  // rows below this stay flat
-// The blocks of 256 threads an SM must hold in the check form on lane tiles
-// in bfloat16, which caps a thread's registers.  Measured at the bb144 DEM's
-// shape on 128-lane tiles (tools/minsum_kernel_compare.py, H100 80GB HBM3,
-// 700 W): a floor of 5 blocks (40 registers) took 0.87x the time with none
-// (96 registers), 8 blocks 1.26x.  In float32 a floor of 3 blocks changed
-// nothing and 4 blocks took 1.2-1.3x, and in the variable form a floor of 6
-// blocks took 1.03-1.05x in float32 and 0.95-1.01x in bfloat16, so those
-// keep the bare bound.
-constexpr int kTiledMinBlocksBf16 = 5;
 
 enum Form { DIRECT = 0, GATHER = 1, ITER = 2 };
 // the lane tiles a launcher takes besides 1
@@ -350,12 +377,6 @@ __global__ void __launch_bounds__(kThreads) minsum_check_kernel(const CheckArgs<
   flat_check<T, FORM, GAMMA, TILE>(a);
 }
 
-// The flat form on lane tiles with a floor of MINB blocks an SM.
-template <typename T, int FORM, int GAMMA, int TILE, int MINB>
-__global__ void __launch_bounds__(kThreads, MINB) minsum_check_floor_kernel(const CheckArgs<T> a) {
-  flat_check<T, FORM, GAMMA, TILE>(a);
-}
-
 // Staged form: one block per lane; the lane's gathered row is copied into
 // shared memory once, then the block's threads take the checks in turn.
 template <typename T, int FORM, int GAMMA>
@@ -428,6 +449,242 @@ __device__ __forceinline__ void copy_async_commit() {
 template <int N>
 __device__ __forceinline__ void copy_async_wait_group() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Round each value of v to bfloat16 and back, as round_to<bf16> does, two
+// at a time (one conversion a pair).
+template <int L>
+__device__ __forceinline__ void round_pairs(float (&v)[L]) {
+#pragma unroll
+  for (int q = 0; q < L; q += 2) {
+    const __nv_bfloat162 r = __floats2bfloat162_rn(v[q], v[q + 1]);
+    v[q] = __low2float(r);
+    v[q + 1] = __high2float(r);
+  }
+}
+
+// Vectors a slot of the packed check form loads: the gathered row (the
+// totals in ITER, x in GATHER) and in ITER mu_prev, with damping nu_prev,
+// and with GAMMA_VAR the gathered gamma.
+template <int FORM, int GAMMA>
+__host__ __device__ constexpr int packed_vectors() {
+  return FORM != ITER ? 1 : 2 + (GAMMA != GAMMA_NONE) + (GAMMA == GAMMA_VAR);
+}
+
+// The check update on lane tiles in bfloat16 (GATHER and ITER): a thread
+// takes L = TILE / 32 neighbouring lanes of one check, so a warp is one
+// whole tile row of it.  The check's degree and each slot's index entry are
+// loaded once for the L lanes (one broadcast load a warp); each slot's
+// mu_prev, nu_prev, gathered total (or x) and gathered gamma are one vector
+// of L values (4 or 8 bytes a thread, 128 or 256 a warp), and so are the
+// stores of nu and mu.  The vectors of U slots go out together and wait in
+// shared memory, each thread's own column, copied asynchronously into one
+// of two buffers: the next chunk's copies are issued before a chunk is
+// computed, behind index entries loaded a chunk ahead, so a thread holds no
+// register for a load in flight.  Each lane's arithmetic and its order are
+// check_node's: the same rounding (two lanes a conversion), the padded-slot
+// fold, the syndrome flip; the output's sign is put on the bfloat16 bits of
+// the rounded magnitude, which is what rounding its negation gives.  The
+// sign words of lane q lie at signs[(w * L + q) * blockDim.x].
+template <int FORM, int GAMMA, int TILE>
+__global__ void __launch_bounds__(kPackedThreads)
+minsum_check_packed_kernel(const CheckArgs<bf16> a) {
+  constexpr int L = TILE / 32;
+  constexpr int U = kPackedUnroll;
+  constexpr int NV = packed_vectors<FORM, GAMMA>();
+  constexpr bool kOld = FORM == ITER && GAMMA != GAMMA_NONE;  // nu_prev read, nu written
+  typedef Pack<bf16, L> P;
+  static_assert(FORM != DIRECT, "the direct form takes no lane tile");
+  extern __shared__ __align__(16) unsigned char packed_buf[];
+  const long long e = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * L;
+  if (e >= a.B * a.m) return;
+  const int m = a.m, nt = blockDim.x;
+  long long lane;
+  int i;
+  lane_node<TILE>(e, m, &lane, &i);
+  const int d = a.deg[i];
+  // slot k of the thread's lanes lies k * step past slot 0
+  const long long at0 = tiled<TILE>(lane, (long long)a.dc * m) + (long long)i * TILE;
+  const long long step = (long long)m * TILE;
+  bf16* mu = a.mu + at0;
+  bf16* nu = kOld ? a.nu + at0 : nullptr;
+  const int32_t* idx = a.idx + i;
+  const bf16* row = a.x + tiled<TILE>(lane, a.x_stride);
+  const bf16* gvar = GAMMA == GAMMA_VAR ? a.gamma + tiled<TILE>(lane, a.gamma_stride) : nullptr;
+  P* stage = reinterpret_cast<P*>(packed_buf);  // [2][U][NV][threads]
+  unsigned* signs = reinterpret_cast<unsigned*>(
+      packed_buf + 2LL * U * NV * nt * sizeof(P)) + threadIdx.x;
+  auto staged = [&](int b, int u, int v) {
+    return stage + ((b * U + u) * NV + v) * nt + threadIdx.x;
+  };
+
+  float g[L], g1[L];
+  if constexpr (GAMMA == GAMMA_LANE) {
+#pragma unroll
+    for (int q = 0; q < L; ++q) {
+      g[q] = load_f(a.gamma, (lane + q) * a.gamma_stride);
+      g1[q] = round_to<bf16>(__fsub_rn(1.f, g[q]));
+    }
+  }
+  float min1[L], min2[L];
+  int idx1[L];
+  unsigned word[L], parity = 0;  // parity: bit q of lane q
+#pragma unroll
+  for (int q = 0; q < L; ++q) {
+    min1[q] = min2[q] = a.big;
+    idx1[q] = 0;
+    word[q] = 0;
+  }
+  // slot k's message of each lane from its vectors (x: the gathered row),
+  // written to nu where damped, folded into the state
+  auto fold = [&](int k, const P& x, const P& prev, const P& old, const P& gk) {
+    float val[L];
+#pragma unroll
+    for (int q = 0; q < L; ++q) val[q] = to_f(x.v[q]);
+    if constexpr (FORM == ITER) {
+#pragma unroll
+      for (int q = 0; q < L; ++q) val[q] = __fsub_rn(val[q], to_f(prev.v[q]));
+      round_pairs(val);  // total[var] - mu_prev
+      if constexpr (GAMMA != GAMMA_NONE) {  // damp<bf16>, lane by lane
+        float gq[L], g1q[L], kept[L], fresh[L];
+#pragma unroll
+        for (int q = 0; q < L; ++q) {
+          gq[q] = GAMMA == GAMMA_LANE ? g[q] : to_f(gk.v[q]);
+          g1q[q] = GAMMA == GAMMA_LANE ? g1[q] : __fsub_rn(1.f, gq[q]);
+        }
+        if (GAMMA == GAMMA_VAR) round_pairs(g1q);
+#pragma unroll
+        for (int q = 0; q < L; ++q) {
+          kept[q] = __fmul_rn(gq[q], to_f(old.v[q]));
+          fresh[q] = __fmul_rn(g1q[q], val[q]);
+        }
+        round_pairs(kept);
+        round_pairs(fresh);
+#pragma unroll
+        for (int q = 0; q < L; ++q) val[q] = __fadd_rn(kept[q], fresh[q]);
+        round_pairs(val);
+      }
+    }
+    if constexpr (kOld) {
+      P r;
+#pragma unroll
+      for (int q = 0; q < L; ++q) r.v[q] = from_f<bf16>(val[q]);
+      *reinterpret_cast<P*>(nu + k * step) = r;
+    }
+#pragma unroll
+    for (int q = 0; q < L; ++q) {
+      const float mag = fabsf(val[q]);
+      const unsigned neg = val[q] < 0.f;
+      if (k == 0) {
+        min1[q] = mag;
+      } else {
+        const bool smaller = mag < min1[q];
+        min2[q] = smaller ? min1[q] : fminf(min2[q], mag);
+        idx1[q] = smaller ? k : idx1[q];
+        min1[q] = smaller ? mag : min1[q];
+      }
+      parity ^= neg << q;
+      word[q] |= neg << (k & 31);
+    }
+    if ((k & 31) == 31) {
+#pragma unroll
+      for (int q = 0; q < L; ++q) {
+        signs[((k >> 5) * L + q) * nt] = word[q];
+        word[q] = 0;
+      }
+    }
+  };
+  // the index entries of the chunk at k0
+  auto index = [&](int k0, int* vi) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k0 + u >= d) break;
+      vi[u] = idx[(long long)(k0 + u) * m];
+    }
+  };
+
+  // the chunk at k0's copies into buffer b: the streamed vectors, then the
+  // gathers through the index entries vi
+  auto issue = [&](int k0, int b, const int* vi) {
+    asm volatile("" ::: "memory");  // after every read of the buffer before
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k0 + u >= d) break;
+      const long long o = (k0 + u) * step;
+      if (FORM == ITER) copy_async<sizeof(P)>(staged(b, u, 1), mu + o);
+      if (kOld) copy_async<sizeof(P)>(staged(b, u, 2), nu + o);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k0 + u >= d) break;
+      const long long o = (long long)vi[u] * TILE;
+      copy_async<sizeof(P)>(staged(b, u, 0), row + o);
+      if (GAMMA == GAMMA_VAR) copy_async<sizeof(P)>(staged(b, u, 3), gvar + o);
+    }
+  };
+  int vi[U];
+  if (d > 0) {
+    index(0, vi);
+    issue(0, 0, vi);
+  }
+  copy_async_commit();
+  if (d > U) index(U, vi);
+  for (int k0 = 0, b = 0; k0 < d; k0 += U, b ^= 1) {  // chunk k0 + U in flight
+    if (k0 + U < d) {
+      issue(k0 + U, b ^ 1, vi);
+      if (k0 + 2 * U < d) index(k0 + 2 * U, vi);
+    }
+    copy_async_commit();
+    copy_async_wait_group<1>();
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k0 + u >= d) break;
+      P x = *staged(b, u, 0), prev, old, gk;
+      if (FORM == ITER) prev = *staged(b, u, 1);
+      if (kOld) old = *staged(b, u, 2);
+      if (GAMMA == GAMMA_VAR) gk = *staged(b, u, 3);
+      fold(k0 + u, x, prev, old, gk);
+    }
+  }
+  if (d & 31) {
+#pragma unroll
+    for (int q = 0; q < L; ++q) signs[((d >> 5) * L + q) * nt] = word[q];
+  }
+  // the padded slots' +big, folded in at the first two of them (check_node)
+  const int first_pad = d > 0 ? d : 1;
+  for (int k = first_pad; k < a.dc && k < first_pad + 2; ++k) {
+#pragma unroll
+    for (int q = 0; q < L; ++q) {
+      const bool smaller = a.big < min1[q];
+      min2[q] = smaller ? min1[q] : fminf(min2[q], a.big);
+      idx1[q] = smaller ? k : idx1[q];
+      min1[q] = smaller ? a.big : min1[q];
+    }
+  }
+  // each lane's two output magnitudes as bfloat16 bits, and its sign: the
+  // parity with the syndrome bit
+  unsigned short b1[L], b2[L];
+  unsigned flip = parity;
+#pragma unroll
+  for (int q = 0; q < L; ++q) {
+    b1[q] = __bfloat16_as_ushort(from_f<bf16>(out_mag<bf16>(min1[q], a.alpha, a.beta)));
+    b2[q] = __bfloat16_as_ushort(from_f<bf16>(out_mag<bf16>(min2[q], a.alpha, a.beta)));
+    flip ^= (unsigned)(a.syn[e + q] != 0) << q;
+  }
+  const int nout = FORM == ITER ? d : a.dc;  // ITER leaves the padded slots alone
+  for (int k = 0; k < nout; ++k) {
+    if ((k & 31) == 0) {
+#pragma unroll
+      for (int q = 0; q < L; ++q) word[q] = k < d ? signs[((k >> 5) * L + q) * nt] : 0u;
+    }
+    P r;
+#pragma unroll
+    for (int q = 0; q < L; ++q) {
+      const unsigned neg = ((word[q] >> (k & 31)) ^ (flip >> q)) & 1u;
+      r.v[q] = __ushort_as_bfloat16((unsigned short)((idx1[q] == k ? b2[q] : b1[q]) ^ (neg << 15)));
+    }
+    *reinterpret_cast<P*>(mu + k * step) = r;
+  }
 }
 
 // Threads of a block of the variable update on lane tiles: a damped form
@@ -741,6 +998,33 @@ cudaError_t allow_smem(K kernel, long long bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The packed check form's block: its threads (a multiple of 32, halved
+// until its shared memory fits a block) and its shared-memory bytes; 0
+// threads where none fits.
+template <int FORM, int GAMMA, int TILE>
+int packed_plan(int dc, long long* bytes) {
+  constexpr int L = TILE / 32;
+  // a thread's sign words and its two buffers of U slots' vectors
+  const long long each = 4LL * words_of(dc) * L +
+                         2LL * kPackedUnroll * packed_vectors<FORM, GAMMA>() * 2 * L;
+  int t = kPackedThreads;
+  while (each * t > kMaxSmem && t > 32) t /= 2;
+  *bytes = each * t;
+  return *bytes <= kMaxSmem ? t : 0;
+}
+
+template <int FORM, int GAMMA, int TILE>
+int launch_check_packed(const CheckArgs<bf16>& a, cudaStream_t st) {
+  long long bytes;
+  const int threads = packed_plan<FORM, GAMMA, TILE>(a.dc, &bytes);
+  if (threads == 0) return cudaErrorInvalidValue;
+  auto kernel = minsum_check_packed_kernel<FORM, GAMMA, TILE>;
+  cudaError_t rc = allow_smem(kernel, bytes);
+  if (rc != cudaSuccess) return rc;
+  kernel<<<grid_for(a.B * a.m / (TILE / 32), threads), threads, bytes, st>>>(a);
+  return cudaGetLastError();
+}
+
 // stage: 1 staged, 0 flat, -1 the launcher's choice: staged where the row
 // is at least 48 KB and two blocks fit an SM.  Measured (as above): staged
 // 0.93x the flat form's time on the bb144 DEM's bfloat16 totals (63,296 B,
@@ -751,6 +1035,7 @@ template <typename T, int FORM, int GAMMA, int TILE>
 int launch_check(const CheckArgs<T>& a, int stage, cudaStream_t st) {
   if constexpr (TILE > 1) {
     if (stage == 1 || a.B % TILE) return cudaErrorInvalidValue;  // flat form only
+    if constexpr (sizeof(T) == 2) return launch_check_packed<FORM, GAMMA, TILE>(a, st);
   } else if (FORM != DIRECT && stage != 0) {
     const long long row = a.x_stride * (long long)sizeof(T);
     int threads;
@@ -769,9 +1054,7 @@ int launch_check(const CheckArgs<T>& a, int stage, cudaStream_t st) {
   long long bytes;
   const int threads = flat_threads(a.dc, &bytes);
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  void (*kernel)(const CheckArgs<T>) = minsum_check_kernel<T, FORM, GAMMA, TILE>;
-  if constexpr (TILE > 1 && sizeof(T) == 2)
-    kernel = minsum_check_floor_kernel<T, FORM, GAMMA, TILE, kTiledMinBlocksBf16>;
+  auto kernel = minsum_check_kernel<T, FORM, GAMMA, TILE>;
   cudaError_t rc = allow_smem(kernel, bytes);
   if (rc != cudaSuccess) return rc;
   kernel<<<grid_for(a.B * a.m, threads), threads, bytes, st>>>(a);
@@ -983,6 +1266,51 @@ void ldpc_minsum_stage_plan(long long row_bytes, int m, int dc, int* out) {
   stage_plan(row_bytes, m, dc, &threads, &bytes);
   out[0] = threads;
   out[1] = (int)bytes;
+}
+
+// The packed check form's plan (bfloat16 on a lane tile of 64 or 128; form
+// 1 gathered, 2 the iteration; gamma_kind as above): out = threads, shared-
+// memory bytes, registers a thread and blocks an SM; returns the
+// cudaError_t of the queries.
+int ldpc_minsum_packed_plan(int dc, int lane_tile, int form, int gamma_kind, int* out) {
+  auto plan = [&](auto kernel, int threads, long long bytes) {
+    out[0] = threads;
+    out[1] = (int)bytes;
+    out[2] = out[3] = 0;
+    if (threads == 0) return (int)cudaErrorInvalidValue;
+    cudaFuncAttributes attr{};
+    cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
+    if (rc == cudaSuccess) rc = allow_smem(kernel, bytes);
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel, threads, bytes);
+    out[2] = attr.numRegs;
+    return (int)rc;
+  };
+  auto go = [&](auto tile) {
+    constexpr int TILE = decltype(tile)::value;
+    long long b;
+    int t;
+    if (form == GATHER && gamma_kind == GAMMA_NONE) {
+      t = packed_plan<GATHER, GAMMA_NONE, TILE>(dc, &b);
+      return plan(minsum_check_packed_kernel<GATHER, GAMMA_NONE, TILE>, t, b);
+    }
+    if (form != ITER) return (int)cudaErrorInvalidValue;
+    switch (gamma_kind) {
+      case GAMMA_NONE:
+        t = packed_plan<ITER, GAMMA_NONE, TILE>(dc, &b);
+        return plan(minsum_check_packed_kernel<ITER, GAMMA_NONE, TILE>, t, b);
+      case GAMMA_LANE:
+        t = packed_plan<ITER, GAMMA_LANE, TILE>(dc, &b);
+        return plan(minsum_check_packed_kernel<ITER, GAMMA_LANE, TILE>, t, b);
+      case GAMMA_VAR:
+        t = packed_plan<ITER, GAMMA_VAR, TILE>(dc, &b);
+        return plan(minsum_check_packed_kernel<ITER, GAMMA_VAR, TILE>, t, b);
+    }
+    return (int)cudaErrorInvalidValue;
+  };
+  if (lane_tile == kTiles[0]) return go(std::integral_constant<int, kTiles[0]>());
+  if (lane_tile == kTiles[1]) return go(std::integral_constant<int, kTiles[1]>());
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -37,12 +37,20 @@ place, with ``W`` and every ``gamma`` kind).  ``<wrapper>.routes`` counts
 the launches by layout: ``"lane_major"`` (``lane_tile=1``) and
 ``"lane_tiled"``, and for :func:`minsum_var_iter_cuda` the variable
 layout's form on tiles apart, ``"lane_tiled_nu"``.
+
+In bfloat16 the check wrappers' tiled launches take K3's packed body,
+``minsum_check_packed_kernel`` (a thread T / 32 lanes of one check, each
+slot's vectors loaded whole): their per-lane tensors must then be aligned to
+those vectors (T / 16 bytes), and each launch adds its lanes to the counter
+``minsum_check_lane_iters_packed`` (``utils/profiling.count``).
+:func:`packed_plan` gives the body's block on the card.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count
 from .minsum import (
     BIG,
     check_core_ref,
@@ -54,7 +62,7 @@ from .minsum import (
 )
 
 __all__ = ["minsum_check_cuda", "minsum_check_iter_cuda", "minsum_var_cuda",
-           "minsum_var_iter_cuda", "stage_plan", "stages_by_default"]
+           "minsum_var_iter_cuda", "packed_plan", "stage_plan", "stages_by_default"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # the padded-slot magnitude rounded to each message dtype, once
@@ -154,6 +162,37 @@ def _count(wrapper, lane_tile, tiled_route="lane_tiled"):
     wrapper.routes["lane_major" if lane_tile == 1 else tiled_route] += 1
 
 
+def _packed(dtype, lane_tile, *tensors):
+    """Whether a check launch takes the packed body (bfloat16 on a tile);
+    if so, ``tensors`` (None and 0-dim skipped) must be aligned to its
+    vectors of T / 32 lanes."""
+    if dtype != torch.bfloat16 or lane_tile == 1:
+        return False
+    size = 2 * lane_tile // 32
+    if any(t.data_ptr() % size for t in tensors if t is not None and t.ndim > 0):
+        raise ValueError(f"bfloat16 lane-tiled check arguments must be {size}-byte aligned")
+    return True
+
+
+def packed_plan(dc: int, lane_tile: int, *, gathered: bool = False,
+                gamma_kind: int = _GAMMA_NONE) -> dict:
+    """The packed check body's block on the current card for checks of
+    ``dc`` slots: ``threads``, ``smem_bytes``, ``registers`` a thread and
+    ``blocks_per_sm``; ``gathered`` the GATHER form, else the iteration
+    form with damping kind ``gamma_kind`` (0 none, 1 per lane, 2 per
+    variable)."""
+    import ctypes
+
+    from .._build import load_library
+
+    lib = load_library()
+    out = (ctypes.c_int * 4)()
+    rc = lib.ldpc_minsum_packed_plan(dc, lane_tile, 1 if gathered else 2, gamma_kind, out)
+    if rc != 0:
+        raise RuntimeError(f"packed plan failed: {lib.ldpc_cuda_error_string(rc).decode()}")
+    return dict(zip(("threads", "smem_bytes", "registers", "blocks_per_sm"), out))
+
+
 def _launch(fn, what, x, *args):
     """Call a launcher of the kernel library on ``x``'s device and stream."""
     from .._build import load_library
@@ -218,6 +257,7 @@ def minsum_check_cuda(x, idx, syn_flip, chk_mask, alpha, beta, *, chk_deg=None, 
     _check("chk_mask", chk_mask, (dc, m), torch.bool, x.device)
     deg = _degrees("chk_deg", chk_deg, chk_mask, x.device)
     mu = torch.empty((lanes, dc, m, *tail), dtype=x.dtype, device=x.device)
+    packed = _packed(x.dtype, lane_tile, x)
     if lanes == 0:
         return mu
     B = lanes * lane_tile
@@ -226,6 +266,8 @@ def minsum_check_cuda(x, idx, syn_flip, chk_mask, alpha, beta, *, chk_deg=None, 
             deg.data_ptr(), mu.data_ptr(), B, m, dc, x.numel() // B,
             float(alpha), float(beta), _BIG[x.dtype], _stage_arg(_stage), lane_tile)
     _count(minsum_check_cuda, lane_tile)
+    if packed:
+        count("minsum_check_lane_iters_packed", B)
     return mu
 
 
@@ -276,6 +318,7 @@ def minsum_check_iter_cuda(mu, total, chk_varidx, syn_flip, chk_mask, alpha, bet
     deg = _degrees("chk_deg", chk_deg, chk_mask, device)
     g_ptr, g_kind, g_stride = _gamma(gamma, nu, lanes, n, (lanes, dc, m, *tail), dtype, device,
                                      tail)
+    packed = _packed(dtype, lane_tile, mu, nu, total, gamma)
     if lanes == 0:
         return mu
     _launch("ldpc_minsum_check_iter", "minsum_check_iter", mu,
@@ -284,6 +327,8 @@ def minsum_check_iter_cuda(mu, total, chk_varidx, syn_flip, chk_mask, alpha, bet
             g_stride, lanes * lane_tile, m, dc, n, float(alpha), float(beta), _BIG[dtype],
             _stage_arg(_stage), lane_tile)
     _count(minsum_check_iter_cuda, lane_tile)
+    if packed:
+        count("minsum_check_lane_iters_packed", lanes * lane_tile)
     return mu
 
 

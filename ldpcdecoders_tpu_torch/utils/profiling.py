@@ -11,8 +11,10 @@ Counterpart of ``ldpcdecoders_tpu/utils/profiling.py`` on
   ``d2h_bytes`` and ``h2d_bytes``.  The decoders count their own work
   beside them, as the min-sum loop's ``minsum_lane_iters_launched`` (lanes
   launched times iterations) and ``minsum_lane_iters_tiled`` (the part of
-  it that ran on lane tiles); :func:`count_sum` counts the sum of a device
-  tensor, read only while recording.
+  it that ran on lane tiles), and the check wrappers'
+  ``minsum_check_lane_iters_packed`` (the lanes of each bfloat16 K3 launch
+  on lane tiles); :func:`count_sum` counts the sum of a device tensor, read
+  only while recording.
 * Recording is on inside :func:`recording`, which yields its
   :class:`Recorder`, and while a ``torch.profiler`` session runs, whose
   record :func:`profiled` returns.  Off, :func:`span` returns one shared

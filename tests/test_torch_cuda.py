@@ -769,7 +769,8 @@ def gamma_for(kind, rng, B, n, dtype):
 def iter_graph(name):
     """Graphs of the iteration forms' card tests: checks past 64 slots,
     variables past 16 (not kept in registers) and past 32 slots (summed by
-    windows), tests/test_torch_staged.py's small DEM, a Gallager code."""
+    windows), tests/test_torch_staged.py's small DEM, a Gallager code; and
+    ("empty") the first with a check of no real slot."""
     rng = np.random.default_rng(len(name))
     if name == "dem":
         A = (rng.random((40, 300)) < 0.08).astype(np.uint8)  # _small_dem(5)'s shape
@@ -782,6 +783,9 @@ def iter_graph(name):
     H[:40, 1] = 1  # a variable of degree 40
     H[5:25, 2] = 1  # and one of degree 20
     H[rng.integers(45), H.sum(axis=0) == 0] = 1
+    if name == "empty":
+        H[7] = 0
+        H[8, H.sum(axis=0) == 0] = 1
     return pt.TannerGraph.from_pcm(H)
 
 
@@ -937,11 +941,29 @@ def tiled_inputs(g, dtype, Bp, gamma_kind, seed):
         llrs=torch.as_tensor(rng.normal(size=(Bp, n))).to(dtype))
 
 
+def packed_lane_iters():
+    """``minsum_check_lane_iters_packed`` in the profiler session's record,
+    outside any call."""
+    from ldpcdecoders_tpu_torch.utils import profiling
+
+    rec = profiling.profiled()
+    return 0 if rec is None else rec.counters.get("minsum_check_lane_iters_packed", 0)
+
+
 def check_tiled_kernels(dev, g, dtype, x, lane_tile):
     """K3's gathered and iteration forms and K4's totals with the freeze on
     lane tiles of ``x``'s lanes against the plain lane-major versions (on
-    the card), bitwise; mu / nu keep their padded slots."""
+    the card), bitwise; mu / nu keep their padded slots.  In bfloat16 each
+    K3 launch takes the packed body and, under a profiler, adds its lanes to
+    ``minsum_check_lane_iters_packed``; in float32 none."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        _check_tiled_kernels(dev, g, dtype, x, lane_tile)
+
+
+def _check_tiled_kernels(dev, g, dtype, x, lane_tile):
     T, Bp = lane_tile, x["mu"].shape[0]
+    packed = Bp if dtype == torch.bfloat16 else 0  # the lanes a K3 launch counts
+    counted = packed_lane_iters()
     ms = pt.MinSumDecode(g, 0.05, 2, layout="check", device=dev, dtype=dtype)
     c = {k: None if v is None else v.to(dev) for k, v in x.items()}
     tile = lambda t: t if t is None or t.ndim == 0 else plain_minsum.tile_lanes(t, T)  # noqa: E731
@@ -960,6 +982,7 @@ def check_tiled_kernels(dev, g, dtype, x, lane_tile):
     torch.cuda.synchronize()
     assert got.shape == (Bp // T, g.max_dc, g.m, T)
     assert torch.equal(bits(untile(got)), bits(want))
+    assert packed_lane_iters() == counted + packed
 
     gamma = c["gamma"]
     mu_w, nu_w = c["mu"].clone(), None if gamma is None else c["nu"].clone()
@@ -972,6 +995,7 @@ def check_tiled_kernels(dev, g, dtype, x, lane_tile):
                                              lane_tile=T)
     torch.cuda.synchronize()
     assert out is mu_k
+    assert packed_lane_iters() == counted + 2 * packed
     for k, w, before in ((mu_k, mu_w, c["mu"]), (nu_k, nu_w, c["nu"])):
         if w is None:
             continue
@@ -994,29 +1018,48 @@ def check_tiled_kernels(dev, g, dtype, x, lane_tile):
         assert w.routes == dict(before, lane_tiled=before["lane_tiled"] + 1)
 
 
-@pytest.mark.parametrize("graph_name", ["heavy", "dem", "gallager"])
+@pytest.mark.parametrize("graph_name", ["heavy", "dem", "gallager", "empty"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gamma_kind", GAMMAS)
 @pytest.mark.parametrize("lane_tile", LANE_TILES)
 def test_minsum_tiled_kernels_match_plain_versions(dev, graph_name, dtype, gamma_kind,
                                                    lane_tile):
-    """The tiled K3/K4 on a whole tile and a ragged one (5 lanes and their
-    padding), every damping kind: bitwise the plain versions."""
+    """The tiled K3/K4 on two tiles and on five, every damping kind, checks
+    whose degrees are no multiple of the slots loaded together and (graph
+    "empty") a check of no real slot: bitwise the plain versions."""
     g = iter_graph(graph_name)
-    x = tiled_inputs(g, dtype, 2 * lane_tile, gamma_kind, seed=7)
-    check_tiled_kernels(dev, g, dtype, x, lane_tile)
+    for tiles in (2, 5):
+        x = tiled_inputs(g, dtype, tiles * lane_tile, gamma_kind, seed=7)
+        check_tiled_kernels(dev, g, dtype, x, lane_tile)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_minsum_tiled_kernels_at_the_bb144_dem_shape(dev, dtype):
+@pytest.mark.parametrize("gamma_kind", GAMMAS)
+@pytest.mark.parametrize("lane_tile", LANE_TILES)
+def test_minsum_tiled_kernels_at_the_bb144_dem_shape(dev, dtype, gamma_kind, lane_tile):
     """The tiled K3/K4 on the 864 x 31,648 circuit-level graph (check degree
-    up to 294, variables up to 12), one tile of 64 lanes, with per-variable
-    gammas: bitwise the plain versions."""
+    up to 294, variables up to 12), three tiles, every damping kind: bitwise
+    the plain versions."""
     A, pr, _ = bb144_dem()
     g = pt.TannerGraph.from_pcm(np.asarray(A.todense()))
-    x = tiled_inputs(g, dtype, 64, "var", seed=9)
-    x["L0"] = torch.as_tensor(np.log((1 - pr) / pr)).to(dtype).expand(64, -1).contiguous()
-    check_tiled_kernels(dev, g, dtype, x, 64)
+    assert g.max_dc == 294
+    Bp = 3 * lane_tile
+    x = tiled_inputs(g, dtype, Bp, gamma_kind, seed=9)
+    x["L0"] = torch.as_tensor(np.log((1 - pr) / pr)).to(dtype).expand(Bp, -1).contiguous()
+    check_tiled_kernels(dev, g, dtype, x, lane_tile)
+
+
+@pytest.mark.parametrize("lane_tile", LANE_TILES)
+def test_minsum_packed_plan_on_card(dev, lane_tile):
+    """The packed check body's block at the bb144 DEM's degree: whole warps,
+    its shared memory within a block, and a block an SM at least, for every
+    form it takes."""
+    for gathered, gamma_kind in ((True, 0), (False, 0), (False, 1), (False, 2)):
+        plan = cuda_minsum.packed_plan(294, lane_tile, gathered=gathered,
+                                       gamma_kind=gamma_kind)
+        assert plan["threads"] % 32 == 0 and plan["threads"] > 0
+        assert 0 < plan["smem_bytes"] <= 232448
+        assert plan["registers"] > 0 and plan["blocks_per_sm"] >= 1
 
 
 def check_var_inplace_tiled(dev, g, dtype, lane_tile, gamma_kind, weighted, Bp, L0=None,

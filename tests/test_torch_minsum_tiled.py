@@ -336,3 +336,32 @@ def test_tiled_wrappers_refuse_what_the_kernels_do_not_take():
                                        ms.chk_mask, 1.0, 0.0, lane_tile=64)
     for w, routes in before.items():
         assert w.routes == routes
+
+
+@pytest.mark.parametrize("dtype,lane_tile,want", [(torch.bfloat16, 64, True),
+                                                  (torch.bfloat16, 128, True),
+                                                  (torch.bfloat16, 1, False),
+                                                  (torch.float32, 64, False),
+                                                  (torch.float32, 128, False)])
+def test_packed_check_body_takes_bfloat16_on_tiles(dtype, lane_tile, want):
+    """K3's packed body takes the bfloat16 launches on a lane tile and no
+    other, and refuses per-lane tensors off its vectors of T / 32 lanes;
+    None and 0-dim arguments are not per-lane.  The CPU's plain versions
+    count no packed lane-iteration."""
+    from ldpcdecoders_tpu_torch.utils import profiling
+
+    x = torch.zeros(256, dtype=dtype)
+    assert cuda_minsum._packed(dtype, lane_tile, x, None, torch.tensor(0.5)) is want
+    if want:
+        with pytest.raises(ValueError, match="aligned"):
+            cuda_minsum._packed(dtype, lane_tile, x, x[1:])
+    else:
+        assert cuda_minsum._packed(dtype, lane_tile, x[1:]) is False
+    T = max(lane_tile, 64)
+    g, ms, syn, _ = setup(dtype, T)
+    mu = torch.zeros((1, g.max_dc, g.m, T), dtype=dtype)
+    total = torch.zeros((1, g.n, T), dtype=dtype)
+    with profiling.recording() as rec:
+        cuda_minsum.minsum_check_iter_cuda(mu, total, ms.chk_varidx, tile_lanes(syn, T),
+                                           ms.chk_mask, 1.0, 0.0, lane_tile=T)
+    assert "minsum_check_lane_iters_packed" not in rec.counters

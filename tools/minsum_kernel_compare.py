@@ -22,20 +22,30 @@ line gives the kernel's bound (bytes at 3.35 TB/s against operations at
 67e12/s) and the time per lane-iteration.
 
 ``--parent`` takes a ``csrc/minsum.cu`` whose launchers have the tree's
-interface without the trailing ``lane_tile`` argument (a lane-major
-revision), for example ``git show 62e9a51:ldpcdecoders_tpu_torch/csrc/minsum.cu``:
-it runs through the tree's wrappers with ``lane_tile=1``, the only layout it
-has.  Each ``--variant NAME=VALUE`` builds the tree's source once more with
-``-DNAME=VALUE`` (the knobs at the top of ``csrc/minsum.cu``:
-``LDPC_MINSUM_FLAT_UNROLL_F32`` / ``_BF16``, ``LDPC_MINSUM_STAGED_UNROLL``,
-``LDPC_MINSUM_VAR_CAP``), timed at the first tile.  Every build prints its ptxas register counts.
+interface, with or without the trailing ``lane_tile`` argument.  With it
+(a revision with lane tiles, for example ``git show
+3f5b209:ldpcdecoders_tpu_torch/csrc/minsum.cu``) the parent runs through the
+tree's wrappers at each tile the tree is timed at; without it (a lane-major
+revision, for example ``git show 62e9a51:...``) with ``lane_tile=1``, the
+only layout it has.  ``--match REGEX`` keeps the cases whose label it
+finds.  The iteration form's lines give its bound of bytes (``mu`` read and
+written at the real slots, with damping ``nu`` too, the totals and a
+``[B, n]`` gamma read once, the syndrome) and the time per lane-iteration;
+the tree's packed bfloat16 check body (``minsum_check_packed_kernel``)
+prints its block, registers and blocks an SM (``cuda_minsum.packed_plan``)
+for every build.  Each ``--variant NAME=VALUE[,NAME=VALUE]`` builds the tree's source once
+more with those ``-D`` definitions (the knobs at the top of
+``csrc/minsum.cu``: ``LDPC_MINSUM_FLAT_UNROLL_F32`` / ``_BF16``,
+``LDPC_MINSUM_STAGED_UNROLL``, ``LDPC_MINSUM_VAR_CAP``,
+``LDPC_MINSUM_PACKED_UNROLL`` / ``_THREADS`` / ``_ASYNC``), timed at the
+first tile.  Every build prints its ptxas register counts.
 
 The shapes are ``chip_smoke.py``'s, on the bb144 R=6 p=0.003 DEM in the
 check layout: path (p)'s stage-0 batch (float32, 2048 lanes, damping 0.4)
 and path (q)'s deep bucket (bfloat16, 6 x 256 lanes, per-variable gammas in
 [-0.24, 0.66)), from the state after one iteration from the DEM's priors on
-seeded records, and batches that the tile rule sizes down (a (q) relay
-leg of 6 x 32 lanes on 64-lane tiles; below a tile, where the rule keeps
+seeded records, and batches that the tile rule sizes down (the (q) relay
+legs' buckets of 6 x 32, 6 x 64 and 6 x 128 lanes; below a tile, where the rule keeps
 them lane-major: float32 batches of 24 and 48, a bfloat16 batch of 48 with
 per-variable gammas); and the (1000, 10, 9) Gallager
 code at B=1024 in the variable layout (K3 gathered, K4 damped in place,
@@ -105,7 +115,8 @@ def registers(ptxas: str) -> str:
 
 
 def demangle(name: str) -> str:
-    kind = ("var" if "var" in name else "check_staged" if "staged" in name else "check")
+    kind = ("var" if "var" in name else "check_staged" if "staged" in name
+            else "check_packed" if "packed" in name else "check")
     return kind + ("/bf16" if "bfloat16" in name else "") + "<" + ",".join(
         re.findall(r"Li(\d+)E", name)) + ">"
 
@@ -143,6 +154,24 @@ def launching_into(lib, parent: bool):
         yield
     finally:
         cuda_minsum._launch = saved
+
+
+def packed_plans(lib, tiles):
+    """The packed bfloat16 check body's block in ``lib`` at the bb144 DEM's
+    check degree (294), for each tile: the iteration form with per-variable
+    gammas and the gathered form."""
+    i32 = ctypes.c_int
+    lib.ldpc_minsum_packed_plan.argtypes = [i32] * 4 + [ctypes.POINTER(i32)]
+    lib.ldpc_minsum_packed_plan.restype = i32
+    parts = []
+    for T in tiles:
+        for form, gamma_kind, what in ((2, 2, "iteration, [B, n] gammas"), (1, 0, "gathered")):
+            out = (i32 * 4)()
+            rc = lib.ldpc_minsum_packed_plan(294, T, form, gamma_kind, out)
+            parts.append(f"packed T={T} {what}: " + (
+                f"{out[0]} threads, {out[1]} B shared, {out[2]} registers, {out[3]} blocks an SM"
+                if rc == 0 else f"plan failed ({rc})"))
+    return "; ".join(parts)
 
 
 def event_ms(fn, reps=10):
@@ -219,9 +248,21 @@ def forms(s: Setting):
             **kw), *kw.values())
 
     return [("K3 first iteration (gathered from L0)", k3_first),
-            ("K3 iteration form", k3),
+            ("K3 iteration form", k3, k3_bound(s)),
             ("K4 totals", lambda T: k4(T, False)),
             ("K4 totals and freeze", lambda T: k4(T, True))]
+
+
+def k3_bound(s: Setting):
+    """(note, lane-iterations) of K3's iteration form at ``s``: the least
+    bytes it moves (mu in and out at the real slots, with damping nu too,
+    the totals and a ``[B, n]`` gamma read once, the syndrome) over 3.35 TB/s."""
+    size = s.total0.element_size()
+    E = int(s.ms.chk_mask.sum())
+    per_var = s.gamma.ndim == 2
+    nb = s.B * (4 * E * size + s.n * size * (1 + per_var) + s.m)
+    return (f"bound {nb / PEAK_BYTES_PER_S * 1e3:.4f} ms ({nb / s.B / 1e6:.3f} MB a "
+            f"lane-iteration, bytes)", s.B)
 
 
 def decoder(s: Setting):
@@ -342,6 +383,8 @@ def settings(dev):
     # flagship relay leg of the smallest bucket (6 x 32 lanes: 64-lane tiles,
     # not 128) and batches below a tile (lane-major)
     for B, dtype, label in ((192, torch.bfloat16, "(q) relay leg bf16 B=6x32, [B, n] gammas"),
+                            (384, torch.bfloat16, "(q) relay leg bf16 B=6x64, [B, n] gammas"),
+                            (768, torch.bfloat16, "(q) relay leg bf16 B=6x128, [B, n] gammas"),
                             (24, torch.float32, "f32 B=24, damping 0.4"),
                             (48, torch.float32, "f32 B=48, damping 0.4"),
                             (48, torch.bfloat16, "bf16 B=48, [B, n] gammas")):
@@ -349,7 +392,7 @@ def settings(dev):
         gam = (torch.as_tensor(np.random.default_rng(3).uniform(-0.24, 0.66, (B, dem.n)),
                                device=dev).to(dtype) if dtype == torch.bfloat16 else None)
         yield Setting(f"bb144 DEM {label}", dem, B, dtype, gam,
-                      det[:B // 6].repeat(6, 1).contiguous() if B == 192 else det[:B], L0, dev)
+                      det[:B // 6].repeat(6, 1).contiguous() if B >= 192 else det[:B], L0, dev)
 
 
 def gallager_cases(dev):
@@ -402,8 +445,9 @@ def main() -> int:
                     help="--layout var: the bb144 R=6 DEM or the (1000, 10, 9) Gallager code")
     ap.add_argument("--tiles", default="128,64", help="lane tiles to time, the first as the tree's")
     ap.add_argument("--variant", action="append", default=[],
-                    help="NAME=VALUE: the tree's source built with -DNAME=VALUE")
+                    help="NAME=VALUE[,NAME=VALUE]: the tree's source built with -DNAME=VALUE")
     ap.add_argument("--out", type=Path, help="write the results as JSON here")
+    ap.add_argument("--match", default="", help="time only the cases whose label this finds")
     args = ap.parse_args()
     tiles = [int(t) for t in args.tiles.split(",")]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -415,16 +459,20 @@ def main() -> int:
     print(f"tree: registers {registers(tree_log) or 'not in the log (a cached build)'}")
     if args.parent is None and args.layout == "check":
         ap.error("the check layout's cases take --parent")
-    parent = None
+    parent, parent_tiled = None, False
     if args.parent is not None:
         parent, regs = nvcc_build(args.parent, OUT_DIR / "minsum_parent.so")
-        print(f"parent {args.parent}: registers {regs}")
+        parent_tiled = bool(re.search(r"ldpc_minsum_check\([^)]*lane_tile",
+                                      args.parent.read_text()))
+        print(f"parent {args.parent} ({'lane tiles' if parent_tiled else 'lane-major'}): "
+              f"registers {regs}")
     src = ROOT / "ldpcdecoders_tpu_torch/csrc/minsum.cu"
+    print(f"tree: {packed_plans(_build.load_library(), tiles)}")
     builds = []
     for i, v in enumerate(args.variant):
-        lib, regs = nvcc_build(src, OUT_DIR / f"minsum_variant{i}.so", (v,))
+        lib, regs = nvcc_build(src, OUT_DIR / f"minsum_variant{i}.so", tuple(v.split(",")))
         builds.append((v, lib))
-        print(f"{v}: registers {regs}")
+        print(f"{v}: registers {regs}; {packed_plans(lib, tiles)}")
     dev = torch.device("cuda:0")
     results = []
 
@@ -482,7 +530,8 @@ def main() -> int:
             variants += [(f"tree T={T}", lambda make=make, T=T: make(T), out(T))
                          for T in tiles[1:]]
             if parent is not None:
-                variants.append(("parent", run_in(parent, True, lambda make=make: make(1)), 1))
+                variants.append(("parent", run_in(parent, not parent_tiled,
+                                                  lambda make=make: make(1)), 1))
             good &= compare(label, variants, None, B, 3 if decode else 10, note, lane_iters)
             torch.cuda.empty_cache()
         if args.out:
@@ -492,25 +541,35 @@ def main() -> int:
 
     good = True
     for s in settings(dev):
-        for label, make in forms(s) + [decoder(s)]:
+        for label, make, *bound in forms(s) + [decoder(s)]:
+            if not re.search(args.match, f"{s.label}: {label}"):
+                continue
             decode = label.startswith("MinSumDecode")
 
             def out(T, decode=decode):  # the layout of the results: a decode's are untiled
                 return 1 if decode else T
 
-            variants = [(f"tree T={tiles[0]}", lambda make=make: make(tiles[0]), out(tiles[0])),
-                        ("parent", run_in(parent, True, lambda make=make: make(1)), 1),
-                        ("tree T=1", lambda make=make: make(1), 1)]
+            variants = [(f"tree T={tiles[0]}", lambda make=make: make(tiles[0]), out(tiles[0]))]
+            if parent_tiled:
+                variants += [(f"parent T={T}", run_in(parent, False, lambda make=make, T=T: make(T)),
+                              out(T)) for T in tiles]
+            else:
+                variants.append(("parent", run_in(parent, True, lambda make=make: make(1)), 1))
+            variants.append(("tree T=1", lambda make=make: make(1), 1))
             variants += [(f"tree T={T}", lambda make=make, T=T: make(T), out(T))
                          for T in tiles[1:]]
             variants += [(f"{v} T={tiles[0]}", run_in(lib, False, lambda make=make: make(tiles[0])),
                           out(tiles[0])) for v, lib in builds]
+            note, lane_iters = bound[0] if bound else (None, None)
             good &= compare(f"{s.label}: {label}", variants, None if decode else s.real, s.B,
-                            3 if decode else 10)
+                            3 if decode else 10, note, lane_iters)
         del s
         torch.cuda.empty_cache()
     for label, make, real in gallager_cases(dev):
-        good &= compare(label, [("tree", make, 1), ("parent", run_in(parent, True, make), 1)]
+        if not re.search(args.match, label):
+            continue
+        good &= compare(label, [("tree", make, 1),
+                                ("parent", run_in(parent, not parent_tiled, make), 1)]
                         + [(v, run_in(lib, False, make), 1) for v, lib in builds], real)
     if args.out:
         args.out.write_text(json.dumps({"card": card, "results": results}, indent=1))
