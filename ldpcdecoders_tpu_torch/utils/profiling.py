@@ -14,7 +14,8 @@ Counterpart of ``ldpcdecoders_tpu/utils/profiling.py`` on
   it that ran on lane tiles), and the check wrappers'
   ``minsum_check_lane_iters_packed`` (the lanes of each bfloat16 K3 launch
   on lane tiles); :func:`count_sum` counts the sum of a device tensor, read
-  only while recording.
+  only while recording; :func:`call_counters` reads the current call's
+  counters back (the windowed decoder's per-window increments).
 * Recording is on inside :func:`recording`, which yields its
   :class:`Recorder`, and while a ``torch.profiler`` session runs, whose
   record :func:`profiled` returns.  Off, :func:`span` returns one shared
@@ -44,7 +45,8 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 __all__ = ["trace", "annotate", "recording", "profiled", "span", "call_span", "count",
-           "count_sum", "to_host", "host_int", "to_device", "settle", "Recorder", "Span", "Call"]
+           "count_sum", "call_counters", "to_host", "host_int", "to_device", "settle",
+           "Recorder", "Span", "Call"]
 
 
 @dataclasses.dataclass
@@ -224,10 +226,25 @@ def count_sum(name: str, t: torch.Tensor) -> None:
         _add(rec, name, int(t.sum(dtype=torch.int64)))
 
 
-def _add(rec: Recorder, name: str, n: int) -> None:
+def _top_call(rec: Recorder) -> int | None:
     st = _stack()
     top = st[-1] if st and st[-1].rec is rec else None
-    rec._count(name, int(n), None if top is None else top.call)
+    return None if top is None else top.call
+
+
+def _add(rec: Recorder, name: str, n: int) -> None:
+    rec._count(name, int(n), _top_call(rec))
+
+
+def call_counters() -> dict[str, int] | None:
+    """A copy of the counters of the thread's current call (of the
+    recording where outside any call); None when recording is off."""
+    rec = _active()
+    if rec is None:
+        return None
+    call = _top_call(rec)
+    with rec._lock:
+        return dict(rec.counters if call is None else rec.calls[call].counters)
 
 
 def _nbytes(t) -> int:

@@ -458,3 +458,74 @@ def test_count_sum_touches_nothing_when_off():
     with profiling.recording() as rec:
         profiling.count_sum("x", torch.tensor([2, 3], dtype=torch.int32))
     assert rec.counters["x"] == 5
+
+
+# -- the windowed decoder: one span a window around its inner's ------------------
+
+
+def _round_dem(seed=7, R=6, r=12, per_round=40):
+    """A DEM of ``R`` rounds of ``r`` detectors: a single-detector mechanism
+    on each detector, and ``per_round`` mechanisms a round of 1-3 detectors
+    over that round and the next (column weights 1-3)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    cols = [[d] for d in range(R * r)]
+    for t in range(R):
+        for _ in range(per_round):
+            rounds = min(int(rng.integers(1, 3)), R - t)
+            pool = np.arange(t * r, (t + rounds) * r)
+            first = int(rng.integers(t * r, (t + 1) * r))
+            rest = rng.choice(pool[pool != first], int(rng.integers(0, 3)), replace=False)
+            cols.append([first, *rest.tolist()])
+    A = np.zeros((R * r, len(cols)), np.uint8)
+    for j, rows in enumerate(cols):
+        A[rows, j] = 1
+    priors = np.array([0.004, 0.01, 0.02, 0.03])[rng.integers(0, 4, len(cols))]
+    return sp.csr_matrix(A), priors
+
+
+@pytest.fixture(scope="module")
+def windowed():
+    A, priors = _round_dem()
+    dec = pt.WindowedDemDecoder(A, priors, detectors_per_round=12, window=3, commit=1,
+                                max_iters=24, min_bucket=4, hbm_bytes=8 << 30, device="cpu",
+                                **{k: v for k, v in FLAGSHIP.items()
+                                   if k not in ("deep_iters", "relay_iters")})
+    x = (np.random.default_rng(9).random((48, A.shape[1])) < 3.0 * priors).astype(np.uint8)
+    det = (x @ A.T.toarray() % 2).astype(np.uint8)
+    off = dec.batch_decode_detailed(det)
+    with profiling.recording() as rec:
+        on = dec.batch_decode_detailed(det)
+    return dec, det, rec, off, on
+
+
+def test_windowed_spans_one_a_window_around_the_inner(windowed):
+    dec, _, rec, off, on = windowed
+    for a, b in zip(off[:3], on[:3]):
+        assert np.array_equal(a, b)
+    (call,) = rec.calls
+    tree = [(depth(rec, s), s.name) for s in call.spans]
+    assert [n for d, n in tree if d == 1] == ["ldpc.to_device", "ldpc.decode", "ldpc.to_host"]
+    windows = [s for d, s in zip((d for d, _ in tree), call.spans) if d == 2]
+    assert [s.name for s in windows] == ["ldpc.window"] * len(dec._plan) == ["ldpc.window"] * 4
+    index = {id(s): i for i, s in enumerate(rec.spans)}
+    for w in windows:
+        kids = [s.name for s in call.spans if s.parent == index[id(w)]]
+        assert kids[0] == "ldpc.staged.stage0" and kids[-1] == "ldpc.window.commit"
+        assert kids.count("ldpc.window.commit") == 1
+    # the windows' inners reached their deep ensembles and relay legs
+    names = [s.name for s in call.spans]
+    assert "ldpc.staged.deep" in names and "ldpc.staged.relay" in names
+
+
+def test_windowed_counters_per_window_sum_to_the_inner_counters(windowed):
+    dec, _, rec, _, (err, conv, iters, aux, _) = windowed
+    c = rec.totals()
+    W = len(dec._plan)
+    assert c["windows"] == W and c["window_commit_cols"] == dec.N
+    assert c["window_lanes_unconverged"] == int((~aux["window_converged"]).sum()) > 0
+    for name in ("stage0_lane_iters", "member_lane_iters"):
+        assert sum(c[f"{name}.w{k}"] for k in range(W)) == c[name] > 0
+    assert not (conv & (iters == 0)).any() and np.array_equal(conv,
+                                                              aux["window_converged"].all(1))

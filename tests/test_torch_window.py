@@ -173,3 +173,73 @@ def test_windowed_dem_staged_inner_telescopes():
     flips, _ = wd.predict_observables(det)
     ref_flips, _ = RefDemWindow(A, pr, **kw).predict_observables(det)
     assert (flips == ref_flips).mean() >= 0.75
+
+
+def host_windows(wd, det, per=None, seed=0):
+    """The windows one at a time through each inner's public contract, the
+    record kept and updated on the host: ``(err, converged, iters,
+    window_converged)`` as the decoder contract defines them."""
+    d = det.astype(np.uint8).copy()
+    B = d.shape[0]
+    err = np.zeros((B, wd.N), np.int8)
+    iters = np.zeros(B, np.int64)
+    wconv = np.zeros((B, len(wd._plan)), bool)
+    for idx, (t, rounds, closed) in enumerate(wd._plan):
+        cols, A_w, pr_w, cm = wd._window_model(idx)
+        dec = wd._decoder_for(A_w, pr_w)
+        x, conv, it, _, _ = dec.batch_decode_detailed(
+            d[:, t * wd.r: (t + rounds) * wd.r], seed=seed + idx,
+            per=None if per is None else per[cols])
+        err[:, cols[cm]] = x[:, cm]
+        wconv[:, idx] = conv
+        iters += it
+        if not closed:
+            lo = (t + wd.commit) * wd.r
+            flips = (wd.A[lo:, cols[cm]].astype(np.int64) @ x[:, cm].T.astype(np.int64)).T
+            d[:, lo:] ^= (flips % 2).astype(np.uint8)
+    return err, wconv.all(axis=1), iters, wconv
+
+
+@pytest.mark.parametrize("decoder", ["minsum", "staged"])
+@pytest.mark.parametrize("wc", [(3, 1), (4, 2)], ids=["w3c1", "w4c2"])
+def test_windowed_dem_contract(wc, decoder):
+    """The decoder contract on the device record: ``err`` bitwise the
+    stream's (and the JAX package's, for the min-sum inner), ``converged``
+    the AND and ``iters`` the sum over windows of each window's inner."""
+    _, A, pr, _, det, m = toric_stream(B=24, seed=6)
+    kw = dict(detectors_per_round=m, window=wc[0], commit=wc[1], decoder=decoder,
+              max_iters=32)
+    if decoder == "staged":
+        kw.update(gammas=(0.3,), stage0_iters=8, lam=8, min_bucket=8)
+    port = pt.WindowedDemDecoder(A, pr, device="cpu", **kw)
+    err, conv, iters, aux, stats = port.batch_decode_detailed(det, seed=3)
+    assert err.dtype == np.int8 and err.shape == (24, A.shape[1])
+    assert conv.dtype == bool and conv.shape == iters.shape == (24,)
+    out, info = port.decode_detector_stream(det, seed=3)
+    assert np.array_equal(err, out)
+    h_err, h_conv, h_iters, h_wconv = host_windows(port, det, seed=3)
+    assert np.array_equal(err, h_err)
+    assert np.array_equal(conv, h_conv) and np.array_equal(iters, h_iters)
+    assert np.array_equal(aux["window_converged"], h_wconv)
+    assert info["converged"] == pytest.approx(h_wconv.mean(axis=0).mean(), abs=1e-12)
+    assert stats.batch_size == 24 and info["windows"] == len(port._plan) > 1
+    if decoder == "minsum":
+        ref_out, _ = RefDemWindow(A, pr, **kw).decode_detector_stream(det, seed=3)
+        assert np.array_equal(err, np.asarray(ref_out))
+    else:  # each window's staged answer reproduces its rows, so the whole record
+        np.testing.assert_array_equal((err.astype(np.int32) @ A.T) % 2, det)
+
+
+@pytest.mark.parametrize("wc", [(3, 1), (4, 2)], ids=["w3c1", "w4c2"])
+def test_windowed_dem_per_vector_is_sliced_and_other_shapes_refused(wc):
+    _, A, pr, _, det, m = toric_stream(B=16, seed=8)
+    port = pt.WindowedDemDecoder(A, pr, detectors_per_round=m, window=wc[0], commit=wc[1],
+                                 decoder="minsum", max_iters=24, device="cpu")
+    per = np.clip(pr * np.random.default_rng(1).uniform(0.5, 3.0, pr.size), 1e-4, 0.4)
+    err, conv, iters, _, _ = port.batch_decode_detailed(det, per=per)
+    h_err, h_conv, h_iters, _ = host_windows(port, det, per=per)
+    assert np.array_equal(err, h_err)
+    assert np.array_equal(conv, h_conv) and np.array_equal(iters, h_iters)
+    for bad in (0.01, per[:-1], np.tile(per, (det.shape[0], 1))):
+        with pytest.raises(ValueError, match="per must be"):
+            port.batch_decode_detailed(det, per=bad)
